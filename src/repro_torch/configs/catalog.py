@@ -1,0 +1,60 @@
+"""The dense homogeneous architectures the port serves, copied from
+``repro.configs.catalog`` with the same values.
+
+The other families of the reference catalog need model code the port does
+not have yet; ``get_config`` names the ROADMAP item that brings each.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+from repro_torch.models.config import ATTN_GLOBAL, ATTN_LOCAL, ModelConfig
+
+# [arXiv:2408.00118] — local+global alternating, logit softcap
+GEMMA2_2B = ModelConfig(
+    name="gemma2-2b", family="dense",
+    num_layers=26, d_model=2304, num_heads=8, num_kv_heads=4, head_dim=256,
+    d_ff=9216, vocab_size=256_000,
+    layer_pattern=(ATTN_LOCAL, ATTN_GLOBAL), local_window=4096,
+    attn_logit_softcap=50.0, final_logit_softcap=30.0)
+
+# [hf:ibm-granite/granite-3.0-2b-base] — GQA
+GRANITE_3_2B = ModelConfig(
+    name="granite-3-2b", family="dense",
+    num_layers=40, d_model=2048, num_heads=32, num_kv_heads=8, head_dim=64,
+    d_ff=8192, vocab_size=49_155)
+
+# [arXiv:2405.04324] — llama-arch, code
+GRANITE_8B = ModelConfig(
+    name="granite-8b", family="dense",
+    num_layers=36, d_model=4096, num_heads=32, num_kv_heads=8, head_dim=128,
+    d_ff=14_336, vocab_size=49_152)
+
+# [arXiv:2403.04652] — llama-arch GQA
+YI_9B = ModelConfig(
+    name="yi-9b", family="dense",
+    num_layers=48, d_model=4096, num_heads=32, num_kv_heads=4, head_dim=128,
+    d_ff=11_008, vocab_size=64_000)
+
+ARCHS: Dict[str, ModelConfig] = {
+    c.name: c for c in (GEMMA2_2B, GRANITE_3_2B, GRANITE_8B, YI_9B)}
+
+# Architectures of the reference catalog that wait for later slices of the
+# port, with the ROADMAP queue item that brings each.
+PENDING: Dict[str, str] = {
+    "recurrentgemma-9b": "ROADMAP M7 (hybrid RG-LRU)",
+    "rwkv6-7b": "ROADMAP M8 (RWKV6)",
+    "granite-moe-3b-a800m": "ROADMAP M9 (MoE)",
+    "dbrx-132b": "ROADMAP M9 (MoE)",
+    "whisper-tiny": "ROADMAP M10 (encoder-decoder)",
+    "llava-next-34b": "ROADMAP M10 (VLM prefix embeddings)",
+}
+
+
+def get_config(name: str) -> ModelConfig:
+    if name in PENDING:
+        raise NotImplementedError(
+            f"{name} is not ported yet; it comes with {PENDING[name]}")
+    if name not in ARCHS:
+        raise KeyError(f"unknown arch {name!r}; have {sorted(ARCHS)}")
+    return ARCHS[name]

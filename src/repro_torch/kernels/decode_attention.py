@@ -1,0 +1,91 @@
+"""Decode attention: the CUDA kernel's wrapper and its plain version.
+
+The kernel (``csrc/decode_attention.cu``) replaces the Pallas TPU kernel
+``repro.kernels.decode_attention.decode_attention`` and adds the window and
+slot positions that decoding against the model's cache needs; its source
+says what bounds it on the H100 and how its design answers that.
+``launches`` counts the kernel's launches.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention import DTYPES, HEAD_DIMS, _check_operand
+from repro_torch.kernels.ref import decode_attention_reference
+
+GROUP_SIZES = (1, 2, 4, 8)
+
+launches = 0
+
+# The plain PyTorch version of the kernel: the CPU path, and the card-side
+# check of the kernel.
+plain = decode_attention_reference
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = _build.library("decode_attention")
+    fn = lib.decode_attention_fwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+                   + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
+    return lib
+
+
+def _int32_vector(name: str, t: torch.Tensor, shape) -> torch.Tensor:
+    if t.shape != shape or t.dtype != torch.int32 or not t.is_cuda:
+        raise ValueError(f"decode_attention: {name} must be a CUDA int32 "
+                         f"tensor of shape {shape}")
+    return t.contiguous()
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     lengths: torch.Tensor, *, softcap: float = 0.0,
+                     window: int = 0, q_pos: Optional[torch.Tensor] = None,
+                     slot_pos: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch the kernel.  q: (B, H, d); k/v: (B, K, T, d) on the card,
+    float32 or bfloat16, H/K in {1, 2, 4, 8}, d in {64, 128, 256};
+    lengths (B,) int32 bounds the slots scanned; ``slot_pos`` (B, T) int32
+    and ``q_pos`` (B,) int32 give the mask of
+    :func:`repro_torch.kernels.ref.decode_mask`.  Any strides with a
+    contiguous head dimension.  → (B, H, d)."""
+    global launches
+    B, H, d = q.shape
+    K, T = k.shape[1], k.shape[2]
+    if d not in HEAD_DIMS:
+        raise ValueError(f"decode_attention: head_dim {d} not in {HEAD_DIMS}")
+    if H % K or H // K not in GROUP_SIZES or k.shape != (B, K, T, d) \
+            or v.shape != k.shape:
+        raise ValueError(f"decode_attention: bad shapes q{tuple(q.shape)} "
+                         f"k{tuple(k.shape)} v{tuple(v.shape)}")
+    if q.dtype not in DTYPES:
+        raise ValueError(f"decode_attention: dtype {q.dtype} not supported")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _check_operand(name, t, q.dtype)
+    lengths = _int32_vector("lengths", lengths, (B,))
+    if slot_pos is not None:
+        if q_pos is None:
+            raise ValueError("decode_attention: slot_pos needs q_pos")
+        slot_pos = _int32_vector("slot_pos", slot_pos, (B, T))
+    if q_pos is not None:
+        q_pos = _int32_vector("q_pos", q_pos, (B,))
+    out = torch.empty((B, H, d), dtype=q.dtype, device=q.device)
+    strides = (ctypes.c_longlong * 10)(*(q.stride()[:2] + k.stride()[:3]
+                                         + v.stride()[:3] + out.stride()[:2]))
+    lib = _lib()
+    err = lib.decode_attention_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lengths.data_ptr(),
+        q_pos.data_ptr() if q_pos is not None else None,
+        slot_pos.data_ptr() if slot_pos is not None else None, strides,
+        B, H, K, T, d, DTYPES[q.dtype], int(window), float(softcap),
+        1.0 / math.sqrt(d), torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "decode_attention")
+    launches += 1
+    return out

@@ -1,0 +1,32 @@
+"""Dispatch over the port's kernels, mirroring ``repro.kernels.ops``.
+
+A tensor on the card goes to the hand-written CUDA kernel, which launches or
+raises; a tensor on the CPU goes to the kernel's plain PyTorch version.
+There is no fallback from one to the other.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import decode_attention as _dec
+from repro_torch.kernels import flash_attention as _fa
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    softcap: float = 0.0,
+                    lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """q: (B, H, Sq, d); k/v: (B, K, Skv, d) → (B, H, Sq, d)."""
+    fn = _fa.flash_attention if q.is_cuda else _fa.plain
+    return fn(q, k, v, causal=causal, window=window, softcap=softcap,
+              lengths=lengths)
+
+
+def decode_attention(q, k, v, lengths, *, softcap: float = 0.0,
+                     window: int = 0, q_pos: Optional[torch.Tensor] = None,
+                     slot_pos: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """q: (B, H, d); k/v: (B, K, T, d); lengths: (B,) → (B, H, d)."""
+    fn = _dec.decode_attention if q.is_cuda else _dec.plain
+    return fn(q, k, v, lengths, softcap=softcap, window=window, q_pos=q_pos,
+              slot_pos=slot_pos)

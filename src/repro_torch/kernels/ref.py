@@ -1,0 +1,93 @@
+"""Plain PyTorch versions of the attention kernels (naive, obviously-correct
+math), ported from ``repro.kernels.ref``.
+
+They are direct definitions — dense logits, dense softmax, fp32 throughout —
+independent of the tiled online-softmax algorithm of the CUDA kernels, so
+comparing the two is meaningful.  The CPU path of ``repro_torch.kernels.ops``
+runs them; on the card they serve only as the check of the kernels.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+NEG_INF = -1e30
+
+
+def _softcap(logits: torch.Tensor, cap: float) -> torch.Tensor:
+    if cap and cap > 0.0:
+        return cap * torch.tanh(logits / cap)
+    return logits
+
+
+def mha_reference(q, k, v, *, causal: bool = True, window: int = 0,
+                  softcap: float = 0.0,
+                  lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """q: (B, H, Sq, d); k/v: (B, K, Skv, d) (GQA) → (B, H, Sq, d).
+
+    ``window`` 0 means global; ``lengths`` (B,) masks keys ≥ lengths[b].
+    """
+    B, H, Sq, d = q.shape
+    K, Skv = k.shape[1], k.shape[2]
+    G = H // K
+    qg = q.reshape(B, K, G, Sq, d).float()
+    logits = torch.einsum("bkgsd,bktd->bkgst", qg, k.float()) / math.sqrt(d)
+    logits = _softcap(logits, softcap)
+    q_pos = torch.arange(Sq, device=q.device)
+    k_pos = torch.arange(Skv, device=q.device)
+    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= k_pos[None, :] <= q_pos[:, None]
+    if window > 0:
+        mask &= k_pos[None, :] > q_pos[:, None] - window
+    mask = mask.expand(B, Sq, Skv)
+    if lengths is not None:
+        mask = mask & (k_pos[None, None, :] < lengths[:, None, None])
+    logits = torch.where(mask[:, None, None], logits, NEG_INF)
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgst,bktd->bkgsd", p, v.float())
+    return out.reshape(B, H, Sq, d).to(q.dtype)
+
+
+def decode_mask(lengths, T: int, *, window: int = 0, q_pos=None,
+                slot_pos=None) -> torch.Tensor:
+    """(B, T) bool: which cache slots one decoding query may attend to.
+
+    A slot holds position ``slot_pos[b, t]`` (−1 when empty); without
+    ``slot_pos`` slot t holds position t and the query sits at
+    ``lengths − 1``.  The mask is ``pos ≥ 0 ∧ pos ≤ q_pos ∧ pos > q_pos −
+    window`` (window 0 = global) and ``t < lengths[b]`` — exactly the
+    decode mask of ``repro.models.transformer.DecoderLM._attn_decode``.
+    """
+    t = torch.arange(T, device=lengths.device)
+    pos = slot_pos if slot_pos is not None else t[None, :].expand(len(lengths), T)
+    qp = (q_pos if q_pos is not None else lengths - 1)[:, None]
+    mask = (pos >= 0) & (pos <= qp) & (t[None, :] < lengths[:, None])
+    if window > 0:
+        mask &= pos > qp - window
+    return mask
+
+
+def decode_attention_reference(q, k, v, lengths, *, softcap: float = 0.0,
+                               window: int = 0, q_pos=None,
+                               slot_pos=None) -> torch.Tensor:
+    """q: (B, H, d); k/v: (B, K, T, d); lengths: (B,) → (B, H, d).
+
+    Unlike ``repro.kernels.ref.decode_attention_reference`` this keeps
+    ``softcap``, and takes the window and slot positions that decoding
+    against a ring-buffer cache needs (see :func:`decode_mask`).
+    """
+    B, H, d = q.shape
+    K, T = k.shape[1], k.shape[2]
+    G = H // K
+    qg = q.reshape(B, K, G, d).float()
+    logits = torch.einsum("bkgd,bktd->bkgt", qg, k.float()) / math.sqrt(d)
+    logits = _softcap(logits, softcap)
+    mask = decode_mask(lengths, T, window=window, q_pos=q_pos,
+                       slot_pos=slot_pos)
+    logits = torch.where(mask[:, None, None], logits, NEG_INF)
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgt,bktd->bkgd", p, v.float())
+    return out.reshape(B, H, d).to(q.dtype)

@@ -1,0 +1,101 @@
+"""Where a served batch's time goes: one prefill and a few decode steps of a
+full-width model under ``torch.profiler``, on the card.
+
+  PYTHONPATH=src python -m repro_torch.launch.profile_step
+
+runs gemma2-2b at batch 8 with 512-token prompts and 15 decode steps (the
+module constants below), and prints, for the prefill and for the mean
+decode step: wall time (host clock
+around work that ends in ``torch.cuda.synchronize()``), device busy time
+(the union of the kernel intervals in the trace), the device's idle share,
+the number of kernels launched, and the kernels that take the most device
+time.
+"""
+from __future__ import annotations
+
+import json
+import time
+from collections import defaultdict
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from repro_torch import resolve_device
+from repro_torch.configs import get_config
+from repro_torch.models import build_model
+from repro_torch.serving.engine import (greedy_sample, make_decode_fn,
+                                        make_prefill_fn, serving_config)
+
+ARCH = "gemma2-2b"
+BATCH = 8
+PROMPT_TOKENS = 512
+DECODE_STEPS = 15
+
+
+def _busy(events) -> float:
+    """Microseconds during which at least one kernel ran."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    busy, end = 0.0, float("-inf")
+    for s, e in spans:
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    return busy
+
+
+def _window(fn, n: int):
+    """Profile ``fn`` run n times → (wall ms per run, device-busy ms per run,
+    kernels per run, top kernels by device ms per run)."""
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / n
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        raise RuntimeError("the trace holds no device activity")
+    per_name = defaultdict(float)
+    for e in kernels:
+        per_name[e.name] += e.time_range.elapsed_us() / 1e3 / n
+    top = sorted(per_name.items(), key=lambda kv: -kv[1])[:8]
+    return wall, _busy(kernels) / 1e3 / n, len(kernels) / n, top
+
+
+def main() -> None:
+    dev = resolve_device("cuda")
+    model = build_model(serving_config(get_config(ARCH)), dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    B, S = BATCH, PROMPT_TOKENS
+    toks = torch.ones((B, S), dtype=torch.int32, device=dev)
+    lens = torch.full((B,), S, dtype=torch.int32, device=dev)
+    prefill = make_prefill_fn(model, S + DECODE_STEPS + 1)
+    decode = make_decode_fn(model)
+    state = {}
+
+    def run_prefill():
+        state["cache"], logits = prefill(params, toks, lens)
+        state["tok"] = greedy_sample(logits)
+
+    def run_decode():
+        state["cache"], logits = decode(params, state["cache"], state["tok"])
+        state["tok"] = greedy_sample(logits)
+
+    run_prefill()
+    run_decode()                                 # warm-up
+    for name, fn, n in (("prefill", run_prefill, 1),
+                        ("decode_step", run_decode, DECODE_STEPS)):
+        if name == "prefill":
+            fn()                                 # a second warm prefill
+        wall, busy, count, top = _window(fn, n)
+        print(json.dumps({
+            "phase": name, "arch": ARCH, "batch": B, "prompt_tokens": S,
+            "wall_ms": wall, "device_busy_ms": busy,
+            "device_idle_share": 1.0 - busy / wall, "kernels": count,
+            "top_kernels_ms": {k[:80]: v for k, v in top}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,5 @@
+from repro_torch.models.config import ModelConfig, reduced
+from repro_torch.models.registry import build_model
+from repro_torch.models.transformer import DecoderLM
+
+__all__ = ["DecoderLM", "ModelConfig", "build_model", "reduced"]

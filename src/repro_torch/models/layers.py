@@ -1,0 +1,133 @@
+"""Core model building blocks as plain functions on tensors, ported from
+``repro.models.layers``.
+
+Parameters are nested dicts of tensors in the reference's layouts (``wq``
+(D, H, hd), ``wo`` (H, hd, D), ...), so converted JAX weights drop in as they
+are.  ``attend`` stays plain: it is the model-level reference the kernels are
+held to.  Attention inside the model goes through ``repro_torch.kernels.ops``.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+from repro_torch.kernels.ref import _softcap
+
+Params = Dict[str, torch.Tensor]
+
+
+# --------------------------------------------------------------------------
+# initializers (same distributions as the reference; not the same numbers)
+# --------------------------------------------------------------------------
+def dense_init(gen: torch.Generator, shape, in_dim: int, dtype,
+               device) -> torch.Tensor:
+    w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+    return (w / math.sqrt(in_dim)).to(dtype)
+
+
+def embed_init(gen: torch.Generator, vocab: int, d: int, dtype,
+               device) -> torch.Tensor:
+    w = torch.randn((vocab, d), generator=gen, dtype=torch.float32, device=device)
+    return (w * 0.02).to(dtype)
+
+
+# --------------------------------------------------------------------------
+# RMSNorm, RoPE (the softcap is the kernels' plain one, ``ref._softcap``)
+# --------------------------------------------------------------------------
+def rmsnorm(params: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    x32 = x.float()
+    var = x32.square().mean(dim=-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps)
+    return (y * (1.0 + params["scale"].float())).to(x.dtype)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (..., S, H, hd); positions: broadcastable to (..., S)."""
+    half = x.shape[-1] // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                    device=x.device) / half)
+    angles = positions[..., None].float() * freqs          # (..., S, half)
+    cos = torch.cos(angles)[..., None, :]                  # (..., S, 1, half)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# attention (GQA + optional local window + optional logit softcap)
+# --------------------------------------------------------------------------
+def attend(q, k, v, q_pos, k_pos, *, causal: bool, window: int = 0,
+           softcap: float = 0.0,
+           k_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Grouped-query attention core, plain.
+
+    q: (B, S, H, hd); k/v: (B, T, K, hd); q_pos: (B, S); k_pos: (B, T);
+    k_valid: optional (B, T) bool mask of live cache slots; window 0 =
+    global.  Returns (B, S, H, hd).
+    """
+    B, S, H, hd = q.shape
+    T, K = k.shape[1], k.shape[2]
+    qg = q.reshape(B, S, K, H // K, hd)
+    logits = torch.einsum("bskgd,btkd->bkgst", qg.float(), k.float()) \
+        * (1.0 / math.sqrt(hd))
+    logits = _softcap(logits, softcap)
+    mask = torch.ones((B, S, T), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= k_pos[:, None, :] <= q_pos[:, :, None]
+    if window > 0:
+        mask &= k_pos[:, None, :] > (q_pos[:, :, None] - window)
+    if k_valid is not None:
+        mask &= k_valid[:, None, :]
+    logits = torch.where(mask[:, None, None], logits, -1e30)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgst,btkd->bskgd", probs, v.float())
+    return out.reshape(B, S, H, hd).to(q.dtype)
+
+
+def project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x: (B, S, D) @ w: (D, H, hd) → (B, S, H, hd)."""
+    D, H, hd = w.shape
+    return (x @ w.reshape(D, H * hd)).view(*x.shape[:-1], H, hd)
+
+
+def project_out(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """out: (B, S, H, hd) @ wo: (H, hd, D) → (B, S, D)."""
+    H, hd, D = wo.shape
+    return out.reshape(*out.shape[:-2], H * hd) @ wo.reshape(H * hd, D)
+
+
+def attention_apply(params: Params, x: torch.Tensor, positions: torch.Tensor,
+                    *, rope_theta: float, causal: bool = True,
+                    window: int = 0, softcap: float = 0.0,
+                    lengths: Optional[torch.Tensor] = None,
+                    return_kv: bool = False):
+    """Self-attention over a prompt: projections, RoPE, flash attention,
+    output projection.  ``positions`` are 0..S-1 per row (prompts start at
+    position 0, which the kernel's causal mask assumes); ``lengths`` (B,)
+    masks keys of right-padded prompts.  With ``return_kv`` also returns the
+    roped k and v, (B, S, K, hd) each."""
+    q = rope(project(x, params["wq"]), positions, rope_theta)
+    k = rope(project(x, params["wk"]), positions, rope_theta)
+    v = project(x, params["wv"])
+    out = ops.flash_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        causal=causal, window=window, softcap=softcap,
+        lengths=lengths).transpose(1, 2)
+    y = project_out(out, params["wo"])
+    if return_kv:
+        return y, (k, v)
+    return y
+
+
+# --------------------------------------------------------------------------
+# gated MLP (SwiGLU)
+# --------------------------------------------------------------------------
+def mlp_apply(params: Params, x: torch.Tensor) -> torch.Tensor:
+    h = x @ params["wi"]
+    g = x @ params["wg"]
+    return (F.silu(g) * h) @ params["wo"]

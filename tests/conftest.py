@@ -6,3 +6,7 @@ try:
 except ImportError:
     collect_ignore.append("test_property.py")
     collect_ignore.append("test_simulator_invariants.py")
+
+
+def pytest_configure(config):
+    config.addinivalue_line("markers", "gpu: needs a CUDA card; skipped without one")

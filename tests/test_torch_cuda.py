@@ -1,0 +1,98 @@
+"""The CUDA kernels against their plain PyTorch versions, on a card.
+
+Every test here is marked ``gpu`` and skips without a CUDA device; on the
+H100 run them with ``python -m pytest -q -m gpu tests/test_torch_cuda.py``.
+The plain versions are themselves held to the JAX kernels and references by
+``tests/test_torch_kernels.py``.  Tolerances are those of
+``tests/test_kernels.py``: 2e-5 for fp32, 2e-2 for bf16 (fp32 products stay
+IEEE: TF32 is switched off).
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import decode_attention as da  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def arrays(seed, dtype, *shapes):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(s, dtype=np.float32)).to(TORCH_DT[dtype])
+            for s in shapes]
+
+
+def assert_close(port, want, dtype):
+    np.testing.assert_allclose(port.float().cpu().numpy(), want.float().cpu().numpy(),
+                               atol=TOL[dtype], rtol=TOL[dtype] * 10)
+
+
+def ring_slots(T, q_pos, seed):
+    """slot_pos of a cache in ring layout: slot t holds the latest position
+    ≡ t (mod T) up to q_pos, with a few empty (padded) slots."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(T)[None, :]
+    qp = q_pos[:, None]
+    pos = qp - ((qp - t) % T)
+    pos = np.where(pos >= 0, pos, -1)
+    pos[rng.random(pos.shape) < 0.1] = -1
+    return pos.astype(np.int32)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("opts", [dict(causal=True, window=48, softcap=50.0),
+                                  dict(causal=False)])
+def test_flash_kernel_matches_plain(cuda, d, dtype, opts):
+    B, H, K, S = 3, 8, 2, 200
+    tq, tk, tv = arrays(6, dtype, (B, H, S, d), (B, K, S, d), (B, K, S, d))
+    tq, tk, tv = (t.to(cuda) for t in (tq, tk, tv))
+    lengths = torch.tensor([200, 131, 5], dtype=torch.int32, device=cuda)
+    n0 = fa.launches
+    got = fa.flash_attention(tq, tk, tv, lengths=lengths, **opts)
+    assert fa.launches == n0 + 1
+    want = fa.plain(tq, tk, tv, lengths=lengths, **opts)
+    for b, n in enumerate((200, 131, 5)):
+        assert_close(got[b, :, :n], want[b, :, :n], dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", da.HEAD_DIMS)
+@pytest.mark.parametrize("G", da.GROUP_SIZES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_kernel_matches_plain(cuda, d, G, dtype):
+    B, K, T = 3, 2, 300
+    tq, tk, tv = arrays(7, dtype, (B, G * K, d), (B, T, K, d), (B, T, K, d))
+    tq, tk, tv = tq.to(cuda), tk.to(cuda).transpose(1, 2), tv.to(cuda).transpose(1, 2)
+    q_pos = np.array([17, 299, 450], np.int32)
+    slot_pos = torch.from_numpy(ring_slots(T, q_pos, seed=8)).to(cuda)
+    kw = dict(softcap=50.0, window=64, q_pos=torch.from_numpy(q_pos).to(cuda),
+              slot_pos=slot_pos)
+    lengths = torch.full((B,), T, dtype=torch.int32, device=cuda)
+    got = da.decode_attention(tq, tk, tv, lengths, **kw)
+    assert_close(got, da.plain(tq, tk, tv, lengths, **kw), dtype)
+    got = da.decode_attention(tq, tk, tv, lengths - 7)
+    assert_close(got, da.plain(tq, tk, tv, lengths - 7), dtype)
+
+
+@pytest.mark.gpu
+def test_kernels_reject_what_they_do_not_take(cuda):
+    q = torch.zeros((1, 2, 8, 96), device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention(q, q[:, :1], q[:, :1])
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.flash_attention(torch.zeros((1, 2, 8, 64)), *(torch.zeros((1, 1, 8, 64),
+                                                                     device=cuda),) * 2)
