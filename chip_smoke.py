@@ -6,22 +6,30 @@
 Phases, each printed on its own lines; any failure exits non-zero:
   1. device   — nvidia-smi name and power limit, torch's device name and
                 capability (must be 9.0);
-  2. build    — both CUDA kernels from ``src/repro_torch/kernels/csrc`` with
-                nvcc for sm_90a, in parallel, with ptxas's resource report;
-  3. kernels  — each kernel against its plain PyTorch version at gemma2-2b's
-                shapes (bf16, H=8, K=4, d=256, softcap 50, window 4096 and
-                global), element by element within one bf16 ulp
-                (|err| ≤ 1e-5 + 2^-7·|want|), and planted faults (a kv tile
-                skipped, the window one tile wide) that this check must
-                reject; kernel, plain and library times (CUDA events) and
-                the least time the card could take;
+  2. build    — the three CUDA kernels from ``src/repro_torch/kernels/csrc``
+                with nvcc for sm_90a, in parallel, with ptxas's resource
+                report (no instantiation may spill);
+  3. kernels  — each kernel against its plain PyTorch version, element by
+                element, with planted faults that the check must reject, and
+                kernel, plain and library times (CUDA events) beside the
+                least time the card could take:
+                K1 and K2 at gemma2-2b's shapes (bf16, H=8, K=4, d=256,
+                softcap 50, window 4096 and global) and at recurrentgemma-9b's
+                (H=16, K=1, window 2048, no softcap; K2 over a 2048-slot
+                ring), within one bf16 ulp (|err| ≤ 1e-5 + 2^-7·|want|);
+                K3 at recurrentgemma-9b's prefill shapes within
+                |err| ≤ 1e-5 + 1e-5·|want|;
   4. model    — full-width gemma2-2b (random bf16 weights from a seed)
                 generating 16 tokens for a ragged batch through the kernels
                 (launch counts checked), then the same prefill and first
                 decode step with every kernel call held against its plain
                 version, and with the plain versions swapped in;
-  5. serving  — ``run_server`` with the tris policy on a Poisson workload,
-                launch counts checked against the batches served;
+  5. serving  — gemma2-2b behind ``run_server`` with the tris policy on a
+                Poisson workload, launch counts checked against the batches
+                served;
+  6. model    — phase 4 for full-width recurrentgemma-9b (38 layers, 26
+                RG-LRU through K3 and 12 local attention through K1/K2);
+  7. serving  — phase 5 for recurrentgemma-9b;
 then a ``kernels`` JSON line, and last the ``ok`` JSON line.
 Needs one card; imports nothing of JAX or of the JAX package.
 """
@@ -29,6 +37,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -40,6 +49,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core rate
+PEAK_FP32_FLOPS = 67e12    # H100 SXM fp32 rate outside the tensor cores
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3 bandwidth
 # Kernel against plain, element by element.  Both compute in fp32 and round
 # once to bf16, so where both are right their outputs differ by at most one
@@ -51,22 +61,27 @@ PEAK_BYTES = 3.35e12       # H100 SXM HBM3 bandwidth
 # such errors.
 RTOL = 2.0 ** -7
 ATOL = 1e-5
-TILE = 32                  # keys per kv tile in both kernels
+# K3 against plain: both are sequential fp32 recurrences, held to the
+# reference's own limit (tests/test_kernels.py, test_rglru_kernel).
+SCAN_TOL = 1e-5
+TILE = 32                  # keys per kv tile in both attention kernels
 # Full-width model, kernel path against plain path on the same weights.
 # With fp32 activations the two differ only in fp32 summation order inside
 # attention, so logits must agree to the reference's logit tolerance, 1e-3
 # (tests/test_models_smoke.py), and the first greedy token must agree.  With
 # bf16 activations each layer's output is rounded to bf16, and one-ulp flips
 # where the two orders round differently are amplified over 26 random-weight
-# layers (0.86 in logits), so the bf16 path is held per attention call (each
+# layers (0.86 in logits), so the bf16 path is held per kernel call (each
 # kernel call against its plain version on the model's own activations, to
-# RTOL/ATOL above), and its logits may lie at most 1.1x as far from the fp32
-# path as the bf16 plain path's do (measured 1.02).
+# the limits above), and its logits may lie at most 1.1x as far from the fp32
+# path as the bf16 plain path's do (measured 1.02 on gemma2-2b).
 LOGIT_TOL_FP32 = 1e-3
 BF16_DRIFT_RATIO = 1.1
 PROMPTS = (4700, 1500, 300, 17)   # ragged prefill, one prompt past the window
 DECODE_STEPS = 16
-SERVE = dict(rate=8.0, duration_s=10.0, prompt_tokens=512)
+SERVE = {"gemma2-2b": dict(rate=8.0, duration_s=10.0, prompt_tokens=512),
+         "recurrentgemma-9b": dict(rate=4.0, duration_s=5.0, prompt_tokens=512)}
+KERNELS = ("flash_attention", "decode_attention", "rglru_scan")
 
 
 def require(cond: bool, what: str) -> None:
@@ -74,8 +89,8 @@ def require(cond: bool, what: str) -> None:
         raise RuntimeError(f"check failed: {what}")
 
 
-def held(got, want, rows=None):
-    """(max |got − want|, max of |got − want| / (ATOL + RTOL·|want|)) over
+def held(got, want, rows=None, atol=ATOL, rtol=RTOL):
+    """(max |got − want|, max of |got − want| / (atol + rtol·|want|)) over
     the valid rows: ``rows`` gives, per sequence b, how many of the rows of
     got[b, :, :rows[b]] to compare (all of got when None).  A ratio above 1
     fails."""
@@ -86,8 +101,14 @@ def held(got, want, rows=None):
         g, w = g.float(), w.float()
         e = (g - w).abs()
         err = max(err, float(e.max()))
-        ratio = max(ratio, float((e / (ATOL + RTOL * w.abs())).max()))
+        ratio = max(ratio, float((e / (atol + rtol * w.abs())).max()))
     return err, ratio
+
+
+def held_scan(got, want):
+    """``held`` over K3's (seq, last) pair, at K3's limit."""
+    results = [held(g, w, atol=SCAN_TOL, rtol=SCAN_TOL) for g, w in zip(got, want)]
+    return max(r[0] for r in results), max(r[1] for r in results)
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -104,10 +125,25 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(flops: float, nbytes: float):
+def bound(flops: float, nbytes: float, peak_flops: float = PEAK_BF16_FLOPS):
     """(least milliseconds, what bounds it) on an H100 SXM."""
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def counters():
+    from repro_torch.kernels import decode_attention, flash_attention, rglru_scan
+    return {"flash_attention": flash_attention, "decode_attention": decode_attention,
+            "rglru_scan": rglru_scan}
+
+
+def reset_launches():
+    for mod in counters().values():
+        mod.launches = 0
+
+
+def read_launches():
+    return {name: mod.launches for name, mod in counters().items()}
 
 
 def phase_device():
@@ -127,33 +163,39 @@ def phase_device():
 def phase_build():
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
-    secs = _build.build(["flash_attention", "decode_attention"])
+    secs = _build.build(KERNELS)
     print(f"[build] {json.dumps({k: round(v, 1) for k, v in secs.items()})} "
           f"wall_s={time.perf_counter() - t0:.1f}")
-    for name in ("flash_attention", "decode_attention"):
+    spilled = []
+    for name in KERNELS:
         fn = spill = ""
         for line in (_build.BUILD_DIR / f"lib{name}.log").read_text().splitlines():
             if "Compiling entry function" in line:
                 fn = line.split("'")[1]
             elif "stack frame" in line:
                 spill = line.strip()
+                if int(re.search(r"(\d+) bytes spill stores", spill).group(1)):
+                    spilled.append(fn)
             elif "Used" in line:
                 print(f"[ptxas] {fn}: {line.split(':', 1)[1].strip()}; {spill}")
+    print("[ptxas] decode_attention at H/K = 16 runs decode_kernel<T, D, 8> as "
+          "two blocks per kv head")
+    require(not spilled, f"no kernel instantiation spills: {spilled}")
 
 
-def flash_case(window: int):
-    """K1 at the prefill shapes of gemma2-2b: B=4 ragged prompts padded to
-    the longest, H=8 on K=4, d=256, softcap 50."""
+def flash_case(arch: str, H: int, K: int, window: int, softcap: float):
+    """K1 at the prefill shapes of ``arch``: B=4 ragged prompts padded to the
+    longest, H query heads on K kv heads, d=256."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
-    B, H, K, d, S = len(PROMPTS), 8, 4, 256, max(PROMPTS)
+    B, d, S = len(PROMPTS), 256, max(PROMPTS)
     g = torch.Generator(device="cuda").manual_seed(1)
     # the model's layout: (B, S, heads, d), handed over as transposed views
     q, k, v = (torch.randn((B, S, h, d), generator=g, device="cuda").to(torch.bfloat16)
                .transpose(1, 2) for h in (H, K, K))
     lengths = torch.tensor(PROMPTS, dtype=torch.int32, device="cuda")
-    kw = dict(causal=True, window=window, softcap=50.0, lengths=lengths)
+    kw = dict(causal=True, window=window, softcap=softcap, lengths=lengths)
     got = fa.flash_attention(q, k, v, **kw)
     want = fa.plain(q, k, v, **kw)
     # rows past a prompt's length are padding the model discards (a row
@@ -161,7 +203,7 @@ def flash_case(window: int):
     # the plain version); compare the valid rows
     err, ratio = held(got, want, PROMPTS)
     require(bool(torch.isfinite(got).all()), "flash_attention output finite")
-    require(ratio <= 1.0, f"flash_attention window={window} max|err| {err}, "
+    require(ratio <= 1.0, f"flash_attention {arch} window={window} max|err| {err}, "
             f"{ratio}x the limit")
     # planted faults, each the kernel's own output where a wrong kernel would
     # give it: the longest prompt's last kv tile skipped, and (local layers)
@@ -190,17 +232,22 @@ def flash_case(window: int):
                library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
                    q, k, v, attn_mask=mask, enable_gqa=True), 10),
                bound_ms=ms_bound, bound_by=by)
-    print(f"[kernel flash_attention] window={window} " + json.dumps(res))
+    print(f"[kernel flash_attention] {arch} H={H} K={K} window={window} "
+          f"softcap={softcap} " + json.dumps(res))
     return res
 
 
-def decode_case(window: int):
-    """K2 at the decode shapes of gemma2-2b: B=8, a cache of T=4736 slots in
-    the model's (B, T, K, d) layout, H=8 on K=4, d=256, softcap 50."""
+def decode_case(arch: str, H: int, K: int, T: int, window: int, softcap: float,
+                ring: bool):
+    """K2 at the decode shapes of ``arch``: B=8, a cache of T slots in the
+    model's (B, T, K, d) layout, H query heads on K kv heads, d=256.  Without
+    ``ring`` slot t holds position t (a full-length cache); with it slot t
+    holds the latest position ≡ t (mod T), as in a local layer's ring."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attention as da
-    B, H, K, d, T = 8, 8, 4, 256, 4736
+    from repro_torch.kernels.ref import decode_mask
+    B, d = 8, 256
     g = torch.Generator(device="cuda").manual_seed(2)
     q = torch.randn((B, H, d), generator=g, device="cuda").to(torch.bfloat16)
     k, v = (torch.randn((B, T, K, d), generator=g, device="cuda").to(torch.bfloat16)
@@ -209,29 +256,37 @@ def decode_case(window: int):
                          dtype=torch.int32, device="cuda")
     t = torch.arange(T, device="cuda")[None, :]
     holes = torch.rand((B, T), generator=g, device="cuda") < 0.05  # padded slots
-    slot_pos = torch.where((t <= q_pos[:, None]) & ~holes, t, -1).to(torch.int32)
+    qp = q_pos[:, None]
+    pos = qp - ((qp - t) % T) if ring else t
+    slot_pos = torch.where((pos >= 0) & (pos <= qp) & ~holes, pos, -1).to(torch.int32)
     lengths = torch.clamp(q_pos + 1, max=T).to(torch.int32)
-    kw = dict(softcap=50.0, window=window, q_pos=q_pos, slot_pos=slot_pos)
+    kw = dict(softcap=softcap, window=window, q_pos=q_pos, slot_pos=slot_pos)
     got = da.decode_attention(q, k, v, lengths, **kw)
     want = da.plain(q, k, v, lengths, **kw)
     err, ratio = held(got, want)
     require(bool(torch.isfinite(got).all()), "decode_attention output finite")
-    require(ratio <= 1.0, f"decode_attention window={window} max|err| {err}, "
+    require(ratio <= 1.0, f"decode_attention {arch} window={window} max|err| {err}, "
             f"{ratio}x the limit")
-    # planted faults, as in flash_case: one kv tile of slots (positions
-    # 1024..1055, live for the six longest rows) skipped, and (local layers)
-    # the window edge one tile late; the check above must reject each
+    # planted faults, as in flash_case: one kv tile of slots (1024..1055,
+    # live for the six longest rows) skipped; on a full-length cache the
+    # window edge one tile late (a ring of the window holds no position
+    # outside it, so there a wider window changes nothing); with more than
+    # 8 query heads per kv head, the second block of 8 heads given the
+    # first block's queries.  The check above must reject each.
     gap = slot_pos.clone()
     gap[:, 1024:1024 + TILE] = -1
     faults = {"one_tile_skipped": da.decode_attention(
         q, k, v, lengths, **{**kw, "slot_pos": gap})}
-    if window:
+    if window and not ring:
         faults["window_one_tile_wide"] = da.decode_attention(
             q, k, v, lengths, **{**kw, "window": window + TILE})
+    if H // K > 8:
+        q_dup = q.clone()
+        q_dup[:, 8:16] = q[:, 0:8]
+        faults["head_block_swapped"] = da.decode_attention(q_dup, k, v, lengths, **kw)
     fault_ratio = {name: held(out, want)[1] for name, out in faults.items()}
     require(all(r > 1.0 for r in fault_ratio.values()),
             f"decode_attention check rejects planted faults {fault_ratio}")
-    from repro_torch.kernels.ref import decode_mask
     mask = decode_mask(lengths, T, window=window, q_pos=q_pos, slot_pos=slot_pos)
     live = int(mask.sum())
     nbytes = 2.0 * (2 * live * K * d + 2 * B * H * d)   # live K/V rows, q, out
@@ -243,31 +298,79 @@ def decode_case(window: int):
                    q[:, :, None], k, v, attn_mask=mask[:, None, None],
                    enable_gqa=True), 50),
                bound_ms=ms_bound, bound_by=by)
-    print(f"[kernel decode_attention] window={window} " + json.dumps(res))
+    print(f"[kernel decode_attention] {arch} H={H} K={K} T={T} ring={ring} "
+          f"window={window} softcap={softcap} " + json.dumps(res))
+    return res
+
+
+def rglru_case():
+    """K3 at recurrentgemma-9b's prefill shapes: the B=4 ragged prompts padded
+    to the longest, R=4096, pad steps a=1, b=0 as the model gives them."""
+    import torch
+    from repro_torch.kernels import rglru_scan as rg
+    B, S, R = len(PROMPTS), max(PROMPTS), 4096
+    g = torch.Generator(device="cuda").manual_seed(3)
+    lengths = torch.tensor(PROMPTS, device="cuda")
+    valid = (torch.arange(S, device="cuda")[None, :] < lengths[:, None])[..., None]
+    a = torch.where(valid, 0.5 + 0.499 * torch.rand((B, S, R), generator=g,
+                                                    device="cuda"), 1.0)
+    b = torch.where(valid, 0.1 * torch.randn((B, S, R), generator=g, device="cuda"), 0.0)
+    s0 = torch.randn((B, R), generator=g, device="cuda")
+    got = rg.rglru_scan(a, b, s0)
+    want = rg.plain(a, b, s0)
+    err, ratio = held_scan(got, want)
+    require(all(bool(torch.isfinite(x).all()) for x in got), "rglru_scan output finite")
+    require(ratio <= 1.0, f"rglru_scan max|err| {err}, {ratio}x the limit")
+    # planted fault: one valid step of the longest prompt skipped (a=1, b=0)
+    a_f, b_f = a.clone(), b.clone()
+    a_f[0, 1000], b_f[0, 1000] = 1.0, 0.0
+    fault_ratio = {"one_step_skipped": held_scan(rg.rglru_scan(a_f, b_f, s0), want)[1]}
+    require(all(r > 1.0 for r in fault_ratio.values()),
+            f"rglru_scan check rejects planted faults {fault_ratio}")
+    # a and b read once, s0 read once, seq and last written once; two
+    # fp32 operations a step
+    ms_bound, by = bound(2.0 * B * S * R, 4.0 * (3 * B * S * R + 2 * B * R),
+                         PEAK_FP32_FLOPS)
+    res = dict(max_abs_err=err, limit_ratio=ratio, fault_ratio=fault_ratio,
+               ms=cuda_ms(lambda: rg.rglru_scan(a, b, s0), 20),
+               plain_ms=cuda_ms(lambda: rg.plain(a, b, s0), 2),
+               library_ms=None,   # no single PyTorch call computes the recurrence
+               bound_ms=ms_bound, bound_by=by)
+    print(f"[kernel rglru_scan] recurrentgemma-9b B={B} S={S} R={R} " + json.dumps(res))
     return res
 
 
 def merge(cases):
-    """One kernel's record over gemma2-2b's two layer kinds: the mean of
-    each time over the local (4096) and global cases, the worst error."""
-    out = {key: float(np.mean([c[key] for c in cases]))
+    """One kernel's record over a model's layer kinds: the mean of each time
+    over the cases (gemma2-2b: window 4096 and global), the worst error."""
+    out = {key: None if any(c[key] is None for c in cases)
+           else float(np.mean([c[key] for c in cases]))
            for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
     out["max_abs_err"] = max(c["max_abs_err"] for c in cases)
     out["bound_by"] = cases[0]["bound_by"]
     return out
 
 
-def phase_model():
+def layer_counts(cfg):
+    """(attention layers, RG-LRU layers) of a config."""
+    from repro_torch.models.config import RGLRU
+    kinds = cfg.layer_kinds()
+    return len(kinds) - kinds.count(RGLRU), kinds.count(RGLRU)
+
+
+def phase_model(arch: str):
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
+    from repro_torch.kernels import rglru_scan as rg
     from repro_torch.models import build_model
     from repro_torch.serving.engine import (greedy_sample, make_decode_fn,
                                             make_generate_fn, make_prefill_fn,
                                             serving_config)
-    cfg = serving_config(get_config("gemma2-2b"))
+    cfg = serving_config(get_config(arch))
+    n_attn, n_rec = layer_counts(cfg)
     torch.cuda.reset_peak_memory_stats()
     model = build_model(cfg)
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
@@ -279,19 +382,18 @@ def phase_model():
     max_len = S + DECODE_STEPS
 
     # the main path: counts at 0 just before, read just after
-    fa.launches = da.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     out = make_generate_fn(model, DECODE_STEPS, max_len=max_len)(params, tokens, lengths)
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t0
-    launches = {"flash_attention": fa.launches, "decode_attention": da.launches}
-    print(f"[model] gemma2-2b generate B={B} prompts={list(PROMPTS)} "
+    launches = read_launches()
+    print(f"[model] {arch} layers={cfg.num_layers} d_model={cfg.d_model} "
+          f"generate B={B} prompts={list(PROMPTS)} "
           f"steps={DECODE_STEPS} s={gen_s:.3f} launches={json.dumps(launches)}")
-    require(launches["flash_attention"] == cfg.num_layers,
-            f"flash launches {launches['flash_attention']} != {cfg.num_layers}")
-    require(launches["decode_attention"] == cfg.num_layers * DECODE_STEPS,
-            f"decode launches {launches['decode_attention']} != "
-            f"{cfg.num_layers * DECODE_STEPS}")
+    want = {"flash_attention": n_attn, "decode_attention": n_attn * DECODE_STEPS,
+            "rglru_scan": n_rec}
+    require(launches == want, f"generate launches {launches} != {want}")
     require(tuple(out.shape) == (B, DECODE_STEPS + 1), f"tokens shape {out.shape}")
     require(bool(((out >= 0) & (out < cfg.vocab_size)).all()), "token ids in range")
 
@@ -303,7 +405,7 @@ def phase_model():
     # fp32 activations on the same bf16 weights.  The bf16 kernel run also
     # holds every kernel call against the plain version on the same inputs.
     tok = None
-    worst = {"flash_attention": 0.0, "decode_attention": 0.0}
+    worst = {name: 0.0 for name in KERNELS}
 
     def checked_flash(q, k, v, **kw):
         got = fa.flash_attention(q, k, v, **kw)
@@ -318,20 +420,31 @@ def phase_model():
                                         held(got, da.plain(q, k, v, lengths, **kw))[1])
         return got
 
-    swaps = {"kernel": None, "plain": (fa.plain, da.plain),
-             "checked": (checked_flash, checked_decode)}
+    def checked_rglru(a, b, s0):
+        got = rg.rglru_scan(a, b, s0)
+        worst["rglru_scan"] = max(worst["rglru_scan"],
+                                  held_scan(got, rg.plain(a, b, s0))[1])
+        return got
+
+    swaps = {"kernel": None, "plain": (fa.plain, da.plain, rg.plain),
+             "checked": (checked_flash, checked_decode, checked_rglru)}
+    step_launches = {}
 
     def prefill_and_step(m, path: str):
         nonlocal tok
-        kernels = (ops.flash_attention, ops.decode_attention)
+        kernels = (ops.flash_attention, ops.decode_attention, ops.rglru_scan)
         if swaps[path]:
-            ops.flash_attention, ops.decode_attention = swaps[path]
+            ops.flash_attention, ops.decode_attention, ops.rglru_scan = swaps[path]
         try:
+            reset_launches()
             cache, pre = make_prefill_fn(m, max_len)(params, tokens, lengths)
+            step_launches[path, "prefill"] = read_launches()
             tok = greedy_sample(pre) if tok is None else tok
+            reset_launches()
             _, dec = make_decode_fn(m)(params, cache, tok)
+            step_launches[path, "decode_step"] = read_launches()
         finally:
-            ops.flash_attention, ops.decode_attention = kernels
+            ops.flash_attention, ops.decode_attention, ops.rglru_scan = kernels
         for what, t in (("prefill", pre), ("decode", dec)):
             require(tuple(t.shape) == (B, cfg.vocab_size), f"{what} logits shape")
             require(bool(torch.isfinite(t).all()), f"{what} logits finite")
@@ -344,6 +457,15 @@ def phase_model():
             ("bf16", "plain"): prefill_and_step(model, "plain"),
             ("fp32", "kernel"): prefill_and_step(model32, "kernel"),
             ("fp32", "plain"): prefill_and_step(model32, "plain")}
+    per_step = {"prefill": {"flash_attention": n_attn, "decode_attention": 0,
+                            "rglru_scan": n_rec},
+                "decode_step": {"flash_attention": 0, "decode_attention": n_attn,
+                                "rglru_scan": 0}}
+    for what, want in per_step.items():
+        got = step_launches["kernel", what]
+        require(got == want, f"{what} launches {got} != {want}")
+    print(f"[model] {arch} launches per prefill {json.dumps(per_step['prefill'])}, "
+          f"per decode step {json.dumps(per_step['decode_step'])}")
 
     def diff(a, b, i):
         return float((runs[a][i] - runs[b][i]).abs().max())
@@ -363,14 +485,15 @@ def phase_model():
     # reported, not held: random weights leave top-two gaps of ~0.2 logits,
     # below the ~0.9 that any two bf16 summation orders drift apart
     same16 = first("bf16", "kernel") == first("bf16", "plain")
-    print(f"[model] per-call limit ratio, bf16 on the model's activations: "
+    print(f"[model] {arch} per-call limit ratio, bf16 on the model's activations: "
           f"{json.dumps(worst)} (fail above 1)")
-    print(f"[model] max|Δlogit| fp32 kernel-vs-plain={d32} (tol {LOGIT_TOL_FP32}) "
-          f"bf16 kernel-vs-plain={d16}; to the fp32 path: bf16 kernel={far_k} "
-          f"bf16 plain={far_p} ratio={far_k / far_p} (tol {BF16_DRIFT_RATIO})")
-    print(f"[model] first token agrees fp32={same32.tolist()} top2_gap={gaps('fp32')}; "
-          f"bf16={same16.tolist()} top2_gap={gaps('bf16')} (not held); "
-          f"generate_max_memory_allocated_gb={peak_gb:.2f}")
+    print(f"[model] {arch} max|Δlogit| fp32 kernel-vs-plain={d32} "
+          f"(tol {LOGIT_TOL_FP32}) bf16 kernel-vs-plain={d16}; to the fp32 path: "
+          f"bf16 kernel={far_k} bf16 plain={far_p} ratio={far_k / far_p} "
+          f"(tol {BF16_DRIFT_RATIO})")
+    print(f"[model] {arch} first token agrees fp32={same32.tolist()} "
+          f"top2_gap={gaps('fp32')}; bf16={same16.tolist()} top2_gap={gaps('bf16')} "
+          f"(not held); generate_max_memory_allocated_gb={peak_gb:.2f}")
     require(all(r <= 1.0 for r in worst.values()),
             "every bf16 kernel call on the model's activations within the limit")
     require(d32 <= LOGIT_TOL_FP32, "fp32 kernel vs plain logits")
@@ -379,23 +502,23 @@ def phase_model():
     return launches
 
 
-def phase_serving():
+def phase_serving(arch: str):
     from repro_torch.configs import get_config
-    from repro_torch.kernels import decode_attention as da
-    from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch.serve import run_server
     from repro_torch.serving.batching import make_policy
     from repro_torch.serving.engine import serving_config
     from repro_torch.serving.workload import WorkloadSpec, generate
-    cfg = serving_config(get_config("gemma2-2b"))
+    cfg = serving_config(get_config(arch))
+    n_attn, n_rec = layer_counts(cfg)
+    spec = SERVE[arch]
     policy = make_policy("tris")
-    wl = WorkloadSpec(kind="poisson", seed=0, **SERVE)
+    wl = WorkloadSpec(kind="poisson", seed=0, **spec)
     # the main path again: counts at 0 just before, read just after
-    fa.launches = da.launches = 0
-    res = run_server(cfg, policy, wl, max_len=SERVE["prompt_tokens"] + DECODE_STEPS,
+    reset_launches()
+    res = run_server(cfg, policy, wl, max_len=spec["prompt_tokens"] + DECODE_STEPS,
                      decode_steps=DECODE_STEPS)
-    launches = {"flash_attention": fa.launches, "decode_attention": da.launches}
-    print(f"[serving] gemma2-2b tris poisson {json.dumps(SERVE)} "
+    launches = read_launches()
+    print(f"[serving] {arch} tris poisson {json.dumps(spec)} "
           f"decode_steps={DECODE_STEPS} {json.dumps(res)} launches={json.dumps(launches)}")
     require(res["requests"] == len(generate(wl)), "every request served")
     require(all(np.isfinite(v) for v in res.values()), "finite serving metrics")
@@ -404,8 +527,9 @@ def phase_serving():
     # per batch
     warm = len({1, getattr(policy, "max_batch", 1), *getattr(policy, "preferred", (1,))})
     batches = round(res["requests"] / res["mean_batch"])
-    want = {"flash_attention": cfg.num_layers * (batches + warm),
-            "decode_attention": cfg.num_layers * ((DECODE_STEPS - 1) * batches + warm)}
+    want = {"flash_attention": n_attn * (batches + warm),
+            "decode_attention": n_attn * ((DECODE_STEPS - 1) * batches + warm),
+            "rglru_scan": n_rec * (batches + warm)}
     require(launches == want, f"serving launches {launches} != {want}")
 
 
@@ -417,23 +541,37 @@ def main() -> int:
     # fp32 products on the card stay IEEE in every comparison below
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
     name = phase_device()
     phase_build()
-    flash = merge([flash_case(4096), flash_case(0)])
-    decode = merge([decode_case(4096), decode_case(0)])
-    torch.cuda.empty_cache()
-    launches = phase_model()
-    torch.cuda.empty_cache()
-    phase_serving()
+    records = {
+        ("flash_attention", "gemma2-2b"): merge([
+            flash_case("gemma2-2b", 8, 4, 4096, 50.0),
+            flash_case("gemma2-2b", 8, 4, 0, 50.0)]),
+        ("decode_attention", "gemma2-2b"): merge([
+            decode_case("gemma2-2b", 8, 4, 4736, 4096, 50.0, ring=False),
+            decode_case("gemma2-2b", 8, 4, 4736, 0, 50.0, ring=False)]),
+        ("flash_attention", "recurrentgemma-9b"): merge([
+            flash_case("recurrentgemma-9b", 16, 1, 2048, 0.0)]),
+        ("decode_attention", "recurrentgemma-9b"): merge([
+            decode_case("recurrentgemma-9b", 16, 1, 2048, 2048, 0.0, ring=True)]),
+        ("rglru_scan", "recurrentgemma-9b"): merge([rglru_case()]),
+    }
+    launches = {}
+    for arch in ("gemma2-2b", "recurrentgemma-9b"):
+        torch.cuda.empty_cache()
+        launches[arch] = phase_model(arch)
+        torch.cuda.empty_cache()
+        phase_serving(arch)
     src = "src/repro_torch/kernels/csrc/"
+    replaces = {"flash_attention": "src/repro/kernels/flash_attention.py:94",
+                "decode_attention": "src/repro/kernels/decode_attention.py:73",
+                "rglru_scan": "src/repro/kernels/rglru_scan.py:53"}
+    print(f"[done] wall_s={time.perf_counter() - t0:.1f}")
     print(json.dumps({"kernels": [
-        dict(name="flash_attention", route="cuda", source=src + "flash_attention.cu",
-             replaces="src/repro/kernels/flash_attention.py:94",
-             launches=launches["flash_attention"], **flash),
-        dict(name="decode_attention", route="cuda", source=src + "decode_attention.cu",
-             replaces="src/repro/kernels/decode_attention.py:73",
-             launches=launches["decode_attention"], **decode),
-    ]}))
+        dict(name=kernel, model=arch, route="cuda", source=f"{src}{kernel}.cu",
+             replaces=replaces[kernel], launches=launches[arch][kernel], **rec)
+        for (kernel, arch), rec in records.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

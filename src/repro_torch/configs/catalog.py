@@ -1,5 +1,5 @@
-"""The dense homogeneous architectures the port serves, copied from
-``repro.configs.catalog`` with the same values.
+"""The architectures the port serves — the dense homogeneous stacks and the
+RG-LRU hybrid — copied from ``repro.configs.catalog`` with the same values.
 
 The other families of the reference catalog need model code the port does
 not have yet; ``get_config`` names the ROADMAP item that brings each.
@@ -8,7 +8,15 @@ from __future__ import annotations
 
 from typing import Dict
 
-from repro_torch.models.config import ATTN_GLOBAL, ATTN_LOCAL, ModelConfig
+from repro_torch.models.config import ATTN_GLOBAL, ATTN_LOCAL, RGLRU, ModelConfig
+
+# [arXiv:2402.19427] — RG-LRU + local attn, 1 attention per 2 recurrent
+RECURRENTGEMMA_9B = ModelConfig(
+    name="recurrentgemma-9b", family="hybrid",
+    num_layers=38, d_model=4096, num_heads=16, num_kv_heads=1, head_dim=256,
+    d_ff=12_288, vocab_size=256_000,
+    layer_pattern=(RGLRU, RGLRU, ATTN_LOCAL), local_window=2048,
+    rglru_d_rnn=4096)
 
 # [arXiv:2408.00118] — local+global alternating, logit softcap
 GEMMA2_2B = ModelConfig(
@@ -37,12 +45,12 @@ YI_9B = ModelConfig(
     d_ff=11_008, vocab_size=64_000)
 
 ARCHS: Dict[str, ModelConfig] = {
-    c.name: c for c in (GEMMA2_2B, GRANITE_3_2B, GRANITE_8B, YI_9B)}
+    c.name: c for c in (RECURRENTGEMMA_9B, GEMMA2_2B, GRANITE_3_2B, GRANITE_8B,
+                        YI_9B)}
 
 # Architectures of the reference catalog that wait for later slices of the
 # port, with the ROADMAP queue item that brings each.
 PENDING: Dict[str, str] = {
-    "recurrentgemma-9b": "ROADMAP M7 (hybrid RG-LRU)",
     "rwkv6-7b": "ROADMAP M8 (RWKV6)",
     "granite-moe-3b-a800m": "ROADMAP M9 (MoE)",
     "dbrx-132b": "ROADMAP M9 (MoE)",

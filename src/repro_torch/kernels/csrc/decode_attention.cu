@@ -14,12 +14,17 @@
 // What bounds it on this card: bytes.  Every live K/V row is read once and
 // used for 4·G·d operations, far below the H100's 295 operations per byte.
 // The TPU grid walked the cache sequentially with m/l/acc in VMEM scratch;
-// here one block owns one (b, kv head), its 8 warps stride over the cache
-// four rows at a time (so each warp has 8 row loads in flight), each warp
-// keeps its own online-softmax state for the G heads in registers, and the
-// warps merge through shared memory at the end.  Nothing but the output is
-// written.  B·K blocks (32 for gemma2-2b at batch 8) under-fill the 132
-// SMs; splitting the cache across blocks with a combine pass is later work.
+// here one block owns one (b, kv head) and at most 8 of its query heads,
+// its 8 warps stride over the cache four rows at a time (so each warp has 8
+// row loads in flight), each warp keeps its own online-softmax state for
+// its heads in registers, and the warps merge through shared memory at the
+// end.  Nothing but the output is written.  q and acc take 2·G·D/32 fp32
+// registers a thread, 128 at G = 8 and d = 256, so G = 16 (recurrentgemma's
+// 16 query heads on one kv head) would pass the 255-register limit: it runs
+// as two blocks of 8 heads per kv head, each re-reading that head's K/V
+// rows.  B·K·⌈G/8⌉ blocks (32 for gemma2-2b at batch 8, 16 for
+// recurrentgemma) under-fill the 132 SMs; splitting the cache across blocks
+// with a combine pass is later work.
 #include "common.cuh"
 
 namespace repro_torch {
@@ -38,6 +43,8 @@ struct DecodeArgs {
   const int* slot_pos;  // (B, T) contiguous, or null
   int64_t q_sb, q_sh, k_sb, k_sh, k_st, v_sb, v_sh, v_st, o_sb, o_sh;
   int T, window;
+  int group;  // query heads per kv head (H / K)
+  int nsub;   // blocks per kv head: group / G, G the heads a block owns
   float softcap, sm_scale;
 };
 
@@ -49,7 +56,8 @@ constexpr size_t decode_smem_bytes() {
 template <typename T, int D, int G>
 __global__ void __launch_bounds__(NWARPS * 32) decode_kernel(DecodeArgs a) {
   constexpr int EPL = D / 32;  // elements per lane: lane + 32e
-  const int kvh = blockIdx.x, b = blockIdx.y;
+  const int kvh = blockIdx.x / a.nsub, b = blockIdx.y;
+  const int64_t head0 = (int64_t)kvh * a.group + (blockIdx.x % a.nsub) * G;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int len = min(a.lengths[b], a.T);
   const int qp = a.q_pos ? a.q_pos[b] : len - 1;
@@ -57,7 +65,7 @@ __global__ void __launch_bounds__(NWARPS * 32) decode_kernel(DecodeArgs a) {
   // Without slot_pos, slot t holds position t: the window bounds the scan.
   const int begin = (!sp && a.window > 0) ? max(0, qp - a.window + 1) : 0;
 
-  const T* Q = static_cast<const T*>(a.q) + b * a.q_sb + (int64_t)kvh * G * a.q_sh;
+  const T* Q = static_cast<const T*>(a.q) + b * a.q_sb + head0 * a.q_sh;
   const T* Kp = static_cast<const T*>(a.k) + b * a.k_sb + kvh * a.k_sh;
   const T* Vp = static_cast<const T*>(a.v) + b * a.v_sb + kvh * a.v_sh;
 
@@ -135,7 +143,7 @@ __global__ void __launch_bounds__(NWARPS * 32) decode_kernel(DecodeArgs a) {
     }
   }
   __syncthreads();
-  T* O = static_cast<T*>(a.o) + b * a.o_sb + (int64_t)kvh * G * a.o_sh;
+  T* O = static_cast<T*>(a.o) + b * a.o_sb + head0 * a.o_sh;
   for (int i = threadIdx.x; i < G * D; i += NWARPS * 32) {
     const int g = i / D, c = i % D;
     float M = kNegInf;
@@ -158,23 +166,26 @@ cudaError_t launch(const DecodeArgs& a, int B, int K, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       decode_kernel<T, D, G>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  decode_kernel<T, D, G><<<dim3(K, B), NWARPS * 32, smem, stream>>>(a);
+  decode_kernel<T, D, G><<<dim3(K * a.nsub, B), NWARPS * 32, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
 template <typename T, int D>
-cudaError_t launch_g(const DecodeArgs& a, int B, int K, int G, cudaStream_t stream) {
+cudaError_t launch_g(DecodeArgs& a, int B, int K, int G, cudaStream_t stream) {
+  a.group = G;
+  a.nsub = G > 8 ? G / 8 : 1;
   switch (G) {
     case 1: return launch<T, D, 1>(a, B, K, stream);
     case 2: return launch<T, D, 2>(a, B, K, stream);
     case 4: return launch<T, D, 4>(a, B, K, stream);
     case 8: return launch<T, D, 8>(a, B, K, stream);
+    case 16: return launch<T, D, 8>(a, B, K, stream);  // two blocks per kv head
     default: return cudaErrorInvalidValue;
   }
 }
 
 template <typename T>
-cudaError_t launch_d(const DecodeArgs& a, int B, int K, int G, int d, cudaStream_t stream) {
+cudaError_t launch_d(DecodeArgs& a, int B, int K, int G, int d, cudaStream_t stream) {
   switch (d) {
     case 64: return launch_g<T, 64>(a, B, K, G, stream);
     case 128: return launch_g<T, 128>(a, B, K, G, stream);

@@ -19,7 +19,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import DTYPES, HEAD_DIMS, _check_operand
 from repro_torch.kernels.ref import decode_attention_reference
 
-GROUP_SIZES = (1, 2, 4, 8)
+GROUP_SIZES = (1, 2, 4, 8, 16)
 
 launches = 0
 
@@ -50,7 +50,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      window: int = 0, q_pos: Optional[torch.Tensor] = None,
                      slot_pos: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Launch the kernel.  q: (B, H, d); k/v: (B, K, T, d) on the card,
-    float32 or bfloat16, H/K in {1, 2, 4, 8}, d in {64, 128, 256};
+    float32 or bfloat16, H/K in {1, 2, 4, 8, 16}, d in {64, 128, 256};
     lengths (B,) int32 bounds the slots scanned; ``slot_pos`` (B, T) int32
     and ``q_pos`` (B,) int32 give the mask of
     :func:`repro_torch.kernels.ref.decode_mask`.  Any strides with a

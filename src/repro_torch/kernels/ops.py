@@ -6,12 +6,13 @@ There is no fallback from one to the other.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import rglru_scan as _rg
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
@@ -30,3 +31,10 @@ def decode_attention(q, k, v, lengths, *, softcap: float = 0.0,
     fn = _dec.decode_attention if q.is_cuda else _dec.plain
     return fn(q, k, v, lengths, softcap=softcap, window=window, q_pos=q_pos,
               slot_pos=slot_pos)
+
+
+def rglru_scan(a, b, s0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """s_t = a_t s_{t-1} + b_t.  a/b: (B, S, R) fp32; s0: (B, R) fp32 →
+    (seq (B, S, R), last (B, R))."""
+    fn = _rg.rglru_scan if a.is_cuda else _rg.plain
+    return fn(a, b, s0)

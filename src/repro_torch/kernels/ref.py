@@ -1,15 +1,15 @@
-"""Plain PyTorch versions of the attention kernels (naive, obviously-correct
-math), ported from ``repro.kernels.ref``.
+"""Plain PyTorch versions of the kernels (naive, obviously-correct math),
+ported from ``repro.kernels.ref``.
 
-They are direct definitions — dense logits, dense softmax, fp32 throughout —
-independent of the tiled online-softmax algorithm of the CUDA kernels, so
-comparing the two is meaningful.  The CPU path of ``repro_torch.kernels.ops``
+They are direct definitions — dense logits, dense softmax, fp32 throughout;
+the recurrence one step at a time — independent of the tiled algorithms of
+the CUDA kernels, so comparing the two is meaningful.  The CPU path of ``repro_torch.kernels.ops``
 runs them; on the card they serve only as the check of the kernels.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -91,3 +91,15 @@ def decode_attention_reference(q, k, v, lengths, *, softcap: float = 0.0,
     p = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgt,bktd->bkgd", p, v.float())
     return out.reshape(B, H, d).to(q.dtype)
+
+
+def rglru_reference(a, b, s0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Naive gated linear recurrence: s_t = a_t s_{t-1} + b_t.
+
+    a/b: (B, S, R) fp32; s0: (B, R) fp32 → (seq (B, S, R), last (B, R)).
+    """
+    s, seq = s0, []
+    for t in range(a.shape[1]):
+        s = a[:, t] * s + b[:, t]
+        seq.append(s)
+    return torch.stack(seq, dim=1), s

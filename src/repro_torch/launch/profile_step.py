@@ -1,18 +1,19 @@
 """Where a served batch's time goes: one prefill and a few decode steps of a
 full-width model under ``torch.profiler``, on the card.
 
-  PYTHONPATH=src python -m repro_torch.launch.profile_step
+  PYTHONPATH=src python -m repro_torch.launch.profile_step [--arch NAME]
 
-runs gemma2-2b at batch 8 with 512-token prompts and 15 decode steps (the
-module constants below), and prints, for the prefill and for the mean
-decode step: wall time (host clock
-around work that ends in ``torch.cuda.synchronize()``), device busy time
-(the union of the kernel intervals in the trace), the device's idle share,
-the number of kernels launched, and the kernels that take the most device
-time.
+runs a model of the catalog (gemma2-2b unless ``--arch`` names another) at
+batch 8 with 512-token prompts and 15 decode steps (the module constants
+below), and prints, for the prefill and for the mean decode step: wall time
+(host clock around work that ends in ``torch.cuda.synchronize()``), device
+busy time (the union of the kernel intervals in the trace), the device's
+idle share, the number of kernels launched, and the kernels that take the
+most device time.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import time
 from collections import defaultdict
@@ -26,7 +27,6 @@ from repro_torch.models import build_model
 from repro_torch.serving.engine import (greedy_sample, make_decode_fn,
                                         make_prefill_fn, serving_config)
 
-ARCH = "gemma2-2b"
 BATCH = 8
 PROMPT_TOKENS = 512
 DECODE_STEPS = 15
@@ -65,8 +65,11 @@ def _window(fn, n: int):
 
 
 def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="gemma2-2b")
+    arch = ap.parse_args().arch
     dev = resolve_device("cuda")
-    model = build_model(serving_config(get_config(ARCH)), dev)
+    model = build_model(serving_config(get_config(arch)), dev)
     params = model.init(torch.Generator(device=dev).manual_seed(0))
     B, S = BATCH, PROMPT_TOKENS
     toks = torch.ones((B, S), dtype=torch.int32, device=dev)
@@ -91,7 +94,7 @@ def main() -> None:
             fn()                                 # a second warm prefill
         wall, busy, count, top = _window(fn, n)
         print(json.dumps({
-            "phase": name, "arch": ARCH, "batch": B, "prompt_tokens": S,
+            "phase": name, "arch": arch, "batch": B, "prompt_tokens": S,
             "wall_ms": wall, "device_busy_ms": busy,
             "device_idle_share": 1.0 - busy / wall, "kernels": count,
             "top_kernels_ms": {k[:80]: v for k, v in top}}))

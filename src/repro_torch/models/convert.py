@@ -3,8 +3,9 @@
 The input is ``repro.models.transformer.DecoderLM.init``'s pytree with every
 leaf already turned into a numpy array (``np.asarray`` on the JAX side), so
 this module needs no JAX.  The port keeps the reference's layouts — the
-stacked leading ``layers`` axis, ``wq``/``wk``/``wv`` as (D, heads, hd) and
-``wo`` as (H, hd, D) — so conversion checks every key and shape against
+stacked leading ``layers`` axis, or a hybrid's stacked ``periods`` and
+unstacked ``tail``, ``wq``/``wk``/``wv`` as (D, heads, hd) and ``wo`` as
+(H, hd, D) — so conversion checks every key and shape against
 ``DecoderLM.param_shapes`` and copies the values.
 """
 from __future__ import annotations
@@ -14,6 +15,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from repro_torch.models.layers import F32_LEAVES
 from repro_torch.models.transformer import DecoderLM
 
 
@@ -27,7 +29,8 @@ def _tensor(arr: np.ndarray, dtype, device) -> torch.Tensor:
 
 def params_from_reference(tree: Dict[str, Any], model: DecoderLM) -> Dict[str, Any]:
     """numpy pytree of the reference model → the port's parameter dict, in
-    the model's parameter dtype on its device."""
+    the model's parameter dtype on its device; ``F32_LEAVES`` stay fp32, as
+    the reference keeps them."""
     def conv(node, shape, path):
         if isinstance(shape, dict):
             if not isinstance(node, dict) or set(node) != set(shape):
@@ -38,5 +41,6 @@ def params_from_reference(tree: Dict[str, Any], model: DecoderLM) -> Dict[str, A
         arr = np.asarray(node)
         if arr.shape != tuple(shape):
             raise ValueError(f"{'/'.join(path)}: shape {arr.shape}, want {shape}")
-        return _tensor(arr, model.pdt, model.device)
+        dtype = torch.float32 if path[-1] in F32_LEAVES else model.pdt
+        return _tensor(arr, dtype, model.device)
     return conv(tree, model.param_shapes(), ())

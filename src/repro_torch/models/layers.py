@@ -9,7 +9,7 @@ held to.  Attention inside the model goes through ``repro_torch.kernels.ops``.
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -17,7 +17,20 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import _softcap
 
-Params = Dict[str, torch.Tensor]
+Params = Dict[str, Any]
+
+# Leaves that stay fp32 even under bf16 compute (log-space decays etc.), as
+# in the reference.
+F32_LEAVES = frozenset({"lam", "decay_w0", "bonus_u"})
+
+
+def cast_layer_params(params: Params, dtype) -> Params:
+    """A layer's weights in the compute dtype, cast at the point of use;
+    ``F32_LEAVES`` and non-float leaves keep theirs."""
+    return {name: (cast_layer_params(leaf, dtype) if isinstance(leaf, dict)
+                   else leaf if name in F32_LEAVES or not leaf.is_floating_point()
+                   else leaf.to(dtype))
+            for name, leaf in params.items()}
 
 
 # --------------------------------------------------------------------------

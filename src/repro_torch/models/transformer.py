@@ -1,16 +1,20 @@
-"""Decoder-only LM for homogeneous attention stacks, ported from
-``repro.models.transformer.DecoderLM``.
+"""Decoder-only LM for dense attention stacks and the RG-LRU hybrid, ported
+from ``repro.models.transformer.DecoderLM``.
 
-The reference scans a stacked layer axis; here a Python loop walks the same
-stacked parameters and cache.  Entry points, as in the reference:
+Parameters and caches keep the reference's layout: a homogeneous attention
+stack under ``layers`` with a leading layer axis; a hybrid (RecurrentGemma's
+(rec, rec, local-attn) pattern) under ``periods`` (``l0``..``l{p-1}``, each
+with a leading period axis) plus an unstacked ``tail`` (``t0``..).  The
+reference scans the stacked axes; here a Python loop walks every layer.
+Entry points, as in the reference:
 
   forward(params, tokens, lengths=None)    teacher-forced full-sequence pass
   prefill(params, cache, tokens, lengths)  fill the KV cache from prompts
   decode_step(params, cache, tokens)       one token per sequence
 
 The cache is updated in place (the reference donates it instead) and
-carries per-sequence ``lengths`` so ragged batching works.  Hybrid, RWKV,
-MoE and encoder-decoder configs wait for later slices of the port.
+carries per-sequence ``lengths`` so ragged batching works.  RWKV, MoE and
+encoder-decoder configs wait for later slices of the port.
 """
 from __future__ import annotations
 
@@ -22,77 +26,109 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
-from repro_torch.models.config import ATTN_GLOBAL, ATTN_LOCAL, ModelConfig
+from repro_torch.models import rglru
+from repro_torch.models.config import (ATTN_GLOBAL, ATTN_LOCAL, RGLRU, RWKV6,
+                                       ModelConfig)
+
+
+def _index(node: Dict[str, Any], j: int) -> Dict[str, Any]:
+    """Entry j of every stacked leaf of ``node`` (views of the leaves)."""
+    return {k: _index(v, j) if isinstance(v, dict) else v[j] for k, v in node.items()}
 
 
 class DecoderLM:
-    """Dense GQA decoder; local layers use ``cfg.local_window``, global
-    layers window 0 (the reference passes GLOBAL_WINDOW = 2**30 there)."""
+    """Dense GQA decoder or RG-LRU hybrid; local layers use
+    ``cfg.local_window``, global layers window 0 (the reference passes
+    GLOBAL_WINDOW = 2**30 there)."""
 
     def __init__(self, cfg: ModelConfig, device=None):
-        if (cfg.is_moe or cfg.is_encdec
-                or not set(cfg.layer_pattern) <= {ATTN_GLOBAL, ATTN_LOCAL}):
+        later = ("ROADMAP M9 (MoE)" if cfg.is_moe else
+                 "ROADMAP M10 (encoder-decoder)" if cfg.is_encdec else
+                 "ROADMAP M8 (RWKV6)" if RWKV6 in cfg.layer_pattern else None)
+        if later:
             raise NotImplementedError(
-                f"{cfg.name}: the port's DecoderLM runs homogeneous dense "
-                "attention stacks only; hybrid, RWKV, MoE and encoder-decoder "
-                "models come with ROADMAP M7-M10")
+                f"{cfg.name}: the port's DecoderLM runs dense attention stacks "
+                f"and the RG-LRU hybrid; this model comes with {later}")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.kinds = cfg.layer_kinds()
         self.pdt = getattr(torch, cfg.param_dtype)
         self.windows = [cfg.local_window if k == ATTN_LOCAL else 0
                         for k in self.kinds]
+        # hybrid layout: full periods stacked + the remainder unstacked
+        self.homogeneous = set(cfg.layer_pattern) <= {ATTN_GLOBAL, ATTN_LOCAL}
+        self.period_len = len(cfg.layer_pattern)
+        self.n_periods = cfg.num_layers // self.period_len
+        self.tail_kinds = self.kinds[self.n_periods * self.period_len:]
+
+    def _at(self, tree: Dict[str, Any], i: int) -> Dict[str, Any]:
+        """Layer i's subtree of a parameter or cache tree, stacked leaves
+        indexed: views, so writes into a cache land in the tree."""
+        if self.homogeneous:
+            return _index(tree["layers"], i)
+        p, j = divmod(i, self.period_len)
+        if p < self.n_periods:
+            return _index(tree["periods"][f"l{j}"], p)
+        return tree["tail"][f"t{i - self.n_periods * self.period_len}"]
+
+    def _stacked(self, per_layer) -> Dict[str, Any]:
+        """The reference's layer layout of ``per_layer(kind, lead)``, which
+        gives one layer's tree with leading axes ``lead``."""
+        if self.homogeneous:
+            return {"layers": per_layer(ATTN_GLOBAL, (self.cfg.num_layers,))}
+        return {"periods": {f"l{j}": per_layer(kind, (self.n_periods,))
+                            for j, kind in enumerate(self.cfg.layer_pattern)},
+                "tail": {f"t{i}": per_layer(kind, ())
+                         for i, kind in enumerate(self.tail_kinds)}}
 
     # ------------------------------------------------------------------ init
+    def _layer_shapes(self, kind: str, lead) -> Dict[str, Any]:
+        c = self.cfg
+        d, h, k, hd, f = c.d_model, c.num_heads, c.num_kv_heads, c.head_dim, c.d_ff
+        p: Dict[str, Any] = {"ln1": {"scale": lead + (d,)},
+                             "ln2": {"scale": lead + (d,)}}
+        if kind == RGLRU:
+            p["rec"] = {name: lead + shape for name, shape
+                        in rglru.rglru_shapes(d, c.rglru_d_rnn).items()}
+        else:
+            p["attn"] = {"wq": lead + (d, h, hd), "wk": lead + (d, k, hd),
+                         "wv": lead + (d, k, hd), "wo": lead + (h, hd, d)}
+        p["ffn"] = {"wi": lead + (d, f), "wg": lead + (d, f), "wo": lead + (f, d)}
+        return p
+
     def param_shapes(self) -> Dict[str, Any]:
         """The parameter tree's shapes, in the reference's layout."""
         c = self.cfg
-        n, d, h, k, hd, f = (c.num_layers, c.d_model, c.num_heads,
-                             c.num_kv_heads, c.head_dim, c.d_ff)
-        return {
-            "embed": (c.vocab_size, d),
-            "final_norm": {"scale": (d,)},
-            "layers": {
-                "ln1": {"scale": (n, d)},
-                "ln2": {"scale": (n, d)},
-                "attn": {"wq": (n, d, h, hd), "wk": (n, d, k, hd),
-                         "wv": (n, d, k, hd), "wo": (n, h, hd, d)},
-                "ffn": {"wi": (n, d, f), "wg": (n, d, f), "wo": (n, f, d)},
-            },
-        }
+        return {"embed": (c.vocab_size, c.d_model),
+                "final_norm": {"scale": (c.d_model,)},
+                **self._stacked(self._layer_shapes)}
 
     def init(self, generator: torch.Generator) -> Dict[str, Any]:
         """Random weights from ``generator`` (which must live on the model's
         device), with the reference's distributions."""
         c, dev, dt = self.cfg, self.device, self.pdt
-        s = self.param_shapes()
-        lay = s["layers"]
-        fan_in = {"wq": c.d_model, "wk": c.d_model, "wv": c.d_model,
-                  "wo": c.num_heads * c.head_dim}
+        fan_in = {("attn", "wq"): c.d_model, ("attn", "wk"): c.d_model,
+                  ("attn", "wv"): c.d_model, ("attn", "wo"): c.num_heads * c.head_dim,
+                  ("ffn", "wi"): c.d_model, ("ffn", "wg"): c.d_model,
+                  ("ffn", "wo"): c.d_ff}
 
-        def ones(shape):
-            return torch.ones(shape, dtype=dt, device=dev)
+        def layer(kind, lead):
+            shapes = self._layer_shapes(kind, lead)
+            return {group: (rglru.rglru_init(generator, c.d_model, c.rglru_d_rnn,
+                                             dt, dev, lead) if group == "rec" else
+                            {name: torch.ones(shape, dtype=dt, device=dev)
+                             if name == "scale" else
+                             L.dense_init(generator, shape, fan_in[group, name], dt, dev)
+                             for name, shape in sub.items()})
+                    for group, sub in shapes.items()}
 
-        return {
-            "embed": L.embed_init(generator, c.vocab_size, c.d_model, dt, dev),
-            "final_norm": {"scale": ones(s["final_norm"]["scale"])},
-            "layers": {
-                "ln1": {"scale": ones(lay["ln1"]["scale"])},
-                "ln2": {"scale": ones(lay["ln2"]["scale"])},
-                "attn": {name: L.dense_init(generator, shape, fan_in[name], dt, dev)
-                         for name, shape in lay["attn"].items()},
-                "ffn": {name: L.dense_init(generator, shape,
-                                           c.d_ff if name == "wo" else c.d_model,
-                                           dt, dev)
-                        for name, shape in lay["ffn"].items()},
-            },
-        }
+        return {"embed": L.embed_init(generator, c.vocab_size, c.d_model, dt, dev),
+                "final_norm": {"scale": torch.ones((c.d_model,), dtype=dt, device=dev)},
+                **self._stacked(layer)}
 
     def _layer(self, params, i: int) -> Dict[str, Dict[str, torch.Tensor]]:
-        """Layer i's parameters in the activation dtype."""
-        act = self.cfg.activation_dtype
-        return {group: {name: t[i].to(act) for name, t in sub.items()}
-                for group, sub in params["layers"].items()}
+        """Layer i's parameters in the activation dtype (fp32 leaves kept)."""
+        return L.cast_layer_params(self._at(params, i), self.cfg.activation_dtype)
 
     # ------------------------------------------------------------- embeddings
     def _embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
@@ -126,39 +162,53 @@ class DecoderLM:
                 return_hidden: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
         """Teacher-forced pass → (logits (B, S, V), aux loss 0.0); with
         ``return_hidden`` the final-norm hidden states instead of logits."""
+        c = self.cfg
         B, S = tokens.shape
         x = self._embed(params, tokens)
         positions = self._positions(B, S)
-        for i, w in enumerate(self.windows):
+        for i, kind in enumerate(self.kinds):
             p = self._layer(params, i)
-            x = self._ffn_block(p, self._attn_block(p, x, positions, w, lengths))
-        x = L.rmsnorm(params["final_norm"], x, self.cfg.norm_eps)
+            if kind == RGLRU:
+                # as in the reference: each layer starts from a zero state
+                # and the recurrence does not mask padding
+                h = L.rmsnorm(p["ln1"], x, c.norm_eps)
+                state = rglru.init_state(B, c.rglru_d_rnn, x.dtype, x.device)
+                x = x + rglru.rglru_block_seq(p["rec"], h, state)[0]
+            else:
+                x = self._attn_block(p, x, positions, self.windows[i], lengths)
+            x = self._ffn_block(p, x)
+        x = L.rmsnorm(params["final_norm"], x, c.norm_eps)
         aux = torch.zeros((), device=x.device)
         return (x if return_hidden else self._logits(params, x)), aux
 
     # ----------------------------------------------------------------- cache
-    def _attn_cache_len(self, max_len: int) -> int:
-        # a uniform cache length across layers, as in the reference: mixed
-        # local/global stacks pay full length on local layers and apply the
-        # window by mask; only all-local stacks get a ring of the window.
-        if set(self.kinds) == {ATTN_LOCAL} and self.cfg.local_window:
+    def _attn_cache_len(self, kind: str, max_len: int) -> int:
+        # As in the reference: a hybrid gives each local layer a ring of the
+        # window; a homogeneous stack keeps one length across layers, so
+        # mixed local/global stacks pay full length on local layers and apply
+        # the window by mask, and only all-local stacks get the ring.
+        local = (set(self.kinds) == {ATTN_LOCAL} if self.homogeneous
+                 else kind == ATTN_LOCAL)
+        if local and self.cfg.local_window:
             return min(self.cfg.local_window, max_len)
         return max_len
 
     def init_cache(self, batch: int, max_len: int, dtype=None) -> Dict[str, Any]:
-        c = self.cfg
+        c, dev = self.cfg, self.device
         dtype = dtype or getattr(torch, c.serve_param_dtype)
-        W = self._attn_cache_len(max_len)
-        shape = (c.num_layers, batch, W, c.num_kv_heads, c.head_dim)
-        return {
-            "lengths": torch.zeros((batch,), dtype=torch.int32, device=self.device),
-            "layers": {
-                "k": torch.zeros(shape, dtype=dtype, device=self.device),
-                "v": torch.zeros(shape, dtype=dtype, device=self.device),
-                "slot_pos": torch.full(shape[:3], -1, dtype=torch.int32,
-                                       device=self.device),
-            },
-        }
+
+        def layer_cache(kind, lead):
+            if kind == RGLRU:
+                return rglru.init_state(batch, c.rglru_d_rnn, dtype, dev, lead)
+            shape = lead + (batch, self._attn_cache_len(kind, max_len),
+                            c.num_kv_heads, c.head_dim)
+            return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+                    "v": torch.zeros(shape, dtype=dtype, device=dev),
+                    "slot_pos": torch.full(shape[:-2], -1, dtype=torch.int32,
+                                           device=dev)}
+
+        return {"lengths": torch.zeros((batch,), dtype=torch.int32, device=dev),
+                **self._stacked(layer_cache)}
 
     # --------------------------------------------------- cached attention ops
     def _attn_prefill(self, p, x, positions, window, lengths, lc):
@@ -217,8 +267,23 @@ class DecoderLM:
             slot_pos=lc["slot_pos"])
         return x + L.project_out(out[:, None], p["attn"]["wo"])
 
-    def _layer_cache(self, cache, i: int) -> Dict[str, torch.Tensor]:
-        return {name: t[i] for name, t in cache["layers"].items()}
+    # ------------------------------------------------- cached RG-LRU ops
+    def _rec_prefill(self, p, x, valid, lc):
+        """The recurrent block over the prompt from state ``lc``, which it
+        overwrites in place with the state at each sequence's length."""
+        h = L.rmsnorm(p["ln1"], x, self.cfg.norm_eps)
+        y, new = rglru.rglru_block_seq(p["rec"], h, lc, valid=valid)
+        for name, t in new.items():
+            lc[name].copy_(t)
+        return x + y
+
+    def _rec_decode(self, p, x, lc):
+        """One recurrent step; x: (B, 1, D).  Updates ``lc`` in place."""
+        h = L.rmsnorm(p["ln1"], x, self.cfg.norm_eps)
+        y, new = rglru.rglru_block_step(p["rec"], h[:, 0], lc)
+        for name, t in new.items():
+            lc[name].copy_(t)
+        return x + y[:, None]
 
     # ---------------------------------------------------------------- prefill
     def prefill(self, params, cache, tokens, lengths) -> Tuple[Dict, torch.Tensor]:
@@ -227,10 +292,13 @@ class DecoderLM:
         lengths = lengths.to(device=self.device, dtype=torch.int32)
         x = self._embed(params, tokens)
         positions = self._positions(B, S)
-        for i, w in enumerate(self.windows):
-            p = self._layer(params, i)
-            x = self._attn_prefill(p, x, positions, w, lengths,
-                                   self._layer_cache(cache, i))
+        valid = positions < lengths[:, None]
+        for i, kind in enumerate(self.kinds):
+            p, lc = self._layer(params, i), self._at(cache, i)
+            if kind == RGLRU:
+                x = self._rec_prefill(p, x, valid, lc)
+            else:
+                x = self._attn_prefill(p, x, positions, self.windows[i], lengths, lc)
             x = self._ffn_block(p, x)
         cache["lengths"] = lengths.clone()
         x = L.rmsnorm(params["final_norm"], x, self.cfg.norm_eps)
@@ -245,9 +313,12 @@ class DecoderLM:
         """tokens: (B,) next input token per sequence → (cache, logits (B, V))."""
         x = self._embed(params, tokens[:, None])
         q_pos = cache["lengths"]
-        for i, w in enumerate(self.windows):
-            p = self._layer(params, i)
-            x = self._attn_decode(p, x, q_pos, w, self._layer_cache(cache, i))
+        for i, kind in enumerate(self.kinds):
+            p, lc = self._layer(params, i), self._at(cache, i)
+            if kind == RGLRU:
+                x = self._rec_decode(p, x, lc)
+            else:
+                x = self._attn_decode(p, x, q_pos, self.windows[i], lc)
             x = self._ffn_block(p, x)
         cache["lengths"] = q_pos + 1
         x = L.rmsnorm(params["final_norm"], x, self.cfg.norm_eps)

@@ -3,9 +3,10 @@
 Every test here is marked ``gpu`` and skips without a CUDA device; on the
 H100 run them with ``python -m pytest -q -m gpu tests/test_torch_cuda.py``.
 The plain versions are themselves held to the JAX kernels and references by
-``tests/test_torch_kernels.py``.  Tolerances are those of
-``tests/test_kernels.py``: 2e-5 for fp32, 2e-2 for bf16 (fp32 products stay
-IEEE: TF32 is switched off).
+``tests/test_torch_kernels.py`` and ``tests/test_torch_rglru.py``.
+Tolerances are those of ``tests/test_kernels.py``: 2e-5 for fp32, 2e-2 for
+bf16 (fp32 products stay IEEE: TF32 is switched off), 1e-5 for the RG-LRU
+scan.
 """
 import numpy as np
 import pytest
@@ -14,6 +15,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import decode_attention as da  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import rglru_scan as rg  # noqa: E402
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -86,6 +88,27 @@ def test_decode_kernel_matches_plain(cuda, d, G, dtype):
     assert_close(got, da.plain(tq, tk, tv, lengths, **kw), dtype)
     got = da.decode_attention(tq, tk, tv, lengths - 7)
     assert_close(got, da.plain(tq, tk, tv, lengths - 7), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,R", [(4, 300, 4096), (3, 1000, 300), (2, 17, 129),
+                                   (1, 0, 64)])
+def test_rglru_kernel_matches_plain(cuda, B, S, R):
+    """Ragged S and R (no multiple of a chunk or a block), and S = 0."""
+    rng = np.random.default_rng(9)
+    a = torch.from_numpy(rng.uniform(0.5, 0.999, (B, S, R)).astype(np.float32)).to(cuda)
+    b = torch.from_numpy(0.1 * rng.standard_normal((B, S, R), dtype=np.float32)).to(cuda)
+    s0 = torch.from_numpy(rng.standard_normal((B, R), dtype=np.float32)).to(cuda)
+    n0 = rg.launches
+    seq, last = rg.rglru_scan(a, b, s0)
+    torch.cuda.synchronize()
+    assert rg.launches == n0 + 1
+    if S:
+        want_seq, want_last = rg.plain(a, b, s0)
+        torch.testing.assert_close(seq, want_seq, atol=1e-5, rtol=1e-5)
+    else:
+        want_last = s0
+    torch.testing.assert_close(last, want_last, atol=1e-5, rtol=1e-5)
 
 
 @pytest.mark.gpu

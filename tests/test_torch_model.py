@@ -53,6 +53,7 @@ def close(port, ref):
 
 
 def test_catalog_matches_reference():
+    assert "recurrentgemma-9b" in ARCHS
     for name, cfg in ARCHS.items():
         assert dataclasses.asdict(cfg) == dataclasses.asdict(REF_ARCHS[name])
     for name in set(REF_ARCHS) - set(ARCHS):
