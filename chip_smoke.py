@@ -6,7 +6,7 @@
 Phases, each printed on its own lines; any failure exits non-zero:
   1. device   — nvidia-smi name and power limit, torch's device name and
                 capability (must be 9.0);
-  2. build    — the three CUDA kernels from ``src/repro_torch/kernels/csrc``
+  2. build    — the four CUDA kernels from ``src/repro_torch/kernels/csrc``
                 with nvcc for sm_90a, in parallel, with ptxas's resource
                 report (no instantiation may spill);
   3. kernels  — each kernel against its plain PyTorch version, element by
@@ -18,6 +18,10 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 (H=16, K=1, window 2048, no softcap; K2 over a 2048-slot
                 ring), within one bf16 ulp (|err| ≤ 1e-5 + 2^-7·|want|);
                 K3 at recurrentgemma-9b's prefill shapes within
+                |err| ≤ 1e-5 + 1e-5·|want|; K4 at rwkv6-7b's prefill
+                shapes (H=64 heads of 64, bf16 r/k/v), its output within
+                one bf16 ulp plus a bound on fp32 summation order (see
+                WKV_GAMMA) and its final fp32 state within
                 |err| ≤ 1e-5 + 1e-5·|want|;
   4. model    — full-width gemma2-2b (random bf16 weights from a seed)
                 generating 16 tokens for a ragged batch through the kernels
@@ -30,6 +34,9 @@ Phases, each printed on its own lines; any failure exits non-zero:
   6. model    — phase 4 for full-width recurrentgemma-9b (38 layers, 26
                 RG-LRU through K3 and 12 local attention through K1/K2);
   7. serving  — phase 5 for recurrentgemma-9b;
+  8. model    — phase 4 for full-width rwkv6-7b (32 RWKV6 layers, the WKV
+                recurrence through K4 on prefill, no attention);
+  9. serving  — phase 5 for rwkv6-7b;
 then a ``kernels`` JSON line, and last the ``ok`` JSON line.
 Needs one card; imports nothing of JAX or of the JAX package.
 """
@@ -62,8 +69,22 @@ PEAK_BYTES = 3.35e12       # H100 SXM HBM3 bandwidth
 RTOL = 2.0 ** -7
 ATOL = 1e-5
 # K3 against plain: both are sequential fp32 recurrences, held to the
-# reference's own limit (tests/test_kernels.py, test_rglru_kernel).
+# reference's own limit (tests/test_kernels.py, test_rglru_kernel).  K4's
+# final state is held to the same limit: its update is elementwise,
+# round(round(e^w·s) + round(k·v)) in both, so the two differ at most where
+# their e^w round differently, by a few fp32 ulps that the decay (< 1) keeps
+# from growing.  K4's output o_t[e] is a sum of N + 1 terms, r_d·S[d, e] and
+# the bonus r_d·u_d·k_d·v_e, that kernel and plain version add in different
+# fp32 orders before rounding once to the dtype of r.  Each order is within
+# γ·M of the exact sum (γ = (N + 4)·2^-24, a product of up to four factors
+# per term; M = Σ_d |r_d|·(|S[d, e]| + |u_d·k_d·v_e|)), so the two may differ
+# by 2γ·M before rounding, and by one ulp of the dtype (RTOL) after.  M is
+# large where the terms cancel to a small output, as they do on a full-width
+# model's activations, and ATOL alone failed a right kernel there; the plain recurrence run on |r|, |k|, |v|, |u| and |s0| gives
+# an M at least as large, entry by entry (e^w > 0), so K4's output is held to
+# |err| ≤ ATOL + 2γ·M + RTOL·|want|.
 SCAN_TOL = 1e-5
+WKV_GAMMA = (64 + 4) * 2.0 ** -24
 TILE = 32                  # keys per kv tile in both attention kernels
 # Full-width model, kernel path against plain path on the same weights.
 # With fp32 activations the two differ only in fp32 summation order inside
@@ -80,8 +101,9 @@ BF16_DRIFT_RATIO = 1.1
 PROMPTS = (4700, 1500, 300, 17)   # ragged prefill, one prompt past the window
 DECODE_STEPS = 16
 SERVE = {"gemma2-2b": dict(rate=8.0, duration_s=10.0, prompt_tokens=512),
-         "recurrentgemma-9b": dict(rate=4.0, duration_s=5.0, prompt_tokens=512)}
-KERNELS = ("flash_attention", "decode_attention", "rglru_scan")
+         "recurrentgemma-9b": dict(rate=4.0, duration_s=5.0, prompt_tokens=512),
+         "rwkv6-7b": dict(rate=4.0, duration_s=5.0, prompt_tokens=512)}
+KERNELS = ("flash_attention", "decode_attention", "rglru_scan", "wkv6")
 
 
 def require(cond: bool, what: str) -> None:
@@ -111,6 +133,23 @@ def held_scan(got, want):
     return max(r[0] for r in results), max(r[1] for r in results)
 
 
+def wkv_atol(r, k, v, logw, u, s0):
+    """K4's absolute limit on its output, entry by entry: ATOL + 2γ·M, with
+    M from the plain recurrence on absolute values (see WKV_GAMMA)."""
+    from repro_torch.kernels import wkv6 as wk
+    mag, _ = wk.plain(r.float().abs(), k.float().abs(), v.float().abs(), logw,
+                      u.abs(), s0.abs())
+    return ATOL + 2.0 * WKV_GAMMA * mag
+
+
+def held_wkv(got, want, out_atol):
+    """``held`` over K4's (out, final state) pair: out within ``out_atol``
+    (``wkv_atol``) and one ulp of its dtype (RTOL), the state at SCAN_TOL."""
+    results = [held(got[0], want[0], atol=out_atol),
+               held(got[1], want[1], atol=SCAN_TOL, rtol=SCAN_TOL)]
+    return max(r[0] for r in results), max(r[1] for r in results)
+
+
 def cuda_ms(fn, reps: int) -> float:
     """Mean milliseconds per call on the card, after one warm-up call."""
     import torch
@@ -132,9 +171,9 @@ def bound(flops: float, nbytes: float, peak_flops: float = PEAK_BF16_FLOPS):
 
 
 def counters():
-    from repro_torch.kernels import decode_attention, flash_attention, rglru_scan
+    from repro_torch.kernels import decode_attention, flash_attention, rglru_scan, wkv6
     return {"flash_attention": flash_attention, "decode_attention": decode_attention,
-            "rglru_scan": rglru_scan}
+            "rglru_scan": rglru_scan, "wkv6": wkv6}
 
 
 def reset_launches():
@@ -340,6 +379,59 @@ def rglru_case():
     return res
 
 
+def wkv6_case():
+    """K4 at rwkv6-7b's prefill shapes: the B=4 ragged prompts padded to the
+    longest, H=64 heads of N=64, bf16 r/k/v with k=0 and logw=0 on pad steps
+    as the model gives them, logw = −exp(·), u and s0 in fp32."""
+    import torch
+    from repro_torch.kernels import wkv6 as wk
+    B, S, H, N = len(PROMPTS), max(PROMPTS), 64, 64
+    g = torch.Generator(device="cuda").manual_seed(4)
+
+    def normal(shape, scale=1.0):
+        return scale * torch.randn(shape, generator=g, device="cuda")
+    shape = (B, S, H, N)
+    valid = (torch.arange(S, device="cuda")[None, :]
+             < torch.tensor(PROMPTS, device="cuda")[:, None])[..., None, None]
+    r = normal(shape, 0.5).to(torch.bfloat16)
+    k = torch.where(valid, normal(shape, 0.5), 0.0).to(torch.bfloat16)
+    v = normal(shape).to(torch.bfloat16)
+    logw = torch.where(valid, -torch.exp(normal(shape)), 0.0)
+    u, s0 = normal((H, N), 0.1), normal((B, H, N, N), 0.1)
+    args = (r, k, v, logw, u, s0)
+    got = wk.wkv6(*args)
+    want = wk.plain(*args)
+    out_atol = wkv_atol(*args)
+    err, ratio = held_wkv(got, want, out_atol)
+    require(all(bool(torch.isfinite(x.float()).all()) for x in got), "wkv6 output finite")
+    require(ratio <= 1.0, f"wkv6 max|err| {err}, {ratio}x the limit")
+    # planted faults: one valid step of the longest prompt skipped (k=0 and
+    # logw=0 there, so S_t = S_{t-1}), and the bonus-u term dropped
+    k_f, w_f = k.clone(), logw.clone()
+    k_f[0, 1000], w_f[0, 1000] = 0.0, 0.0
+    fault_ratio = {"one_step_skipped": held_wkv(wk.wkv6(r, k_f, v, w_f, u, s0), want,
+                                                out_atol)[1],
+                   "bonus_u_dropped": held_wkv(
+                       wk.wkv6(r, k, v, logw, torch.zeros_like(u), s0), want, out_atol)[1]}
+    require(all(r_ > 1.0 for r_ in fault_ratio.values()),
+            f"wkv6 check rejects planted faults {fault_ratio}")
+    # every (b, s, h) step: 5N² + 4N fp32 operations; r, k, v and out read or
+    # written once in bf16, logw once in fp32, u once, the state in and out
+    flops = (5.0 * N * N + 4.0 * N) * B * S * H
+    nbytes = 2.0 * 4 * B * S * H * N + 4.0 * (B * S * H * N + H * N + 2 * B * H * N * N)
+    ms_bound, by = bound(flops, nbytes, PEAK_FP32_FLOPS)
+    res = dict(max_abs_err=err, limit_ratio=ratio, fault_ratio=fault_ratio,
+               state_max_abs_err=float((got[1] - want[1]).abs().max()),
+               # reported, not held: the output against ATOL + RTOL alone
+               ulp_only_ratio=held(got[0], want[0])[1],
+               ms=cuda_ms(lambda: wk.wkv6(*args), 20),
+               plain_ms=cuda_ms(lambda: wk.plain(*args), 2),
+               library_ms=None,   # no single PyTorch call computes the recurrence
+               bound_ms=ms_bound, bound_by=by)
+    print(f"[kernel wkv6] rwkv6-7b B={B} S={S} H={H} N={N} " + json.dumps(res))
+    return res
+
+
 def merge(cases):
     """One kernel's record over a model's layer kinds: the mean of each time
     over the cases (gemma2-2b: window 4096 and global), the worst error."""
@@ -352,10 +444,11 @@ def merge(cases):
 
 
 def layer_counts(cfg):
-    """(attention layers, RG-LRU layers) of a config."""
-    from repro_torch.models.config import RGLRU
+    """(attention layers, RG-LRU layers, RWKV6 layers) of a config."""
+    from repro_torch.models.config import ATTN_GLOBAL, ATTN_LOCAL, RGLRU, RWKV6
     kinds = cfg.layer_kinds()
-    return len(kinds) - kinds.count(RGLRU), kinds.count(RGLRU)
+    return (kinds.count(ATTN_GLOBAL) + kinds.count(ATTN_LOCAL), kinds.count(RGLRU),
+            kinds.count(RWKV6))
 
 
 def phase_model(arch: str):
@@ -365,12 +458,13 @@ def phase_model(arch: str):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.kernels import rglru_scan as rg
+    from repro_torch.kernels import wkv6 as wk
     from repro_torch.models import build_model
     from repro_torch.serving.engine import (greedy_sample, make_decode_fn,
                                             make_generate_fn, make_prefill_fn,
                                             serving_config)
     cfg = serving_config(get_config(arch))
-    n_attn, n_rec = layer_counts(cfg)
+    n_attn, n_rec, n_rwkv = layer_counts(cfg)
     torch.cuda.reset_peak_memory_stats()
     model = build_model(cfg)
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
@@ -392,7 +486,7 @@ def phase_model(arch: str):
           f"generate B={B} prompts={list(PROMPTS)} "
           f"steps={DECODE_STEPS} s={gen_s:.3f} launches={json.dumps(launches)}")
     want = {"flash_attention": n_attn, "decode_attention": n_attn * DECODE_STEPS,
-            "rglru_scan": n_rec}
+            "rglru_scan": n_rec, "wkv6": n_rwkv}
     require(launches == want, f"generate launches {launches} != {want}")
     require(tuple(out.shape) == (B, DECODE_STEPS + 1), f"tokens shape {out.shape}")
     require(bool(((out >= 0) & (out < cfg.vocab_size)).all()), "token ids in range")
@@ -406,6 +500,7 @@ def phase_model(arch: str):
     # holds every kernel call against the plain version on the same inputs.
     tok = None
     worst = {name: 0.0 for name in KERNELS}
+    wkv_ulp_only = 0.0     # K4's output against ATOL + RTOL alone (not held)
 
     def checked_flash(q, k, v, **kw):
         got = fa.flash_attention(q, k, v, **kw)
@@ -426,15 +521,25 @@ def phase_model(arch: str):
                                   held_scan(got, rg.plain(a, b, s0))[1])
         return got
 
-    swaps = {"kernel": None, "plain": (fa.plain, da.plain, rg.plain),
-             "checked": (checked_flash, checked_decode, checked_rglru)}
+    def checked_wkv6(*args):
+        nonlocal wkv_ulp_only
+        got, want = wk.wkv6(*args), wk.plain(*args)
+        worst["wkv6"] = max(worst["wkv6"], held_wkv(got, want, wkv_atol(*args))[1])
+        wkv_ulp_only = max(wkv_ulp_only, held(got[0], want[0])[1])
+        return got
+
+    swaps = {"kernel": {},
+             "plain": {name: mod.plain for name, mod in counters().items()},
+             "checked": {"flash_attention": checked_flash,
+                         "decode_attention": checked_decode,
+                         "rglru_scan": checked_rglru, "wkv6": checked_wkv6}}
     step_launches = {}
 
     def prefill_and_step(m, path: str):
         nonlocal tok
-        kernels = (ops.flash_attention, ops.decode_attention, ops.rglru_scan)
-        if swaps[path]:
-            ops.flash_attention, ops.decode_attention, ops.rglru_scan = swaps[path]
+        kernels = {name: getattr(ops, name) for name in KERNELS}
+        for name, fn in swaps[path].items():
+            setattr(ops, name, fn)
         try:
             reset_launches()
             cache, pre = make_prefill_fn(m, max_len)(params, tokens, lengths)
@@ -444,7 +549,8 @@ def phase_model(arch: str):
             _, dec = make_decode_fn(m)(params, cache, tok)
             step_launches[path, "decode_step"] = read_launches()
         finally:
-            ops.flash_attention, ops.decode_attention, ops.rglru_scan = kernels
+            for name, fn in kernels.items():
+                setattr(ops, name, fn)
         for what, t in (("prefill", pre), ("decode", dec)):
             require(tuple(t.shape) == (B, cfg.vocab_size), f"{what} logits shape")
             require(bool(torch.isfinite(t).all()), f"{what} logits finite")
@@ -458,9 +564,9 @@ def phase_model(arch: str):
             ("fp32", "kernel"): prefill_and_step(model32, "kernel"),
             ("fp32", "plain"): prefill_and_step(model32, "plain")}
     per_step = {"prefill": {"flash_attention": n_attn, "decode_attention": 0,
-                            "rglru_scan": n_rec},
+                            "rglru_scan": n_rec, "wkv6": n_rwkv},
                 "decode_step": {"flash_attention": 0, "decode_attention": n_attn,
-                                "rglru_scan": 0}}
+                                "rglru_scan": 0, "wkv6": 0}}
     for what, want in per_step.items():
         got = step_launches["kernel", what]
         require(got == want, f"{what} launches {got} != {want}")
@@ -486,7 +592,9 @@ def phase_model(arch: str):
     # below the ~0.9 that any two bf16 summation orders drift apart
     same16 = first("bf16", "kernel") == first("bf16", "plain")
     print(f"[model] {arch} per-call limit ratio, bf16 on the model's activations: "
-          f"{json.dumps(worst)} (fail above 1)")
+          f"{json.dumps(worst)} (fail above 1)"
+          + (f"; wkv6 output against ATOL + RTOL alone {wkv_ulp_only} (not held)"
+             if n_rwkv else ""))
     print(f"[model] {arch} max|Δlogit| fp32 kernel-vs-plain={d32} "
           f"(tol {LOGIT_TOL_FP32}) bf16 kernel-vs-plain={d16}; to the fp32 path: "
           f"bf16 kernel={far_k} bf16 plain={far_p} ratio={far_k / far_p} "
@@ -509,7 +617,7 @@ def phase_serving(arch: str):
     from repro_torch.serving.engine import serving_config
     from repro_torch.serving.workload import WorkloadSpec, generate
     cfg = serving_config(get_config(arch))
-    n_attn, n_rec = layer_counts(cfg)
+    n_attn, n_rec, n_rwkv = layer_counts(cfg)
     spec = SERVE[arch]
     policy = make_policy("tris")
     wl = WorkloadSpec(kind="poisson", seed=0, **spec)
@@ -529,7 +637,7 @@ def phase_serving(arch: str):
     batches = round(res["requests"] / res["mean_batch"])
     want = {"flash_attention": n_attn * (batches + warm),
             "decode_attention": n_attn * ((DECODE_STEPS - 1) * batches + warm),
-            "rglru_scan": n_rec * (batches + warm)}
+            "rglru_scan": n_rec * (batches + warm), "wkv6": n_rwkv * (batches + warm)}
     require(launches == want, f"serving launches {launches} != {want}")
 
 
@@ -556,9 +664,10 @@ def main() -> int:
         ("decode_attention", "recurrentgemma-9b"): merge([
             decode_case("recurrentgemma-9b", 16, 1, 2048, 2048, 0.0, ring=True)]),
         ("rglru_scan", "recurrentgemma-9b"): merge([rglru_case()]),
+        ("wkv6", "rwkv6-7b"): merge([wkv6_case()]),
     }
     launches = {}
-    for arch in ("gemma2-2b", "recurrentgemma-9b"):
+    for arch in ("gemma2-2b", "recurrentgemma-9b", "rwkv6-7b"):
         torch.cuda.empty_cache()
         launches[arch] = phase_model(arch)
         torch.cuda.empty_cache()
@@ -566,7 +675,8 @@ def main() -> int:
     src = "src/repro_torch/kernels/csrc/"
     replaces = {"flash_attention": "src/repro/kernels/flash_attention.py:94",
                 "decode_attention": "src/repro/kernels/decode_attention.py:73",
-                "rglru_scan": "src/repro/kernels/rglru_scan.py:53"}
+                "rglru_scan": "src/repro/kernels/rglru_scan.py:53",
+                "wkv6": "src/repro/kernels/wkv6.py:66"}
     print(f"[done] wall_s={time.perf_counter() - t0:.1f}")
     print(json.dumps({"kernels": [
         dict(name=kernel, model=arch, route="cuda", source=f"{src}{kernel}.cu",

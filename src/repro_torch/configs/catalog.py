@@ -1,5 +1,6 @@
-"""The architectures the port serves — the dense homogeneous stacks and the
-RG-LRU hybrid — copied from ``repro.configs.catalog`` with the same values.
+"""The architectures the port serves — the dense homogeneous stacks, the
+RG-LRU hybrid and the attention-free RWKV6 stack — copied from
+``repro.configs.catalog`` with the same values.
 
 The other families of the reference catalog need model code the port does
 not have yet; ``get_config`` names the ROADMAP item that brings each.
@@ -8,7 +9,8 @@ from __future__ import annotations
 
 from typing import Dict
 
-from repro_torch.models.config import ATTN_GLOBAL, ATTN_LOCAL, RGLRU, ModelConfig
+from repro_torch.models.config import (ATTN_GLOBAL, ATTN_LOCAL, RGLRU, RWKV6,
+                                       ModelConfig)
 
 # [arXiv:2402.19427] — RG-LRU + local attn, 1 attention per 2 recurrent
 RECURRENTGEMMA_9B = ModelConfig(
@@ -44,14 +46,20 @@ YI_9B = ModelConfig(
     num_layers=48, d_model=4096, num_heads=32, num_kv_heads=4, head_dim=128,
     d_ff=11_008, vocab_size=64_000)
 
+# [arXiv:2404.05892] — Finch, data-dependent decay, attention-free
+RWKV6_7B = ModelConfig(
+    name="rwkv6-7b", family="ssm",
+    num_layers=32, d_model=4096, num_heads=64, num_kv_heads=64, head_dim=64,
+    d_ff=14_336, vocab_size=65_536,
+    layer_pattern=(RWKV6,), rwkv_head_dim=64)
+
 ARCHS: Dict[str, ModelConfig] = {
     c.name: c for c in (RECURRENTGEMMA_9B, GEMMA2_2B, GRANITE_3_2B, GRANITE_8B,
-                        YI_9B)}
+                        YI_9B, RWKV6_7B)}
 
 # Architectures of the reference catalog that wait for later slices of the
 # port, with the ROADMAP queue item that brings each.
 PENDING: Dict[str, str] = {
-    "rwkv6-7b": "ROADMAP M8 (RWKV6)",
     "granite-moe-3b-a800m": "ROADMAP M9 (MoE)",
     "dbrx-132b": "ROADMAP M9 (MoE)",
     "whisper-tiny": "ROADMAP M10 (encoder-decoder)",

@@ -13,6 +13,7 @@ import torch
 from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import rglru_scan as _rg
+from repro_torch.kernels import wkv6 as _wkv
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
@@ -38,3 +39,11 @@ def rglru_scan(a, b, s0) -> Tuple[torch.Tensor, torch.Tensor]:
     (seq (B, S, R), last (B, R))."""
     fn = _rg.rglru_scan if a.is_cuda else _rg.plain
     return fn(a, b, s0)
+
+
+def wkv6(r, k, v, logw, u, state0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """RWKV6 WKV.  r/k/v: (B, S, H, N); logw: (B, S, H, N) fp32; u: (H, N)
+    fp32; state0: (B, H, N, N) fp32 → (out (B, S, H, N) in r's dtype, final
+    state (B, H, N, N) fp32)."""
+    fn = _wkv.wkv6 if r.is_cuda else _wkv.plain
+    return fn(r, k, v, logw, u, state0)

@@ -103,3 +103,28 @@ def rglru_reference(a, b, s0) -> Tuple[torch.Tensor, torch.Tensor]:
         s = a[:, t] * s + b[:, t]
         seq.append(s)
     return torch.stack(seq, dim=1), s
+
+
+def wkv6_reference(r, k, v, logw, u, state0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Naive sequential WKV recurrence, fp32 throughout, one step at a time:
+
+        o_t = r_tᵀ S_{t−1} + (r_t ⊙ u ⊙ k_t)ᵀ 1 · v_t
+        S_t = diag(e^{w_t}) S_{t−1} + k_t v_tᵀ
+
+    r/k/v: (B, S, H, N), any float dtype; logw: (B, S, H, N) fp32; u: (H, N)
+    fp32; state0: (B, H, N, N) fp32 → (out (B, S, H, N) in r's dtype, final
+    state (B, H, N, N) fp32).  Any S.
+    """
+    rr, kk, vv = r.float(), k.float(), v.float()
+    decay = torch.exp(logw.float())
+    uf = u.float()
+    state = state0.float()
+    outs = []
+    for t in range(r.shape[1]):
+        rt, kt, vt = rr[:, t], kk[:, t], vv[:, t]                # (B, H, N)
+        o = (torch.einsum("bhd,bhde->bhe", rt, state)
+             + (rt * uf * kt).sum(-1, keepdim=True) * vt)
+        state = decay[:, t, :, :, None] * state + kt[..., :, None] * vt[..., None, :]
+        outs.append(o)
+    out = torch.stack(outs, dim=1) if outs else rr.clone()
+    return out.to(r.dtype), state

@@ -1,10 +1,11 @@
-"""Decoder-only LM for dense attention stacks and the RG-LRU hybrid, ported
-from ``repro.models.transformer.DecoderLM``.
+"""Decoder-only LM for dense attention stacks, the RG-LRU hybrid and the
+attention-free RWKV6 stack, ported from ``repro.models.transformer.DecoderLM``.
 
-Parameters and caches keep the reference's layout: a homogeneous attention
-stack under ``layers`` with a leading layer axis; a hybrid (RecurrentGemma's
-(rec, rec, local-attn) pattern) under ``periods`` (``l0``..``l{p-1}``, each
-with a leading period axis) plus an unstacked ``tail`` (``t0``..).  The
+Parameters and caches keep the reference's layout: a homogeneous stack (all
+attention, or all RWKV6) under ``layers`` with a leading layer axis; a
+hybrid (RecurrentGemma's (rec, rec, local-attn) pattern) under ``periods``
+(``l0``..``l{p-1}``, each with a leading period axis) plus an unstacked
+``tail`` (``t0``..).  The
 reference scans the stacked axes; here a Python loop walks every layer.
 Entry points, as in the reference:
 
@@ -13,7 +14,7 @@ Entry points, as in the reference:
   decode_step(params, cache, tokens)       one token per sequence
 
 The cache is updated in place (the reference donates it instead) and
-carries per-sequence ``lengths`` so ragged batching works.  RWKV, MoE and
+carries per-sequence ``lengths`` so ragged batching works.  MoE and
 encoder-decoder configs wait for later slices of the port.
 """
 from __future__ import annotations
@@ -26,7 +27,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
-from repro_torch.models import rglru
+from repro_torch.models import rglru, rwkv6
 from repro_torch.models.config import (ATTN_GLOBAL, ATTN_LOCAL, RGLRU, RWKV6,
                                        ModelConfig)
 
@@ -36,27 +37,40 @@ def _index(node: Dict[str, Any], j: int) -> Dict[str, Any]:
     return {k: _index(v, j) if isinstance(v, dict) else v[j] for k, v in node.items()}
 
 
+def _write(dst: Dict[str, Any], src: Dict[str, Any]) -> None:
+    """Copy every leaf of ``src`` into the same leaf of ``dst``, in place."""
+    for k, v in src.items():
+        _write(dst[k], v) if isinstance(v, dict) else dst[k].copy_(v)
+
+
 class DecoderLM:
-    """Dense GQA decoder or RG-LRU hybrid; local layers use
+    """Dense GQA decoder, RG-LRU hybrid or RWKV6 stack; local layers use
     ``cfg.local_window``, global layers window 0 (the reference passes
     GLOBAL_WINDOW = 2**30 there)."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         later = ("ROADMAP M9 (MoE)" if cfg.is_moe else
-                 "ROADMAP M10 (encoder-decoder)" if cfg.is_encdec else
-                 "ROADMAP M8 (RWKV6)" if RWKV6 in cfg.layer_pattern else None)
+                 "ROADMAP M10 (encoder-decoder)" if cfg.is_encdec else None)
         if later:
             raise NotImplementedError(
-                f"{cfg.name}: the port's DecoderLM runs dense attention stacks "
-                f"and the RG-LRU hybrid; this model comes with {later}")
+                f"{cfg.name}: the port's DecoderLM runs dense attention stacks, "
+                f"the RG-LRU hybrid and RWKV6 stacks; this model comes with {later}")
+        pattern = set(cfg.layer_pattern)
+        if RWKV6 in pattern and pattern != {RWKV6}:
+            raise ValueError(
+                f"{cfg.name}: a layer pattern that mixes RWKV6 with other kinds "
+                f"{sorted(pattern)} has no working counterpart in the reference "
+                "(its hybrid path gives RWKV6 layers no state)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.kinds = cfg.layer_kinds()
         self.pdt = getattr(torch, cfg.param_dtype)
         self.windows = [cfg.local_window if k == ATTN_LOCAL else 0
                         for k in self.kinds]
+        # homogeneous stacks (all attention, or all RWKV6) under ``layers``;
         # hybrid layout: full periods stacked + the remainder unstacked
-        self.homogeneous = set(cfg.layer_pattern) <= {ATTN_GLOBAL, ATTN_LOCAL}
+        self.homogeneous = pattern <= {ATTN_GLOBAL, ATTN_LOCAL} or pattern == {RWKV6}
+        self.stack_kind = RWKV6 if pattern == {RWKV6} else ATTN_GLOBAL
         self.period_len = len(cfg.layer_pattern)
         self.n_periods = cfg.num_layers // self.period_len
         self.tail_kinds = self.kinds[self.n_periods * self.period_len:]
@@ -75,7 +89,7 @@ class DecoderLM:
         """The reference's layer layout of ``per_layer(kind, lead)``, which
         gives one layer's tree with leading axes ``lead``."""
         if self.homogeneous:
-            return {"layers": per_layer(ATTN_GLOBAL, (self.cfg.num_layers,))}
+            return {"layers": per_layer(self.stack_kind, (self.cfg.num_layers,))}
         return {"periods": {f"l{j}": per_layer(kind, (self.n_periods,))
                             for j, kind in enumerate(self.cfg.layer_pattern)},
                 "tail": {f"t{i}": per_layer(kind, ())
@@ -90,10 +104,14 @@ class DecoderLM:
         if kind == RGLRU:
             p["rec"] = {name: lead + shape for name, shape
                         in rglru.rglru_shapes(d, c.rglru_d_rnn).items()}
+        elif kind == RWKV6:
+            p["tm_cm"] = {name: lead + shape for name, shape
+                          in rwkv6.rwkv_shapes(d, f, c.rwkv_head_dim).items()}
         else:
             p["attn"] = {"wq": lead + (d, h, hd), "wk": lead + (d, k, hd),
                          "wv": lead + (d, k, hd), "wo": lead + (h, hd, d)}
-        p["ffn"] = {"wi": lead + (d, f), "wg": lead + (d, f), "wo": lead + (f, d)}
+        if kind != RWKV6:  # rwkv's channel-mix is its FFN
+            p["ffn"] = {"wi": lead + (d, f), "wg": lead + (d, f), "wo": lead + (f, d)}
         return p
 
     def param_shapes(self) -> Dict[str, Any]:
@@ -112,15 +130,19 @@ class DecoderLM:
                   ("ffn", "wi"): c.d_model, ("ffn", "wg"): c.d_model,
                   ("ffn", "wo"): c.d_ff}
 
+        def group_init(group, sub, lead):
+            if group == "rec":
+                return rglru.rglru_init(generator, c.d_model, c.rglru_d_rnn, dt, dev, lead)
+            if group == "tm_cm":
+                return rwkv6.rwkv_init(generator, c.d_model, c.d_ff, c.rwkv_head_dim,
+                                       dt, dev, lead)
+            return {name: torch.ones(shape, dtype=dt, device=dev) if name == "scale"
+                    else L.dense_init(generator, shape, fan_in[group, name], dt, dev)
+                    for name, shape in sub.items()}
+
         def layer(kind, lead):
-            shapes = self._layer_shapes(kind, lead)
-            return {group: (rglru.rglru_init(generator, c.d_model, c.rglru_d_rnn,
-                                             dt, dev, lead) if group == "rec" else
-                            {name: torch.ones(shape, dtype=dt, device=dev)
-                             if name == "scale" else
-                             L.dense_init(generator, shape, fan_in[group, name], dt, dev)
-                             for name, shape in sub.items()})
-                    for group, sub in shapes.items()}
+            return {group: group_init(group, sub, lead)
+                    for group, sub in self._layer_shapes(kind, lead).items()}
 
         return {"embed": L.embed_init(generator, c.vocab_size, c.d_model, dt, dev),
                 "final_norm": {"scale": torch.ones((c.d_model,), dtype=dt, device=dev)},
@@ -168,9 +190,13 @@ class DecoderLM:
         positions = self._positions(B, S)
         for i, kind in enumerate(self.kinds):
             p = self._layer(params, i)
+            # as in the reference: each recurrent layer starts from a zero
+            # state and the recurrence does not mask padding
+            if kind == RWKV6:
+                state = rwkv6.init_state(B, c.d_model, c.rwkv_head_dim, x.dtype, x.device)
+                x = self._rwkv_seq(p, x, state)[0]
+                continue
             if kind == RGLRU:
-                # as in the reference: each layer starts from a zero state
-                # and the recurrence does not mask padding
                 h = L.rmsnorm(p["ln1"], x, c.norm_eps)
                 state = rglru.init_state(B, c.rglru_d_rnn, x.dtype, x.device)
                 x = x + rglru.rglru_block_seq(p["rec"], h, state)[0]
@@ -200,6 +226,8 @@ class DecoderLM:
         def layer_cache(kind, lead):
             if kind == RGLRU:
                 return rglru.init_state(batch, c.rglru_d_rnn, dtype, dev, lead)
+            if kind == RWKV6:
+                return rwkv6.init_state(batch, c.d_model, c.rwkv_head_dim, dtype, dev, lead)
             shape = lead + (batch, self._attn_cache_len(kind, max_len),
                             c.num_kv_heads, c.head_dim)
             return {"k": torch.zeros(shape, dtype=dtype, device=dev),
@@ -273,17 +301,38 @@ class DecoderLM:
         overwrites in place with the state at each sequence's length."""
         h = L.rmsnorm(p["ln1"], x, self.cfg.norm_eps)
         y, new = rglru.rglru_block_seq(p["rec"], h, lc, valid=valid)
-        for name, t in new.items():
-            lc[name].copy_(t)
+        _write(lc, new)
         return x + y
 
     def _rec_decode(self, p, x, lc):
         """One recurrent step; x: (B, 1, D).  Updates ``lc`` in place."""
         h = L.rmsnorm(p["ln1"], x, self.cfg.norm_eps)
         y, new = rglru.rglru_block_step(p["rec"], h[:, 0], lc)
-        for name, t in new.items():
-            lc[name].copy_(t)
+        _write(lc, new)
         return x + y[:, None]
+
+    # -------------------------------------------------------- RWKV6 ops
+    def _rwkv_seq(self, p, x, state, valid=None):
+        """Time-mix and channel-mix over a sequence from ``state`` →
+        (x, new state); ``state`` is not modified."""
+        c = self.cfg
+        h = L.rmsnorm(p["ln1"], x, c.norm_eps)
+        h, tm = rwkv6.time_mix_seq(p["tm_cm"], h, c.rwkv_head_dim, state["tm"], valid)
+        x = x + h
+        h = L.rmsnorm(p["ln2"], x, c.norm_eps)
+        h, cm = rwkv6.channel_mix_seq(p["tm_cm"], h, state["cm"], valid)
+        return x + h, {"tm": tm, "cm": cm}
+
+    def _rwkv_decode(self, p, x, lc):
+        """One RWKV6 step; x: (B, 1, D).  Updates ``lc`` in place."""
+        c = self.cfg
+        h = L.rmsnorm(p["ln1"], x, c.norm_eps)
+        h, tm = rwkv6.time_mix_step(p["tm_cm"], h[:, 0], c.rwkv_head_dim, lc["tm"])
+        x = x + h[:, None]
+        h = L.rmsnorm(p["ln2"], x, c.norm_eps)
+        h, cm = rwkv6.channel_mix_step(p["tm_cm"], h[:, 0], lc["cm"])
+        _write(lc, {"tm": tm, "cm": cm})
+        return x + h[:, None]
 
     # ---------------------------------------------------------------- prefill
     def prefill(self, params, cache, tokens, lengths) -> Tuple[Dict, torch.Tensor]:
@@ -295,6 +344,10 @@ class DecoderLM:
         valid = positions < lengths[:, None]
         for i, kind in enumerate(self.kinds):
             p, lc = self._layer(params, i), self._at(cache, i)
+            if kind == RWKV6:
+                x, new = self._rwkv_seq(p, x, lc, valid)
+                _write(lc, new)
+                continue
             if kind == RGLRU:
                 x = self._rec_prefill(p, x, valid, lc)
             else:
@@ -315,6 +368,9 @@ class DecoderLM:
         q_pos = cache["lengths"]
         for i, kind in enumerate(self.kinds):
             p, lc = self._layer(params, i), self._at(cache, i)
+            if kind == RWKV6:
+                x = self._rwkv_decode(p, x, lc)
+                continue
             if kind == RGLRU:
                 x = self._rec_decode(p, x, lc)
             else:

@@ -3,10 +3,11 @@
 Every test here is marked ``gpu`` and skips without a CUDA device; on the
 H100 run them with ``python -m pytest -q -m gpu tests/test_torch_cuda.py``.
 The plain versions are themselves held to the JAX kernels and references by
-``tests/test_torch_kernels.py`` and ``tests/test_torch_rglru.py``.
-Tolerances are those of ``tests/test_kernels.py``: 2e-5 for fp32, 2e-2 for
-bf16 (fp32 products stay IEEE: TF32 is switched off), 1e-5 for the RG-LRU
-scan.
+``tests/test_torch_kernels.py``, ``tests/test_torch_rglru.py`` and
+``tests/test_torch_rwkv6.py``.  Tolerances are those of
+``tests/test_kernels.py``: 2e-5 for fp32, 2e-2 for bf16 (fp32 products stay
+IEEE: TF32 is switched off), 1e-5 for the RG-LRU scan, atol 2e-4 and rtol
+1e-3 for the WKV6 state (and for its output in fp32; one bf16 ulp in bf16).
 """
 import numpy as np
 import pytest
@@ -16,6 +17,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels import decode_attention as da  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import rglru_scan as rg  # noqa: E402
+from repro_torch.kernels import wkv6 as wk  # noqa: E402
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -109,6 +111,36 @@ def test_rglru_kernel_matches_plain(cuda, B, S, R):
     else:
         want_last = s0
     torch.testing.assert_close(last, want_last, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,H", [(2, 300, 4), (3, 17, 2), (1, 0, 1)])
+def test_wkv6_kernel_matches_plain(cuda, dtype, B, S, H):
+    """Ragged S (no multiple of a chunk), S = 0, and a planted fault (the
+    bonus-u term dropped) that the check must reject."""
+    N = wk.HEAD_SIZE
+    rng = np.random.default_rng(10)
+
+    def normal(shape, scale=1.0):
+        return torch.from_numpy((scale * rng.standard_normal(shape)).astype(np.float32))
+    r, k = (normal((B, S, H, N), 0.5).to(TORCH_DT[dtype]).to(cuda) for _ in range(2))
+    v = normal((B, S, H, N)).to(TORCH_DT[dtype]).to(cuda)
+    logw = (-torch.exp(normal((B, S, H, N), 0.5))).to(cuda)
+    u, s0 = normal((H, N), 0.1).to(cuda), normal((B, H, N, N), 0.1).to(cuda)
+    n0 = wk.launches
+    out, state = wk.wkv6(r, k, v, logw, u, s0)
+    torch.cuda.synchronize()
+    assert wk.launches == n0 + 1
+    assert out.dtype == r.dtype and state.dtype == torch.float32
+    want_out, want_state = wk.plain(r, k, v, logw, u, s0)
+    rtol = 2.0 ** -7 if dtype == "bfloat16" else 1e-3
+    torch.testing.assert_close(out.float(), want_out.float(), atol=2e-4, rtol=rtol)
+    torch.testing.assert_close(state, want_state, atol=2e-4, rtol=1e-3)
+    if S:
+        bad, _ = wk.wkv6(r, k, v, logw, torch.zeros_like(u), s0)
+        with pytest.raises(AssertionError):
+            torch.testing.assert_close(bad.float(), want_out.float(), atol=2e-4, rtol=rtol)
 
 
 @pytest.mark.gpu

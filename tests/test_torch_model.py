@@ -24,7 +24,7 @@ from repro_torch.models.config import ATTN_LOCAL  # noqa: E402
 from repro_torch.models.convert import params_from_reference  # noqa: E402
 
 TOL = 1e-3
-PORTED = ("gemma2-2b", "granite-3-2b")
+PORTED = ("gemma2-2b", "granite-3-2b", "rwkv6-7b")
 
 
 def pair(name, **overrides):
@@ -53,7 +53,7 @@ def close(port, ref):
 
 
 def test_catalog_matches_reference():
-    assert "recurrentgemma-9b" in ARCHS
+    assert {"recurrentgemma-9b", "rwkv6-7b"} <= set(ARCHS)
     for name, cfg in ARCHS.items():
         assert dataclasses.asdict(cfg) == dataclasses.asdict(REF_ARCHS[name])
     for name in set(REF_ARCHS) - set(ARCHS):

@@ -31,7 +31,7 @@ from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import rglru_scan as rg  # noqa: E402
 from repro_torch.models import DecoderLM, build_model, reduced  # noqa: E402
 from repro_torch.models import rglru  # noqa: E402
-from repro_torch.models.config import RGLRU, RWKV6  # noqa: E402
+from repro_torch.models.config import ATTN_LOCAL, RGLRU, RWKV6  # noqa: E402
 from repro_torch.models.convert import params_from_reference  # noqa: E402
 
 SCAN_TOL = 1e-5
@@ -253,5 +253,20 @@ def test_convert_rejects_wrong_periods_layout():
 ])
 def test_other_families_name_their_roadmap_item(overrides, item):
     cfg = dataclasses.replace(reduced(get_config("gemma2-2b")), **overrides)
+    if item == "M8":
+        # ROADMAP M8 (RWKV6) is ported: a pure RWKV6 stack builds, in the
+        # reference's homogeneous layout
+        shapes = DecoderLM(cfg, "cpu").param_shapes()
+        assert "tm_cm" in shapes["layers"] and "ffn" not in shapes["layers"]
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+        DecoderLM(cfg, "cpu")
+
+
+@pytest.mark.parametrize("pattern", [(RWKV6, ATTN_LOCAL), (RGLRU, RWKV6)])
+def test_rwkv6_mixed_with_other_kinds_is_refused(pattern):
+    """The reference's hybrid path gives RWKV6 layers no state, so a pattern
+    that mixes RWKV6 with other kinds has no working counterpart."""
+    cfg = dataclasses.replace(reduced(get_config("gemma2-2b")), layer_pattern=pattern)
+    with pytest.raises(ValueError, match="RWKV6"):
         DecoderLM(cfg, "cpu")
