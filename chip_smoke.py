@@ -6,9 +6,10 @@
 Phases, each printed on its own lines; any failure exits non-zero:
   1. device   — nvidia-smi name and power limit, torch's device name and
                 capability (must be 9.0);
-  2. build    — the four CUDA kernels from ``src/repro_torch/kernels/csrc``
+  2. build    — the five CUDA kernels from ``src/repro_torch/kernels/csrc``
                 with nvcc for sm_90a, in parallel, with ptxas's resource
-                report (no instantiation may spill);
+                report (no instantiation may spill, K3's bf16 and K4's
+                N = 32 ones included);
   3. kernels  — each kernel against its plain PyTorch version, element by
                 element, with planted faults that the check must reject, and
                 kernel, plain and library times (CUDA events) beside the
@@ -21,8 +22,15 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 |err| ≤ 1e-5 + 1e-5·|want|; K4 at rwkv6-7b's prefill
                 shapes (H=64 heads of 64, bf16 r/k/v), its output within
                 one bf16 ulp plus a bound on fp32 summation order (see
-                WKV_GAMMA) and its final fp32 state within
-                |err| ≤ 1e-5 + 1e-5·|want|;
+                wkv_gamma) and its final fp32 state within
+                |err| ≤ 1e-5 + 1e-5·|want|; K3 again with bf16 a/b/seq and
+                K4 again at the calibration's shape (B=4, S=256, H=2 heads
+                of N=32), each with the same limits; K5 at gemma2-2b's MLP
+                down-projection for a prefill of 8 × 512 tokens (x (4096,
+                9216) and w (9216, 2304) int8), bitwise equal to its exact
+                plain version and within VERIFY_TOL["int8"]·max|want| of the
+                dequantizing reference, its library time that of
+                ``torch._int_mm`` (the int32 product only, unscaled);
   4. model    — full-width gemma2-2b (random bf16 weights from a seed)
                 generating 16 tokens for a ragged batch through the kernels
                 (launch counts checked), then the same prefill and first
@@ -37,6 +45,13 @@ Phases, each printed on its own lines; any failure exits non-zero:
   8. model    — phase 4 for full-width rwkv6-7b (32 RWKV6 layers, the WKV
                 recurrence through K4 on prefill, no attention);
   9. serving  — phase 5 for rwkv6-7b;
+ 10. calibration — the kernel-calibration backend on the card:
+                ``kernel_records()`` with its defaults (all five kernels,
+                batches (1, 2, 4) × seqs (64, 128, 256), fp32 and bf16, int8
+                for K5: 81 records, each kernel verified against its
+                reference first), the nine per-(kernel, dtype) fits, the int8
+                ``compute_scale`` from ``derive_speed_modes``, and the
+                ``launch.bench_kernels`` smoke sweep; launch counts checked;
 then a ``kernels`` JSON line, and last the ``ok`` JSON line.
 Needs one card; imports nothing of JAX or of the JAX package.
 """
@@ -57,6 +72,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core rate
 PEAK_FP32_FLOPS = 67e12    # H100 SXM fp32 rate outside the tensor cores
+PEAK_INT8_OPS = 1979e12    # H100 SXM dense int8 tensor-core rate
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3 bandwidth
 # Kernel against plain, element by element.  Both compute in fp32 and round
 # once to bf16, so where both are right their outputs differ by at most one
@@ -84,7 +100,6 @@ ATOL = 1e-5
 # an M at least as large, entry by entry (e^w > 0), so K4's output is held to
 # |err| ≤ ATOL + 2γ·M + RTOL·|want|.
 SCAN_TOL = 1e-5
-WKV_GAMMA = (64 + 4) * 2.0 ** -24
 TILE = 32                  # keys per kv tile in both attention kernels
 # Full-width model, kernel path against plain path on the same weights.
 # With fp32 activations the two differ only in fp32 summation order inside
@@ -103,7 +118,8 @@ DECODE_STEPS = 16
 SERVE = {"gemma2-2b": dict(rate=8.0, duration_s=10.0, prompt_tokens=512),
          "recurrentgemma-9b": dict(rate=4.0, duration_s=5.0, prompt_tokens=512),
          "rwkv6-7b": dict(rate=4.0, duration_s=5.0, prompt_tokens=512)}
-KERNELS = ("flash_attention", "decode_attention", "rglru_scan", "wkv6")
+MODEL_KERNELS = ("flash_attention", "decode_attention", "rglru_scan", "wkv6")
+KERNELS = MODEL_KERNELS + ("int8_matmul",)   # K5 runs on the calibration path only
 
 
 def require(cond: bool, what: str) -> None:
@@ -133,13 +149,19 @@ def held_scan(got, want):
     return max(r[0] for r in results), max(r[1] for r in results)
 
 
+def wkv_gamma(N: int) -> float:
+    """γ of K4's output limit at head size N (see the comment above
+    SCAN_TOL)."""
+    return (N + 4) * 2.0 ** -24
+
+
 def wkv_atol(r, k, v, logw, u, s0):
     """K4's absolute limit on its output, entry by entry: ATOL + 2γ·M, with
-    M from the plain recurrence on absolute values (see WKV_GAMMA)."""
+    M from the plain recurrence on absolute values (see wkv_gamma)."""
     from repro_torch.kernels import wkv6 as wk
     mag, _ = wk.plain(r.float().abs(), k.float().abs(), v.float().abs(), logw,
                       u.abs(), s0.abs())
-    return ATOL + 2.0 * WKV_GAMMA * mag
+    return ATOL + 2.0 * wkv_gamma(r.shape[-1]) * mag
 
 
 def held_wkv(got, want, out_atol):
@@ -171,9 +193,10 @@ def bound(flops: float, nbytes: float, peak_flops: float = PEAK_BF16_FLOPS):
 
 
 def counters():
-    from repro_torch.kernels import decode_attention, flash_attention, rglru_scan, wkv6
+    from repro_torch.kernels import (decode_attention, flash_attention, int8_matmul,
+                                     rglru_scan, wkv6)
     return {"flash_attention": flash_attention, "decode_attention": decode_attention,
-            "rglru_scan": rglru_scan, "wkv6": wkv6}
+            "rglru_scan": rglru_scan, "wkv6": wkv6, "int8_matmul": int8_matmul}
 
 
 def reset_launches():
@@ -342,24 +365,28 @@ def decode_case(arch: str, H: int, K: int, T: int, window: int, softcap: float,
     return res
 
 
-def rglru_case():
+def rglru_case(dtype: str = "float32"):
     """K3 at recurrentgemma-9b's prefill shapes: the B=4 ragged prompts padded
-    to the longest, R=4096, pad steps a=1, b=0 as the model gives them."""
+    to the longest, R=4096, pad steps a=1, b=0 as the model gives them; a and
+    b in ``dtype`` (the model sends fp32; the calibration also bf16)."""
     import torch
     from repro_torch.kernels import rglru_scan as rg
     B, S, R = len(PROMPTS), max(PROMPTS), 4096
+    dt = getattr(torch, dtype)
     g = torch.Generator(device="cuda").manual_seed(3)
     lengths = torch.tensor(PROMPTS, device="cuda")
     valid = (torch.arange(S, device="cuda")[None, :] < lengths[:, None])[..., None]
     a = torch.where(valid, 0.5 + 0.499 * torch.rand((B, S, R), generator=g,
-                                                    device="cuda"), 1.0)
-    b = torch.where(valid, 0.1 * torch.randn((B, S, R), generator=g, device="cuda"), 0.0)
+                                                    device="cuda"), 1.0).to(dt)
+    b = torch.where(valid, 0.1 * torch.randn((B, S, R), generator=g, device="cuda"),
+                    0.0).to(dt)
     s0 = torch.randn((B, R), generator=g, device="cuda")
     got = rg.rglru_scan(a, b, s0)
     want = rg.plain(a, b, s0)
+    require(got[0].dtype == dt and got[1].dtype == torch.float32, "rglru_scan dtypes")
     err, ratio = held_scan(got, want)
     require(all(bool(torch.isfinite(x).all()) for x in got), "rglru_scan output finite")
-    require(ratio <= 1.0, f"rglru_scan max|err| {err}, {ratio}x the limit")
+    require(ratio <= 1.0, f"rglru_scan {dtype} max|err| {err}, {ratio}x the limit")
     # planted fault: one valid step of the longest prompt skipped (a=1, b=0)
     a_f, b_f = a.clone(), b.clone()
     a_f[0, 1000], b_f[0, 1000] = 1.0, 0.0
@@ -368,31 +395,33 @@ def rglru_case():
             f"rglru_scan check rejects planted faults {fault_ratio}")
     # a and b read once, s0 read once, seq and last written once; two
     # fp32 operations a step
-    ms_bound, by = bound(2.0 * B * S * R, 4.0 * (3 * B * S * R + 2 * B * R),
+    size = a.element_size()
+    ms_bound, by = bound(2.0 * B * S * R, size * 3.0 * B * S * R + 4.0 * 2 * B * R,
                          PEAK_FP32_FLOPS)
     res = dict(max_abs_err=err, limit_ratio=ratio, fault_ratio=fault_ratio,
                ms=cuda_ms(lambda: rg.rglru_scan(a, b, s0), 20),
                plain_ms=cuda_ms(lambda: rg.plain(a, b, s0), 2),
                library_ms=None,   # no single PyTorch call computes the recurrence
                bound_ms=ms_bound, bound_by=by)
-    print(f"[kernel rglru_scan] recurrentgemma-9b B={B} S={S} R={R} " + json.dumps(res))
+    print(f"[kernel rglru_scan] recurrentgemma-9b {dtype} B={B} S={S} R={R} "
+          + json.dumps(res))
     return res
 
 
-def wkv6_case():
-    """K4 at rwkv6-7b's prefill shapes: the B=4 ragged prompts padded to the
-    longest, H=64 heads of N=64, bf16 r/k/v with k=0 and logw=0 on pad steps
-    as the model gives them, logw = −exp(·), u and s0 in fp32."""
+def wkv6_case(label: str, B: int, S: int, H: int, N: int, prompts, fault_step: int):
+    """K4 at B ragged prompts of lengths ``prompts`` padded to S, H heads of
+    N, bf16 r/k/v with k=0 and logw=0 on pad steps as the model gives them,
+    logw = −exp(·), u and s0 in fp32: rwkv6-7b's prefill (H=64, N=64) and
+    the calibration's shape (H=2, N=32)."""
     import torch
     from repro_torch.kernels import wkv6 as wk
-    B, S, H, N = len(PROMPTS), max(PROMPTS), 64, 64
     g = torch.Generator(device="cuda").manual_seed(4)
 
     def normal(shape, scale=1.0):
         return scale * torch.randn(shape, generator=g, device="cuda")
     shape = (B, S, H, N)
     valid = (torch.arange(S, device="cuda")[None, :]
-             < torch.tensor(PROMPTS, device="cuda")[:, None])[..., None, None]
+             < torch.tensor(prompts, device="cuda")[:, None])[..., None, None]
     r = normal(shape, 0.5).to(torch.bfloat16)
     k = torch.where(valid, normal(shape, 0.5), 0.0).to(torch.bfloat16)
     v = normal(shape).to(torch.bfloat16)
@@ -404,17 +433,17 @@ def wkv6_case():
     out_atol = wkv_atol(*args)
     err, ratio = held_wkv(got, want, out_atol)
     require(all(bool(torch.isfinite(x.float()).all()) for x in got), "wkv6 output finite")
-    require(ratio <= 1.0, f"wkv6 max|err| {err}, {ratio}x the limit")
+    require(ratio <= 1.0, f"wkv6 {label} max|err| {err}, {ratio}x the limit")
     # planted faults: one valid step of the longest prompt skipped (k=0 and
     # logw=0 there, so S_t = S_{t-1}), and the bonus-u term dropped
     k_f, w_f = k.clone(), logw.clone()
-    k_f[0, 1000], w_f[0, 1000] = 0.0, 0.0
+    k_f[0, fault_step], w_f[0, fault_step] = 0.0, 0.0
     fault_ratio = {"one_step_skipped": held_wkv(wk.wkv6(r, k_f, v, w_f, u, s0), want,
                                                 out_atol)[1],
                    "bonus_u_dropped": held_wkv(
                        wk.wkv6(r, k, v, logw, torch.zeros_like(u), s0), want, out_atol)[1]}
     require(all(r_ > 1.0 for r_ in fault_ratio.values()),
-            f"wkv6 check rejects planted faults {fault_ratio}")
+            f"wkv6 {label} check rejects planted faults {fault_ratio}")
     # every (b, s, h) step: 5N² + 4N fp32 operations; r, k, v and out read or
     # written once in bf16, logw once in fp32, u once, the state in and out
     flops = (5.0 * N * N + 4.0 * N) * B * S * H
@@ -428,8 +457,81 @@ def wkv6_case():
                plain_ms=cuda_ms(lambda: wk.plain(*args), 2),
                library_ms=None,   # no single PyTorch call computes the recurrence
                bound_ms=ms_bound, bound_by=by)
-    print(f"[kernel wkv6] rwkv6-7b B={B} S={S} H={H} N={N} " + json.dumps(res))
+    print(f"[kernel wkv6] {label} B={B} S={S} H={H} N={N} " + json.dumps(res))
     return res
+
+
+def int8_case(label: str, x_q, w_q, sx, sw):
+    """K5 on int8 x (M, K) and w (K, N) with their fp32 scales: bitwise equal
+    to its exact plain version, within the calibration's tolerance of the
+    dequantizing reference, and planted faults rejected."""
+    import torch
+    from repro_torch.calibrate.kernel_bench import VERIFY_TOL, ieee_fp32
+    from repro_torch.kernels import int8_matmul as i8
+    from repro_torch.kernels.ref import int8_matmul_reference
+    (M, K), N = x_q.shape, w_q.shape[1]
+    got = i8.int8_matmul(x_q, w_q, sx, sw)
+    want = i8.plain(x_q, w_q, sx, sw)
+    err = float((got - want).abs().max())
+    require(bool(torch.isfinite(got).all()), f"int8_matmul {label} output finite")
+    require(torch.equal(got, want), f"int8_matmul {label} bitwise equal to "
+            f"int8_matmul_exact (max|err| {err})")
+    with ieee_fp32():
+        deq = int8_matmul_reference(x_q, w_q, sx, sw)
+    ref_err = float((got - deq).abs().max())
+    ref_tol = VERIFY_TOL["int8"] * max(1.0, float(deq.abs().max()))
+    require(ref_err <= ref_tol, f"int8_matmul {label} against the dequantizing "
+            f"reference max|err| {ref_err} > {ref_tol}")
+    # planted faults, each the kernel's own output where a wrong kernel would
+    # give it: one 64-byte K tile skipped (its columns of x zeroed), and sw
+    # dropped; the bitwise check must reject each
+    x_f = x_q.clone()
+    x_f[:, K // 2:K // 2 + 64] = 0
+    faults = {"k_tile_skipped": i8.int8_matmul(x_f, w_q, sx, sw),
+              "sw_dropped": i8.int8_matmul(x_q, w_q, sx, torch.ones_like(sw))}
+    fault_err = {name: float((out - want).abs().max()) for name, out in faults.items()}
+    require(not any(torch.equal(out, want) for out in faults.values()),
+            f"int8_matmul {label} check rejects planted faults {fault_err}")
+    w_cm = w_q.T.contiguous().T                      # (K, N), column-major
+    # x and w read once (int8), the scales once, out written once (fp32)
+    ms_bound, by = bound(2.0 * M * N * K, M * K + K * N + 4.0 * (M + N + M * N),
+                         PEAK_INT8_OPS)
+    res = dict(max_abs_err=err, ref_max_abs_err=ref_err, ref_tol=ref_tol,
+               fault_max_abs_err=fault_err,
+               ms=cuda_ms(lambda: i8.int8_matmul(x_q, w_q, sx, sw), 20),
+               plain_ms=cuda_ms(lambda: i8.plain(x_q, w_q, sx, sw), 3),
+               library_ms=cuda_ms(lambda: torch._int_mm(x_q, w_q), 20),
+               # reported beside it: the same call with w stored column-major
+               library_colmajor_ms=cuda_ms(lambda: torch._int_mm(x_q, w_cm), 20),
+               bound_ms=ms_bound, bound_by=by)
+    print(f"[kernel int8_matmul] {label} M={M} K={K} N={N} "
+          f"(library_ms: torch._int_mm, the int32 product only, unscaled) "
+          + json.dumps(res))
+    return res
+
+
+def int8_down_projection():
+    """K5 at gemma2-2b's MLP down-projection (d_ff 9216 → d_model 2304) for a
+    prefill of batch 8 × 512 tokens: x (4096, 9216) and w (9216, 2304) int8,
+    quantized row by row (w column by column) from normals made from a seed."""
+    import torch
+    from repro_torch.kernels import ops
+    M, K, N = 8 * 512, 9216, 2304
+    g = torch.Generator(device="cuda").manual_seed(5)
+    x_q, sx = ops.quantize_rowwise(torch.randn((M, K), generator=g, device="cuda"))
+    w_q_t, sw = ops.quantize_rowwise(torch.randn((N, K), generator=g, device="cuda"))
+    w_q = w_q_t.T.contiguous()                       # w drawn as its transpose
+    return int8_case("gemma2-2b MLP down-projection", x_q, w_q, sx, sw)
+
+
+def int8_calibration_largest():
+    """K5 on the calibration sweep's own inputs at its largest point,
+    batch 4 × seq 256: (1024, 512) × (512, 512)."""
+    from repro_torch.calibrate.kernel_bench import (DEFAULT_BATCHES, DEFAULT_SEQS,
+                                                    kernel_registry)
+    args, _ = kernel_registry()["int8_matmul"].make(
+        max(DEFAULT_BATCHES), max(DEFAULT_SEQS), "int8", 0, "cuda")
+    return int8_case("calibration's largest point", *args)
 
 
 def merge(cases):
@@ -486,7 +588,7 @@ def phase_model(arch: str):
           f"generate B={B} prompts={list(PROMPTS)} "
           f"steps={DECODE_STEPS} s={gen_s:.3f} launches={json.dumps(launches)}")
     want = {"flash_attention": n_attn, "decode_attention": n_attn * DECODE_STEPS,
-            "rglru_scan": n_rec, "wkv6": n_rwkv}
+            "rglru_scan": n_rec, "wkv6": n_rwkv, "int8_matmul": 0}
     require(launches == want, f"generate launches {launches} != {want}")
     require(tuple(out.shape) == (B, DECODE_STEPS + 1), f"tokens shape {out.shape}")
     require(bool(((out >= 0) & (out < cfg.vocab_size)).all()), "token ids in range")
@@ -499,7 +601,7 @@ def phase_model(arch: str):
     # fp32 activations on the same bf16 weights.  The bf16 kernel run also
     # holds every kernel call against the plain version on the same inputs.
     tok = None
-    worst = {name: 0.0 for name in KERNELS}
+    worst = {name: 0.0 for name in MODEL_KERNELS}
     wkv_ulp_only = 0.0     # K4's output against ATOL + RTOL alone (not held)
 
     def checked_flash(q, k, v, **kw):
@@ -529,7 +631,8 @@ def phase_model(arch: str):
         return got
 
     swaps = {"kernel": {},
-             "plain": {name: mod.plain for name, mod in counters().items()},
+             "plain": {name: mod.plain for name, mod in counters().items()
+                       if name in MODEL_KERNELS},
              "checked": {"flash_attention": checked_flash,
                          "decode_attention": checked_decode,
                          "rglru_scan": checked_rglru, "wkv6": checked_wkv6}}
@@ -537,7 +640,7 @@ def phase_model(arch: str):
 
     def prefill_and_step(m, path: str):
         nonlocal tok
-        kernels = {name: getattr(ops, name) for name in KERNELS}
+        kernels = {name: getattr(ops, name) for name in swaps[path]}   # restored below
         for name, fn in swaps[path].items():
             setattr(ops, name, fn)
         try:
@@ -564,9 +667,9 @@ def phase_model(arch: str):
             ("fp32", "kernel"): prefill_and_step(model32, "kernel"),
             ("fp32", "plain"): prefill_and_step(model32, "plain")}
     per_step = {"prefill": {"flash_attention": n_attn, "decode_attention": 0,
-                            "rglru_scan": n_rec, "wkv6": n_rwkv},
+                            "rglru_scan": n_rec, "wkv6": n_rwkv, "int8_matmul": 0},
                 "decode_step": {"flash_attention": 0, "decode_attention": n_attn,
-                                "rglru_scan": 0, "wkv6": 0}}
+                                "rglru_scan": 0, "wkv6": 0, "int8_matmul": 0}}
     for what, want in per_step.items():
         got = step_launches["kernel", what]
         require(got == want, f"{what} launches {got} != {want}")
@@ -637,8 +740,58 @@ def phase_serving(arch: str):
     batches = round(res["requests"] / res["mean_batch"])
     want = {"flash_attention": n_attn * (batches + warm),
             "decode_attention": n_attn * ((DECODE_STEPS - 1) * batches + warm),
-            "rglru_scan": n_rec * (batches + warm), "wkv6": n_rwkv * (batches + warm)}
+            "rglru_scan": n_rec * (batches + warm), "wkv6": n_rwkv * (batches + warm),
+            "int8_matmul": 0}
     require(launches == want, f"serving launches {launches} != {want}")
+
+
+def phase_calibration():
+    """The kernel-calibration backend on the card, with its defaults, then
+    the compute scale and the bench_kernels smoke sweep; counts at 0 just
+    before, read just after.  Nothing is caught: a kernel that fails to build,
+    launch or verify ends the run."""
+    from repro_torch.calibrate import derive_speed_modes, fit_kernel_records, kernel_records
+    from repro_torch.calibrate.kernel_bench import (DEFAULT_BATCHES, DEFAULT_SEQS,
+                                                    kernel_registry)
+    from repro_torch.launch.bench_kernels import run_smoke
+    reg = kernel_registry()
+    reset_launches()
+    t0 = time.perf_counter()
+    records = kernel_records()
+    fits = fit_kernel_records(records)
+    modes = derive_speed_modes(fits, measure_compute_scale=True)
+    smoke = run_smoke()
+    launches = read_launches()
+    print(f"[calibration] records={len(records)} fits={len(fits)} "
+          f"s={time.perf_counter() - t0:.1f} launches={json.dumps(launches)}")
+    for key, fit in fits.items():
+        print(f"[calibration] {key} phase={fit['phase']} coef={list(fit['coef'])} "
+              f"n_points={fit['n_points']} mean_rel_err={fit['mean_rel_err']} "
+              f"r2={fit['r2']} max_err_vs_ref={fit['max_err_vs_ref']}")
+    scale = modes["int8"]["compute_scale"]
+    print(f"[calibration] int8 compute_scale={scale} (K5 against an fp32 "
+          f"torch.matmul of the dequantized operands, clamped to [1.0, 1.5])")
+    print(f"[calibration] bench_kernels smoke {json.dumps(smoke)}")
+    grid = len(DEFAULT_BATCHES) * len(DEFAULT_SEQS)
+    pairs = sum(len(case.dtypes) for case in reg.values())
+    require(len(records) == grid * pairs == 81, f"{len(records)} calibration records")
+    require(all(r["kind"] == "calibration" and r["backend"] == "hopper-kernel"
+                and r["result"]["mode"] == "kernel-cuda"
+                and r["result"]["max_err_vs_ref"] >= 0.0 for r in records),
+            "every record verified on the card")
+    require(len(fits) == pairs == 9 and all(f["n_points"] == grid for f in fits.values()),
+            f"nine fits of {grid} points")
+    require(1.0 <= scale <= 1.5, f"int8 compute_scale {scale}")
+    require((smoke["n_records"], smoke["n_fits"], smoke["verified_pairs"]) == (20, 5, 5),
+            f"bench_kernels smoke {smoke}")
+    # each (kernel, dtype): one verification, then per grid point a warm-up
+    # and 3 timed calls; the compute scale: 1 + 3 int8 calls; the smoke
+    # sweep: per kernel one verification and 4 points × (1 + 2) calls
+    want = {name: len(case.dtypes) * (1 + grid * 4) + 1 + 4 * 3
+            for name, case in reg.items()}
+    want["int8_matmul"] += 1 + 3
+    require(launches == want, f"calibration launches {launches} != {want}")
+    return launches
 
 
 def main() -> int:
@@ -652,19 +805,34 @@ def main() -> int:
     t0 = time.perf_counter()
     name = phase_device()
     phase_build()
+    # (kernel, model, variant): record; the launches of a "calibration"
+    # record are counted on the calibration sweep (all its dtypes together),
+    # the others' on the model's generate run
     records = {
-        ("flash_attention", "gemma2-2b"): merge([
+        ("flash_attention", "gemma2-2b", ""): merge([
             flash_case("gemma2-2b", 8, 4, 4096, 50.0),
             flash_case("gemma2-2b", 8, 4, 0, 50.0)]),
-        ("decode_attention", "gemma2-2b"): merge([
+        ("decode_attention", "gemma2-2b", ""): merge([
             decode_case("gemma2-2b", 8, 4, 4736, 4096, 50.0, ring=False),
             decode_case("gemma2-2b", 8, 4, 4736, 0, 50.0, ring=False)]),
-        ("flash_attention", "recurrentgemma-9b"): merge([
+        ("flash_attention", "recurrentgemma-9b", ""): merge([
             flash_case("recurrentgemma-9b", 16, 1, 2048, 0.0)]),
-        ("decode_attention", "recurrentgemma-9b"): merge([
+        ("decode_attention", "recurrentgemma-9b", ""): merge([
             decode_case("recurrentgemma-9b", 16, 1, 2048, 2048, 0.0, ring=True)]),
-        ("rglru_scan", "recurrentgemma-9b"): merge([rglru_case()]),
-        ("wkv6", "rwkv6-7b"): merge([wkv6_case()]),
+        ("rglru_scan", "recurrentgemma-9b", ""): merge([rglru_case()]),
+        ("rglru_scan", "calibration",
+         f"bf16 a/b/seq, timed at recurrentgemma-9b's prefill shape B={len(PROMPTS)} "
+         f"S={max(PROMPTS)} R=4096"):
+            merge([rglru_case("bfloat16")]),
+        ("wkv6", "rwkv6-7b", ""): merge([
+            wkv6_case("rwkv6-7b", len(PROMPTS), max(PROMPTS), 64, 64, PROMPTS, 1000)]),
+        ("wkv6", "calibration", "N=32, timed at B=4 S=256 H=2"): merge([
+            wkv6_case("calibration", 4, 256, 2, 32, (256,) * 4, 100)]),
+        ("int8_matmul", "calibration",
+         "timed at gemma2-2b's MLP down-projection 4096 x 9216 x 2304"): merge([
+            int8_down_projection()]),
+        ("int8_matmul", "calibration", "timed at the sweep's largest point 1024 x 512 x 512"):
+            merge([int8_calibration_largest()]),
     }
     launches = {}
     for arch in ("gemma2-2b", "recurrentgemma-9b", "rwkv6-7b"):
@@ -672,16 +840,21 @@ def main() -> int:
         launches[arch] = phase_model(arch)
         torch.cuda.empty_cache()
         phase_serving(arch)
+    calibration = phase_calibration()
     src = "src/repro_torch/kernels/csrc/"
     replaces = {"flash_attention": "src/repro/kernels/flash_attention.py:94",
                 "decode_attention": "src/repro/kernels/decode_attention.py:73",
                 "rglru_scan": "src/repro/kernels/rglru_scan.py:53",
-                "wkv6": "src/repro/kernels/wkv6.py:66"}
+                "wkv6": "src/repro/kernels/wkv6.py:66",
+                "int8_matmul": "src/repro/kernels/int8_matmul.py:45"}
     print(f"[done] wall_s={time.perf_counter() - t0:.1f}")
     print(json.dumps({"kernels": [
-        dict(name=kernel, model=arch, route="cuda", source=f"{src}{kernel}.cu",
-             replaces=replaces[kernel], launches=launches[arch][kernel], **rec)
-        for (kernel, arch), rec in records.items()]}))
+        dict(name=kernel, model=arch, **({"variant": variant} if variant else {}),
+             route="cuda", source=f"{src}{kernel}.cu", replaces=replaces[kernel],
+             launches=(calibration if arch == "calibration" else launches[arch])[kernel],
+             launches_on=("calibration sweep, all its dtypes together"
+                          if arch == "calibration" else "generate"), **rec)
+        for (kernel, arch, variant), rec in records.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

@@ -1,5 +1,5 @@
 // RWKV6 WKV recurrence on Hopper (sm_90a), per (batch, head) with head size
-// N = 64 and an N x N fp32 state:
+// N = 64 or 32 and an N x N fp32 state:
 //
 //   o_t = r_t^T (S_{t-1} + diag(u) k_t v_t^T)
 //   S_t = diag(e^{w_t}) S_{t-1} + k_t v_t^T
@@ -16,24 +16,27 @@
 // 32-step chunks of one head in grid order, carrying the state in VMEM
 // scratch and doing each chunk's work as two MXU products.  Hopper blocks
 // run in no order, so here the sequence is a loop inside one block: one
-// block owns one (b, h) and its whole state, in registers.  Warp w holds
-// rows 16g .. 16g + 15 of the state, g = w % 4, and lane l column
-// e = 32 (w / 4) + l, so all lanes of a warp read the same r, k and e^w
-// entries from shared memory (one broadcast each) and their own v_t[e].
+// block owns one (b, h) and its whole state, in registers: 4N threads, one
+// warp per row group and 32 columns (256 threads at N = 64, 128 at N = 32).
+// Warp w holds rows ROWS g .. ROWS g + ROWS - 1 of the state (ROWS = N / 4),
+// g = w % 4, and lane l column e = 32 (w / 4) + l, so all lanes of a warp
+// read the same r, k and e^w entries from shared memory (one broadcast
+// each) and their own v_t[e].
 // Every step's state update is elementwise, and each warp writes its part
-// of o_t[e] (its 16 rows' sum) to shared memory, so no step waits on
+// of o_t[e] (its ROWS rows' sum) to shared memory, so no step waits on
 // another warp: the block meets at a barrier once per chunk of TC steps.
 // There the next chunk's r, k, e^w and v, loaded from device memory while
 // the current chunk ran, land in the other half of a double buffer, and
 // after it the four row groups' parts of the chunk's outputs are summed
-// and written, one coalesced row of the head per step.  The 16 state
-// entries, 16 entries of u and the prefetched chunk stay in registers.
+// and written, one coalesced row of the head per step.  The ROWS state
+// entries, ROWS entries of u and the prefetched chunk stay in registers.
 //
 // The state update is rounded as round(round(e^w * s) + round(k * v)), not
 // fused, the arithmetic of the plain version's PyTorch operations; the
 // output's sum runs in another order than the plain version's product.  The
 // chunked tensor-core form (the TPU kernel's algorithm on wgmma) is the later
-// speed-up.
+// speed-up.  At N = 32 (the calibration's heads) the block is 128 threads
+// and the state 8 rows a thread.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -43,12 +46,10 @@
 namespace repro_torch {
 namespace {
 
-constexpr int N = 64;          // head size
-constexpr int THREADS = 256;   // 4 row groups x 2 column halves, one warp each
-constexpr int ROWS = N / 4;    // state rows per thread
 constexpr int TC = 8;          // steps per staged chunk
 
-template <typename T>
+// N: head size; 4 row groups x N / 32 column groups, one warp each
+template <typename T, int N, int THREADS = 4 * N, int ROWS = N / 4>
 __global__ void __launch_bounds__(THREADS)
     wkv6_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __restrict__ v,
                 const float* __restrict__ logw, const float* __restrict__ u,
@@ -70,7 +71,7 @@ __global__ void __launch_bounds__(THREADS)
     uu[i] = u[(int64_t)h * N + g * ROWS + i];
   }
 
-  // staging: thread tid loads array a = tid / 64, element n = tid % 64, of
+  // staging: thread tid loads array a = tid / N, element n = tid % N, of
   // each of a chunk's TC steps (one coalesced row of the head per step)
   const int a = tid / N, n = tid % N;
   float pre[TC];
@@ -138,29 +139,34 @@ __global__ void __launch_bounds__(THREADS)
   for (int i = 0; i < ROWS; ++i) sf[st + (int64_t)(g * ROWS + i) * N + e] = s[i];
 }
 
+template <typename T, int N>
+cudaError_t launch(const void* r, const void* k, const void* v, const float* logw,
+                   const float* u, const float* s0, void* out, float* sf, int B, int S,
+                   int H, cudaStream_t stream) {
+  wkv6_kernel<T, N><<<dim3(H, B), 4 * N, 0, stream>>>(
+      static_cast<const T*>(r), static_cast<const T*>(k), static_cast<const T*>(v), logw,
+      u, s0, static_cast<T*>(out), sf, S, H);
+  return cudaGetLastError();
+}
+
 }  // namespace
 }  // namespace repro_torch
 
-// r, k, v, out: (B, S, H, 64) contiguous, dtype 0 = fp32, 1 = bf16; logw:
-// (B, S, H, 64) fp32; u: (H, 64) fp32; s0, sf: (B, H, 64, 64) fp32.
+// r, k, v, out: (B, S, H, N) contiguous, dtype 0 = fp32, 1 = bf16; logw:
+// (B, S, H, N) fp32; u: (H, N) fp32; s0, sf: (B, H, N, N) fp32; N = 32 or 64.
 extern "C" int wkv6_fwd(const void* r, const void* k, const void* v, const float* logw,
                         const float* u, const float* s0, void* out, float* sf, int B,
-                        int S, int H, int dtype, void* stream) {
+                        int S, int H, int N, int dtype, void* stream) {
   using namespace repro_torch;
-  if (B < 0 || S < 0 || H < 0 || B > 65535 || (dtype != 0 && dtype != 1))
+  if (B < 0 || S < 0 || H < 0 || B > 65535 || (dtype != 0 && dtype != 1) ||
+      (N != 32 && N != 64))
     return (int)cudaErrorInvalidValue;
   if (B == 0 || H == 0) return (int)cudaSuccess;
-  const dim3 grid(H, B);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    wkv6_kernel<float><<<grid, THREADS, 0, st>>>(
-        static_cast<const float*>(r), static_cast<const float*>(k),
-        static_cast<const float*>(v), logw, u, s0, static_cast<float*>(out), sf, S, H);
-  } else {
-    wkv6_kernel<__nv_bfloat16><<<grid, THREADS, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(r), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), logw, u, s0,
-        static_cast<__nv_bfloat16*>(out), sf, S, H);
-  }
-  return (int)cudaGetLastError();
+  using Launch = cudaError_t (*)(const void*, const void*, const void*, const float*,
+                                 const float*, const float*, void*, float*, int, int, int,
+                                 cudaStream_t);
+  const Launch fn = dtype == 0
+                        ? (N == 64 ? &launch<float, 64> : &launch<float, 32>)
+                        : (N == 64 ? &launch<__nv_bfloat16, 64> : &launch<__nv_bfloat16, 32>);
+  return (int)fn(r, k, v, logw, u, s0, out, sf, B, S, H, static_cast<cudaStream_t>(stream));
 }

@@ -12,6 +12,8 @@ import torch
 
 from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import int8_matmul as _i8
+from repro_torch.kernels import ref
 from repro_torch.kernels import rglru_scan as _rg
 from repro_torch.kernels import wkv6 as _wkv
 
@@ -35,8 +37,8 @@ def decode_attention(q, k, v, lengths, *, softcap: float = 0.0,
 
 
 def rglru_scan(a, b, s0) -> Tuple[torch.Tensor, torch.Tensor]:
-    """s_t = a_t s_{t-1} + b_t.  a/b: (B, S, R) fp32; s0: (B, R) fp32 →
-    (seq (B, S, R), last (B, R))."""
+    """s_t = a_t s_{t-1} + b_t.  a/b: (B, S, R) fp32 or bf16; s0: (B, R)
+    fp32 → (seq (B, S, R) in a's dtype, last (B, R) fp32)."""
     fn = _rg.rglru_scan if a.is_cuda else _rg.plain
     return fn(a, b, s0)
 
@@ -47,3 +49,15 @@ def wkv6(r, k, v, logw, u, state0) -> Tuple[torch.Tensor, torch.Tensor]:
     state (B, H, N, N) fp32)."""
     fn = _wkv.wkv6 if r.is_cuda else _wkv.plain
     return fn(r, k, v, logw, u, state0)
+
+
+def int8_matmul(x_q, w_q, sx, sw) -> torch.Tensor:
+    """x_q: (M, K) int8; w_q: (K, N) int8; sx: (M,); sw: (N,) fp32 →
+    (M, N) fp32, the int32 product scaled by sx[:, None] and sw[None, :]."""
+    fn = _i8.int8_matmul if x_q.is_cuda else _i8.plain
+    return fn(x_q, w_q, sx, sw)
+
+
+def quantize_rowwise(x) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-row int8 quantization → (q, scales)."""
+    return ref.quantize_rowwise(x)

@@ -97,6 +97,7 @@ def rglru_reference(a, b, s0) -> Tuple[torch.Tensor, torch.Tensor]:
     """Naive gated linear recurrence: s_t = a_t s_{t-1} + b_t.
 
     a/b: (B, S, R) fp32; s0: (B, R) fp32 → (seq (B, S, R), last (B, R)).
+    With bf16 a/b each step promotes to fp32, as in the reference.
     """
     s, seq = s0, []
     for t in range(a.shape[1]):
@@ -128,3 +129,36 @@ def wkv6_reference(r, k, v, logw, u, state0) -> Tuple[torch.Tensor, torch.Tensor
         outs.append(o)
     out = torch.stack(outs, dim=1) if outs else rr.clone()
     return out.to(r.dtype), state
+
+
+def int8_matmul_reference(x_q, w_q, sx, sw) -> torch.Tensor:
+    """Dequantize-then-matmul oracle.
+
+    x_q: (M, K) int8; w_q: (K, N) int8; sx: (M,) fp32; sw: (N,) fp32 →
+    (M, N) fp32.
+    """
+    x = x_q.float() * sx[:, None]
+    w = w_q.float() * sw[None, :]
+    return x @ w
+
+
+def int8_matmul_exact(x_q, w_q, sx, sw) -> torch.Tensor:
+    """The function of the int8 kernels: the exact integer product (int32
+    on the TPU and the card; here float64, exact for any K the kernels
+    take), rounded once to fp32, then ``(acc · sx[:, None]) · sw[None, :]``
+    in fp32, one rounding per product.
+
+    x_q: (M, K) int8; w_q: (K, N) int8; sx: (M,) fp32; sw: (N,) fp32 →
+    (M, N) fp32.
+    """
+    acc = (x_q.double() @ w_q.double()).float()
+    return (acc * sx[:, None]) * sw[None, :]
+
+
+def quantize_rowwise(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-row int8 quantization → (q, scales).  ``torch.round``
+    rounds half to even, as ``jnp.round`` does."""
+    amax = x.abs().amax(dim=-1, keepdim=True)
+    scale = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+    q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+    return q, scale[..., 0].float()

@@ -15,7 +15,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import wkv6_reference
 
-HEAD_SIZE = 64
+HEAD_SIZES = (32, 64)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0
@@ -30,19 +30,21 @@ def _lib() -> ctypes.CDLL:
     lib = _build.library("wkv6")
     fn = lib.wkv6_fwd
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     return lib
 
 
 def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.Tensor,
          u: torch.Tensor, state0: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the kernel.  r/k/v: (B, S, H, 64) float32 or bfloat16, one
-    dtype; logw: (B, S, H, 64), u: (H, 64) and state0: (B, H, 64, 64), all
-    float32; every tensor on the card of r; any B ≤ 65535, S and H.
-    → (out (B, S, H, 64) in r's dtype, final state (B, H, 64, 64) float32)."""
+    """Launch the kernel.  r/k/v: (B, S, H, N) float32 or bfloat16, one
+    dtype, N in ``HEAD_SIZES``; logw: (B, S, H, N), u: (H, N) and state0:
+    (B, H, N, N), all float32; every tensor on the card of r; any B ≤ 65535,
+    S and H.  → (out (B, S, H, N) in r's dtype, final state (B, H, N, N)
+    float32)."""
     global launches
-    if r.dim() != 4 or r.shape[-1] != HEAD_SIZE:
-        raise ValueError(f"wkv6: head size {tuple(r.shape)[-1:]} is not {HEAD_SIZE}")
+    if r.dim() != 4 or r.shape[-1] not in HEAD_SIZES:
+        raise ValueError(f"wkv6: head size {tuple(r.shape)[-1:]} is not one of "
+                         f"{HEAD_SIZES}")
     B, S, H, N = r.shape
     if (k.shape != r.shape or v.shape != r.shape or logw.shape != r.shape
             or u.shape != (H, N) or state0.shape != (B, H, N, N)):
@@ -62,7 +64,7 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.Tensor,
     state = torch.empty_like(state0)
     err = _lib().wkv6_fwd(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(), u.data_ptr(),
-        state0.data_ptr(), out.data_ptr(), state.data_ptr(), B, S, H, DTYPES[r.dtype],
+        state0.data_ptr(), out.data_ptr(), state.data_ptr(), B, S, H, N, DTYPES[r.dtype],
         torch.cuda.current_stream(r.device).cuda_stream)
     _build.check(err, "wkv6")
     launches += 1

@@ -8,6 +8,8 @@ The plain versions are themselves held to the JAX kernels and references by
 ``tests/test_kernels.py``: 2e-5 for fp32, 2e-2 for bf16 (fp32 products stay
 IEEE: TF32 is switched off), 1e-5 for the RG-LRU scan, atol 2e-4 and rtol
 1e-3 for the WKV6 state (and for its output in fp32; one bf16 ulp in bf16).
+The int8 matmul is held bitwise to its exact plain version; its plain version
+is held to the Pallas kernel by ``tests/test_torch_int8.py``.
 """
 import numpy as np
 import pytest
@@ -16,6 +18,9 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import decode_attention as da  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import int8_matmul as i8  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels import rglru_scan as rg  # noqa: E402
 from repro_torch.kernels import wkv6 as wk  # noqa: E402
 
@@ -93,18 +98,22 @@ def test_decode_kernel_matches_plain(cuda, d, G, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("B,S,R", [(4, 300, 4096), (3, 1000, 300), (2, 17, 129),
                                    (1, 0, 64)])
-def test_rglru_kernel_matches_plain(cuda, B, S, R):
-    """Ragged S and R (no multiple of a chunk or a block), and S = 0."""
+def test_rglru_kernel_matches_plain(cuda, dtype, B, S, R):
+    """Ragged S and R (no multiple of a chunk or a block), and S = 0; bf16
+    a/b give bf16 states (fp32 inside) and an fp32 last state."""
     rng = np.random.default_rng(9)
-    a = torch.from_numpy(rng.uniform(0.5, 0.999, (B, S, R)).astype(np.float32)).to(cuda)
-    b = torch.from_numpy(0.1 * rng.standard_normal((B, S, R), dtype=np.float32)).to(cuda)
+    a = torch.from_numpy(rng.uniform(0.5, 0.999, (B, S, R)).astype(np.float32))
+    b = torch.from_numpy(0.1 * rng.standard_normal((B, S, R), dtype=np.float32))
+    a, b = (x.to(TORCH_DT[dtype]).to(cuda) for x in (a, b))
     s0 = torch.from_numpy(rng.standard_normal((B, R), dtype=np.float32)).to(cuda)
     n0 = rg.launches
     seq, last = rg.rglru_scan(a, b, s0)
     torch.cuda.synchronize()
     assert rg.launches == n0 + 1
+    assert seq.dtype == a.dtype and last.dtype == torch.float32
     if S:
         want_seq, want_last = rg.plain(a, b, s0)
         torch.testing.assert_close(seq, want_seq, atol=1e-5, rtol=1e-5)
@@ -114,12 +123,12 @@ def test_rglru_kernel_matches_plain(cuda, B, S, R):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("N", wk.HEAD_SIZES)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("B,S,H", [(2, 300, 4), (3, 17, 2), (1, 0, 1)])
-def test_wkv6_kernel_matches_plain(cuda, dtype, B, S, H):
-    """Ragged S (no multiple of a chunk), S = 0, and a planted fault (the
-    bonus-u term dropped) that the check must reject."""
-    N = wk.HEAD_SIZE
+def test_wkv6_kernel_matches_plain(cuda, dtype, B, S, H, N):
+    """Ragged S (no multiple of a chunk), S = 0, both head sizes, and a
+    planted fault (the bonus-u term dropped) that the check must reject."""
     rng = np.random.default_rng(10)
 
     def normal(shape, scale=1.0):
@@ -151,3 +160,71 @@ def test_kernels_reject_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="CUDA"):
         fa.flash_attention(torch.zeros((1, 2, 8, 64)), *(torch.zeros((1, 1, 8, 64),
                                                                      device=cuda),) * 2)
+
+
+def quantized(M, K, N, seed, device):
+    """int8 operands and their scales, quantized from numpy normals."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((M, K), dtype=np.float32))
+    w = torch.from_numpy(rng.standard_normal((K, N), dtype=np.float32))
+    x_q, sx = ops.quantize_rowwise(x)
+    w_q_t, sw = ops.quantize_rowwise(w.T)
+    return tuple(t.contiguous().to(device) for t in (x_q, w_q_t.T, sx, sw))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,K,N", [(4096, 9216, 2304), (257, 516, 100), (64, 512, 512),
+                                   (1, 4, 1), (77, 130 * 4, 9)])
+def test_int8_matmul_kernel_is_exact(cuda, M, K, N):
+    """Bitwise equal to the exact plain version at an odd M, M and N not
+    multiples of 64 or of 8, K not a multiple of the 64-byte K tile; within
+    the calibration's tolerance of the dequantizing reference."""
+    x_q, w_q, sx, sw = quantized(M, K, N, seed=M + N, device=cuda)
+    n0 = i8.launches
+    got = i8.int8_matmul(x_q, w_q, sx, sw)
+    torch.cuda.synchronize()
+    assert i8.launches == n0 + 1
+    assert got.dtype == torch.float32 and got.shape == (M, N)
+    assert torch.equal(got, i8.plain(x_q, w_q, sx, sw))
+    want = ref.int8_matmul_reference(x_q, w_q, sx, sw)
+    assert float((got - want).abs().max()) <= 2e-5 * max(1.0, float(want.abs().max()))
+    # a planted fault: one 64-wide slice of K dropped must break equality
+    x_f = x_q.clone()
+    x_f[:, :min(K, 64)] = 0
+    assert not torch.equal(i8.int8_matmul(x_f, w_q, sx, sw), got)
+
+
+@pytest.mark.gpu
+def test_kernel_records_verify_int8_on_the_card(cuda):
+    from repro_torch.calibrate import kernel_records
+    recs = kernel_records(["int8_matmul"], batches=(1, 2), seqs=(64,), repeats=1)
+    assert len(recs) == 2
+    assert all(r["backend"] == "hopper-kernel" and r["result"]["mode"] == "kernel-cuda"
+               and r["result"]["max_err_vs_ref"] >= 0.0 for r in recs)
+
+
+@pytest.mark.gpu
+def test_new_kernel_wrappers_reject_what_they_do_not_take(cuda):
+    x_q, w_q, sx, sw = quantized(32, 64, 16, seed=0, device=cuda)
+    with pytest.raises(ValueError, match="card"):
+        i8.int8_matmul(x_q.cpu(), w_q, sx, sw)
+    with pytest.raises(ValueError, match="torch.int8 tensor"):
+        i8.int8_matmul(x_q.float(), w_q, sx, sw)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        i8.int8_matmul(x_q[:, :62], w_q[:62], sx, sw)
+    a = torch.zeros((1, 8, 16), device=cuda)
+    with pytest.raises(ValueError, match="card"):
+        rg.rglru_scan(a.cpu(), a.cpu(), a[:, 0].cpu())
+    with pytest.raises(ValueError, match="not supported"):
+        rg.rglru_scan(a.half(), a.half(), a[:, 0])
+    with pytest.raises(ValueError, match="float32"):
+        rg.rglru_scan(a.bfloat16(), a.bfloat16(), a[:, 0].bfloat16())
+    r = torch.zeros((1, 4, 2, 32), device=cuda)
+    args = (r, r, r, r, torch.zeros((2, 32), device=cuda),
+            torch.zeros((1, 2, 32, 32), device=cuda))
+    with pytest.raises(ValueError, match="card"):
+        wk.wkv6(*(t.cpu() for t in args))
+    with pytest.raises(ValueError, match="not supported"):
+        wk.wkv6(*(t.half() for t in args[:3]), *args[3:])
+    with pytest.raises(ValueError, match="head size"):
+        wk.wkv6(*(t[..., :16] for t in args[:4]), args[4][:, :16], args[5][..., :16, :16])
