@@ -1,0 +1,186 @@
+#!/usr/bin/env python3
+"""Which parity measures the bf16 attention kernels need, on one H100.
+
+    python3 parity_probe.py [NAME:SWITCH=VALUE,SWITCH=VALUE ...]
+
+The bf16 tensor-core paths of K1 (flash_attention) and K2 (decode_attention)
+are held to one bf16 ulp of their plain versions computed in float64, and
+take measures to get there; each is a build-time switch in
+``src/repro_torch/kernels/csrc/common.cuh`` (``PARITY_*``) whose default is
+what each kernel sets before including it (K1 keeps three measures, K2
+none).  This script builds both kernels once per variant, a name and the
+switches it sets on nvcc's command line for both (``shipped`` sets none;
+with no arguments the variants are the shipped kernels and each measure
+that K1 keeps undone alone, ``UNDONE``, which leaves K2 as it ships), into
+``build/repro_torch/variants/<name>/``, and for each variant prints:
+- ptxas's registers and spill stores of every bf16 instantiation;
+- on gemma2-2b's and recurrentgemma-9b's own activations at full width
+  (``chip_smoke.py`` phase 4's random bf16 weights and prompts): the worst
+  limit ratio of any K1 and any K2 call of a prefill and first decode step,
+  each call against its float64 plain version as phase 4 holds it (above 1
+  fails), and the bf16 drift ratio of the logits (phase 4's limit: 1.1);
+- ``chip_smoke.py`` phase 3's K1 and K2 cases: limit ratio, planted-fault
+  ratios and times;
+then, as its last line, one JSON object with all of it.  Nothing is held:
+a variant that fails a check is reported, and the next one runs.
+"""
+from __future__ import annotations
+
+import ctypes
+import json
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT))
+import chip_smoke as cs  # noqa: E402  (puts src/ on the path)
+
+KERNELS = ("flash_attention", "decode_attention")
+# each parity measure that K1 keeps, undone (as K2 ships)
+UNDONE = {"pv_chained": {"PARITY_PV_FRESH": 0},
+          "p_two_parts": {"PARITY_P_PARTS": 2},
+          "fast_exp": {"PARITY_IEEE_EXP": 0}}
+ARCHS = ("gemma2-2b", "recurrentgemma-9b")
+
+
+def parse(args):
+    """``NAME:S=V,S=V`` arguments → {name: {switch: value}}."""
+    variants = {}
+    for arg in args:
+        name, _, sets = arg.partition(":")
+        variants[name] = dict(kv.split("=") for kv in sets.split(",") if kv)
+    return variants
+
+
+def variant_dir(name: str) -> Path:
+    from repro_torch.kernels import _build
+    return _build.BUILD_DIR / "variants" / name
+
+
+def build(variants) -> dict:
+    """Both kernels of every variant, one nvcc each, all started together;
+    → {name: {instantiation: [registers, spill bytes]}} of the bf16 ones."""
+    from repro_torch.kernels import _build
+    nvcc, procs = _build._nvcc(), []
+    for name, sets in variants.items():
+        out = variant_dir(name)
+        out.mkdir(parents=True, exist_ok=True)
+        for kernel in KERNELS:
+            cmd = [nvcc, *_build.NVCC_FLAGS, *(f"-D{s}={v}" for s, v in sets.items()),
+                   "-o", str(out / f"lib{kernel}.so"), str(_build.CSRC / f"{kernel}.cu")]
+            log = out / f"lib{kernel}.log"
+            with open(log, "w") as f:
+                procs.append((log, subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT)))
+    failed = [log.read_text() for log, proc in procs if proc.wait()]
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    report = {}
+    for name in variants:
+        regs = report[name] = {}
+        for kernel in KERNELS:
+            fn, spill = None, 0
+            for line in (variant_dir(name) / f"lib{kernel}.log").read_text().splitlines():
+                if "Compiling entry function" in line:
+                    k1 = re.search(r"flash_bf16_kernelILi(\d+)E", line)
+                    k2 = re.search(r"decode_kernelI13__nv_bfloat16Li(\d+)ELi(\d+)E", line)
+                    fn = (f"K1 d={k1[1]}" if k1 else f"K2 d={k2[1]} NG={k2[2]}" if k2
+                          else None)
+                elif fn and "spill stores" in line:
+                    spill = int(re.search(r"(\d+) bytes spill stores", line)[1])
+                elif fn and "Used" in line:
+                    regs[fn] = [int(re.search(r"Used (\d+) registers", line)[1]), spill]
+                    fn = None
+    return report
+
+
+def use(name: str) -> None:
+    """Point the K1 and K2 wrappers at variant ``name``'s libraries: their
+    cached loaders are filled from the variant's directory."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    shipped = _build.library
+    _build.library = lambda kernel: ctypes.CDLL(str(variant_dir(name) / f"lib{kernel}.so"))
+    try:
+        for mod in (fa, da):
+            mod._lib.cache_clear()
+            mod._lib()
+    finally:
+        _build.library = shipped
+
+
+def model_checks(arch: str, variants) -> dict:
+    """Per variant: the worst K1 and K2 call of a prefill and first decode
+    step of ``arch`` on its own bf16 activations, and the drift ratio."""
+    import torch
+    cfg, model, params, tokens, lengths, max_len = cs.model_setup(arch)
+    args = (params, tokens, lengths, max_len)
+    *plain16, tok, _ = cs.prefill_and_step(model, *args, cs.plain_kernels())
+    *plain32, _, _ = cs.prefill_and_step(cs.fp32_activations(cfg), *args,
+                                         cs.plain_kernels(), tok)
+    far_plain = cs.max_diff(plain16, plain32)
+    out = {}
+    for name in variants:
+        use(name)
+        worst = {}
+        *run, _, _ = cs.prefill_and_step(model, *args, cs.checked_kernels(worst, {}), tok)
+        out[name] = {"flash_attention": worst["flash_attention"],
+                     "decode_attention": worst["decode_attention"],
+                     "drift_ratio": cs.max_diff(run, plain32) / far_plain}
+        print(f"[model] {arch} {name} {json.dumps(out[name])}", flush=True)
+    del model, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def kernel_cases(variants) -> dict:
+    """Per variant: phase 3's K1 and K2 cases, their checks recorded, not
+    held."""
+    failures = []
+    cs.require = lambda cond, what: cond or failures.append(what)
+    cases = {"K1 gemma2-2b window 4096": lambda: cs.flash_case("gemma2-2b", 8, 4, 4096, 50.0),
+             "K1 gemma2-2b global": lambda: cs.flash_case("gemma2-2b", 8, 4, 0, 50.0),
+             "K1 recurrentgemma-9b": lambda: cs.flash_case("recurrentgemma-9b", 16, 1, 2048, 0.0),
+             "K2 gemma2-2b window 4096": lambda: cs.decode_case(
+                 "gemma2-2b", 8, 4, 4736, 4096, 50.0, ring=False),
+             "K2 gemma2-2b global": lambda: cs.decode_case(
+                 "gemma2-2b", 8, 4, 4736, 0, 50.0, ring=False),
+             "K2 recurrentgemma-9b": lambda: cs.decode_case(
+                 "recurrentgemma-9b", 16, 1, 2048, 2048, 0.0, ring=True)}
+    out = {}
+    for name in variants:
+        use(name)
+        failures.clear()
+        out[name] = {case: {key: res[key] for key in ("limit_ratio", "fault_ratio", "ms",
+                                                      "library_ms", "bound_ms")}
+                     for case, res in ((case, run()) for case, run in cases.items())}
+        out[name]["failed_checks"] = list(failures)
+    return out
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("parity_probe: no CUDA device", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    variants = parse(sys.argv[1:]) or {"shipped": {}, **UNDONE}
+    cs.phase_device()
+    result = {name: {"switches": sets} for name, sets in variants.items()}
+    for name, regs in build(variants).items():
+        result[name]["ptxas"] = regs
+        print(f"[ptxas] {name} {json.dumps(regs)}", flush=True)
+    for arch in ARCHS:
+        for name, rec in model_checks(arch, variants).items():
+            result[name][arch] = rec
+    for name, rec in kernel_cases(variants).items():
+        result[name]["cases"] = rec
+    print(json.dumps(result))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,4 +1,6 @@
-// Helpers shared by the attention kernels: element conversion and tile loads.
+// Helpers shared by the kernels: element conversion, tile loads, and the
+// PTX wrappers (cp.async, ldmatrix, mma.sync) of the tensor-core attention
+// kernels.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -29,6 +31,13 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+// Max over the 32 lanes of a warp; every lane gets it.
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
+  return x;
+}
+
 // Copy `rows` rows of D elements (row r at src + (row0 + r) * stride) into a
 // float tile with row pitch LD, 16 bytes per thread per load.  Rows at or past
 // `valid` are zero-filled.  Needs src and stride 16-byte aligned (checked by
@@ -49,6 +58,314 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src, int64_t stri
     } else {
 #pragma unroll
       for (int u = 0; u < VEC; ++u) d[u] = 0.f;
+    }
+  }
+}
+
+// ---- tensor-core attention: asynchronous copies, swizzled tiles, mma ----
+
+// 16-byte asynchronous copy global -> shared.  With `valid` false nothing is
+// read and the 16 bytes are zero-filled (src must still be a valid address).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most N of this thread's committed groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Element offset of 16-byte chunk c of row r in a tile of rows of CPR chunks
+// (CPR a power of two >= 8), each chunk EPC elements.  The chunk index is
+// XORed with r % 8, so the 8 rows that one ldmatrix phase (or one quarter of
+// a warp's 16-byte loads) reads at one logical chunk land on 8 different
+// bank groups; a row's chunks are only permuted, so the cp.async stores of
+// consecutive chunks stay conflict-free too.
+template <int CPR, int EPC>
+__device__ __forceinline__ int swz(int r, int c) {
+  return (r * CPR + (c ^ (r & 7))) * EPC;
+}
+
+// ldmatrix: four 8x8 b16 matrices; lanes 8i..8i+7 give the row addresses of
+// matrix i, which lands in r[i].  .trans delivers each matrix transposed.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+
+// c += a * b on the tensor cores: a 16x16 bf16 (row), b 16x8 bf16 (col),
+// c 16x8 fp32.  Fragments (g = lane / 4, t = lane % 4): a = {(g, 2t..2t+1),
+// (g+8, 2t..), (g, 2t+8..), (g+8, 2t+8..)}; b = {(k 2t..2t+1, n g),
+// (k 2t+8.., n g)}; c = {(g, 2t), (g, 2t+1), (g+8, 2t), (g+8, 2t+1)}.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d = a * b, from zero: a chain of one product (see qk_step).
+__device__ __forceinline__ void mma_bf16_fresh(float (&d)[4], const uint32_t (&a)[4],
+                                               uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %11, %12, %13};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(0.f), "f"(0.f),
+        "f"(0.f), "f"(0.f));
+}
+
+__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Two fp32 values x0 (low half) and x1 as N bf16 pairs, largest last:
+// part[N - 1] = round(x), each lower part the rounding of what the parts
+// above it leave (N = 3: 24 significant bits, the fp32 value to within its
+// own rounding).  P·V takes P in parts (PARITY_P_PARTS): P rounded once to
+// bf16 moves the output of P·V past one bf16 ulp
+// (tests/test_torch_kernels.py::test_split_p_holds_one_bf16_ulp).
+template <int N>
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t (&part)[N]) {
+#pragma unroll
+  for (int i = N - 1; i >= 0; --i) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+    part[i] = bf16x2_bits(h);
+    const float2 f = __bfloat1622float2(h);
+    x0 -= f.x;
+    x1 -= f.y;
+  }
+}
+
+// A ring of ST tiles loaded with cp.async: tile i is issued ST - 1 tiles
+// ahead of its use, so its load overlaps the products of the tiles before
+// it.  issue(i) starts tile i's copies; compute(i) reads it once every
+// thread's copies have landed.  Copies a caller issues before this call join
+// the first group.  Ends with no copy in flight.
+template <int ST, typename Issue, typename Compute>
+__device__ __forceinline__ void pipeline(int ntiles, Issue&& issue, Compute&& compute) {
+#pragma unroll
+  for (int s = 0; s < ST - 1; ++s) {
+    if (s < ntiles) issue(s);
+    cp_async_commit();
+  }
+  for (int i = 0; i < ntiles; ++i) {
+    if (i + ST - 1 < ntiles) issue(i + ST - 1);  // into the stage read at i - 1
+    cp_async_commit();
+    cp_async_wait<ST - 1>();
+    __syncthreads();
+    compute(i);
+    __syncthreads();  // the stage is free for the next issue
+  }
+  cp_async_wait<0>();
+}
+
+// ---- parity switches of the bf16 tensor-core paths (K1 and K2) ----
+// The bf16 kernels are held to one bf16 ulp of the float64 plain version on
+// the models' own activations (chip_smoke.py phases 3 and 4).  These
+// build-time switches name the measures that bear on that check.  Each
+// kernel sets them before including this file (flash_attention.cu and
+// decode_attention.cu say why); a -D on nvcc's command line overrides
+// them, which is how parity_probe.py builds variants.  The defaults below
+// are the most exact settings.
+// - PARITY_QK_CHAIN: k16 steps of Q·Kᵀ summed in one mma accumulator
+//   before the sum is added to the scores in IEEE fp32.  The tensor cores'
+//   fp32 accumulation is not IEEE: each mma truncates its sum toward zero,
+//   so a long chain drifts; 1 starts every mma from zero.
+// - PARITY_PV_FRESH: 1 sums each k16 step of P·V from zero and adds it to
+//   the accumulator in IEEE fp32; 0 chains every step into the accumulator
+//   (588 mma a 4700-key row).
+// - PARITY_P_PARTS: bf16 parts of P in P·V (split_bf16), 2 or 3.
+// - PARITY_IEEE_EXP: 1 takes the softcap's tanh and the softmax's
+//   exponentials from tanhf/expf, as the plain version computes them; 0 from
+//   the fast MUFU forms (__expf, and the softcap as cap - 2cap/(e^(2x/cap) + 1)).
+#ifndef PARITY_QK_CHAIN
+#define PARITY_QK_CHAIN 1
+#endif
+#ifndef PARITY_PV_FRESH
+#define PARITY_PV_FRESH 1
+#endif
+#ifndef PARITY_P_PARTS
+#define PARITY_P_PARTS 3
+#endif
+#ifndef PARITY_IEEE_EXP
+#define PARITY_IEEE_EXP 1
+#endif
+static_assert(PARITY_P_PARTS == 2 || PARITY_P_PARTS == 3, "P in 2 or 3 bf16 parts");
+
+__device__ __forceinline__ float exp_tc(float x) {
+#if PARITY_IEEE_EXP
+  return expf(x);
+#else
+  return __expf(x);
+#endif
+}
+__device__ __forceinline__ float softcap_tc(float x, float cap) {
+#if PARITY_IEEE_EXP
+  return softcap_f(x, cap);
+#else
+  return cap > 0.f ? cap - __fdividef(2.f * cap, __expf(2.f * x / cap) + 1.f) : x;
+#endif
+}
+
+// Step `step` of STEPS k16 steps of Q·Kᵀ into the scores s (zero at step
+// 0), in chains of PARITY_QK_CHAIN steps: a chain's running sum lives in u,
+// started from zero, and is added to s when the chain ends (at the last
+// step too).  One chain over all the steps runs in s itself.
+template <int STEPS>
+__device__ __forceinline__ void qk_mma(float (&s)[4], float (&u)[4], int step,
+                                       const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  if constexpr (PARITY_QK_CHAIN >= STEPS) {
+    mma_bf16(s, a, b0, b1);
+  } else {
+    if (step % PARITY_QK_CHAIN == 0) {
+      mma_bf16_fresh(u, a, b0, b1);
+    } else {
+      mma_bf16(u, a, b0, b1);
+    }
+    if (step % PARITY_QK_CHAIN == PARITY_QK_CHAIN - 1 || step == STEPS - 1) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[e] += u[e];
+    }
+  }
+}
+
+// acc += (P in PARITY_P_PARTS parts, smallest first) · B for one k16 step
+// of P·V, from zero and added in IEEE fp32 (PARITY_PV_FRESH) or chained.
+template <typename PartA, typename PartB>
+__device__ __forceinline__ void pv_mma(float (&acc)[4], PartA&& a, PartB&& b) {
+#if PARITY_PV_FRESH
+  float t[4];
+  mma_bf16_fresh(t, a(0), b(0, 0), b(0, 1));
+#pragma unroll
+  for (int i = 1; i < PARITY_P_PARTS; ++i) mma_bf16(t, a(i), b(i, 0), b(i, 1));
+#pragma unroll
+  for (int e = 0; e < 4; ++e) acc[e] += t[e];
+#else
+#pragma unroll
+  for (int i = 0; i < PARITY_P_PARTS; ++i) mma_bf16(acc, a(i), b(i, 0), b(i, 1));
+#endif
+}
+
+// Hide x's value from the compiler where the step helpers below use it:
+// their unrolled ldmatrix addresses, all derived from the lane, are then
+// computed where they are used, not hoisted out of the tile loop into
+// registers, which at d = 256 pushed K1 past 255 registers into spills.
+__device__ __forceinline__ void opaque(int& x) { asm volatile("mov.b32 %0, %0;\n" : "+r"(x)); }
+
+// S = Q · Kᵀ for one warp: 16 query rows from row q_row of a swizzled bf16
+// tile (D columns) against NT·8 keys from row key0 of another, fp32 out in
+// the accumulator layout of mma_bf16 (s[n] holds keys 8n..8n+7).
+template <int NT, int D>
+__device__ __forceinline__ void qk_step(float (&s)[NT][4], const __nv_bfloat16* q, int q_row,
+                                        const __nv_bfloat16* k, int key0, int lane) {
+  constexpr int CPR = D / 8;
+  opaque(lane);
+  float u[NT][4];  // the running chains (PARITY_QK_CHAIN)
+#pragma unroll
+  for (int n = 0; n < NT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t qa[4];
+    ldmatrix_x4(qa, q + swz<CPR, 8>(q_row + (lane & 15), 2 * kk + (lane >> 4)));
+#pragma unroll
+    for (int np = 0; np < NT / 2; ++np) {
+      uint32_t kb[4];  // keys 16np..+7 then +8..+15, each as d 16kk..+7 and +8..+15
+      ldmatrix_x4(kb, k + swz<CPR, 8>(key0 + 16 * np + (lane & 7) + ((lane >> 4) << 3),
+                                      2 * kk + ((lane >> 3) & 1)));
+      qk_mma<D / 16>(s[2 * np], u[2 * np], kk, qa, kb[0], kb[1]);
+      qk_mma<D / 16>(s[2 * np + 1], u[2 * np + 1], kk, qa, kb[2], kb[3]);
+    }
+  }
+}
+
+// One online-softmax step over a warp's scores s (rows g and g + 8 of the
+// mma layout; masked entries already -inf): updates the running max m and
+// this thread's share of the row sums l, rescales acc where the max moved,
+// and leaves exp(s - m) in s.  A row with no live key so far keeps
+// m = -inf, l = 0.
+template <int NT, int NO>
+__device__ __forceinline__ void softmax_step(float (&s)[NT][4], float (&m)[2], float (&l)[2],
+                                             float (&acc)[NO][4]) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float mx = -INFINITY;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) mx = fmaxf(mx, fmaxf(s[n][2 * h], s[n][2 * h + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_old = m[h], m_new = fmaxf(m_old, mx);
+    const float m_use = m_new == -INFINITY ? 0.f : m_new;  // exp(-inf - 0) = 0
+    const float alpha = m_new == m_old ? 1.f : exp_tc(m_old - m_use);
+    m[h] = m_new;
+    float sum = 0.f;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      s[n][2 * h] = exp_tc(s[n][2 * h] - m_use);
+      s[n][2 * h + 1] = exp_tc(s[n][2 * h + 1] - m_use);
+      sum += s[n][2 * h] + s[n][2 * h + 1];
+    }
+    l[h] = l[h] * alpha + sum;
+    if (m_new != m_old) {
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        acc[n][2 * h] *= alpha;
+        acc[n][2 * h + 1] *= alpha;
+      }
+    }
+  }
+}
+
+// acc += P · V for one warp: P the exp'd scores s (16 rows x NT·8 keys, in
+// registers: the accumulator fragments of two key tiles are the A fragment
+// of one k16 step), in PARITY_P_PARTS bf16 parts (split_bf16); V the NT·8
+// rows from key0 of a swizzled bf16 tile, read transposed by ldmatrix
+// (pv_mma sums the parts).
+template <int NT, int NO>
+__device__ __forceinline__ void pv_step(const float (&s)[NT][4], float (&acc)[NO][4],
+                                        const __nv_bfloat16* v, int key0, int lane) {
+  constexpr int CPR = NO;  // D / 8 chunks per row
+  constexpr int NP = PARITY_P_PARTS;
+  opaque(lane);
+#pragma unroll
+  for (int ks = 0; ks < NT / 2; ++ks) {
+    uint32_t pa[NP][4], part[NP];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {  // A registers: rows g, g + 8 of keys 2t4.., then + 8
+      const float* x = s[2 * ks + (r >> 1)] + 2 * (r & 1);
+      split_bf16<NP>(x[0], x[1], part);
+#pragma unroll
+      for (int i = 0; i < NP; ++i) pa[i][r] = part[i];
+    }
+    const int key = key0 + 16 * ks + (lane & 7) + (((lane >> 3) & 1) << 3);
+#pragma unroll
+    for (int j = 0; j < NO / 2; ++j) {
+      uint32_t vb[4];  // d 16j..+7 as keys 0-7 and 8-15, then d +8..+15
+      ldmatrix_x4_trans(vb, v + swz<CPR, 8>(key, 2 * j + (lane >> 4)));
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        pv_mma(acc[2 * j + h], [&](int i) -> const uint32_t(&)[4] { return pa[i]; },
+               [&](int, int e) { return vb[2 * h + e]; });
     }
   }
 }

@@ -4,14 +4,16 @@ The kernel (``csrc/decode_attention.cu``) replaces the Pallas TPU kernel
 ``repro.kernels.decode_attention.decode_attention`` and adds the window and
 slot positions that decoding against the model's cache needs; its source
 says what bounds it on the H100 and how its design answers that.
-``launches`` counts the kernel's launches.
+``launches`` counts the wrapper's calls that launch it (one per call, with
+or without the kernel that combines the splits).  :func:`plan_splits`
+chooses how the cache is cut across blocks.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -20,8 +22,46 @@ from repro_torch.kernels.flash_attention import DTYPES, HEAD_DIMS, _check_operan
 from repro_torch.kernels.ref import decode_attention_reference
 
 GROUP_SIZES = (1, 2, 4, 8, 16)
+# slots per tile of each instantiation (Shape::TS in the source)
+TILE = {**{(torch.float32, d): 32 for d in HEAD_DIMS},
+        **{(torch.bfloat16, d): 32 if d == 256 else 64 for d in HEAD_DIMS}}
+SPLIT_SLOTS = math.lcm(*TILE.values())   # a split is a whole number of tiles
+H100_SMS = 132
+BLOCKS_PER_SM = 2        # the grid the planner aims at: about 2 blocks per SM
+MIN_SPLIT_BYTES = 256 * 1024
 
 launches = 0
+
+
+def plan_splits(B: int, K: int, T: int, d: int, itemsize: int,
+                sms: int = H100_SMS) -> Tuple[int, int]:
+    """How the kernel cuts each (b, kv head)'s cache of T slots across
+    blocks: (number of splits, slots per split).  Split s holds slots
+    [s·chunk, min((s + 1)·chunk, T)); every slot lies in exactly one split
+    and none is empty unless T is 0 (one empty split).  ``chunk`` is a
+    multiple of SPLIT_SLOTS.
+
+    The grid, B·K·splits blocks, aims at BLOCKS_PER_SM·``sms`` blocks where
+    T allows: at d = 256 an SM holds three blocks, so the live ones (those
+    past a short sequence's length return at once) run in one round
+    (``chip_smoke.py`` phase 3 at gemma2-2b's decode shape ran 2 faster
+    than 1, 3 and 4).
+
+    A (b, kv head) whose K and V are at most MIN_SPLIT_BYTES (256 slots of
+    d = 256 in bf16) is not split: one block reads it in a few
+    microseconds, about what the combining kernel's launch would add."""
+    tiles = -(-T // SPLIT_SLOTS)
+    if tiles <= 1 or 2 * T * d * itemsize <= MIN_SPLIT_BYTES:
+        return 1, max(tiles, 1) * SPLIT_SLOTS
+    want = -(-BLOCKS_PER_SM * sms // (B * K))
+    per = -(-tiles // min(want, tiles))
+    return -(-tiles // per), per * SPLIT_SLOTS
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
 
 # The plain PyTorch version of the kernel: the CPU path, and the card-side
 # check of the kernel.
@@ -33,7 +73,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.library("decode_attention")
     fn = lib.decode_attention_fwd
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
                    + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
     return lib
 
@@ -54,7 +94,9 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lengths (B,) int32 bounds the slots scanned; ``slot_pos`` (B, T) int32
     and ``q_pos`` (B,) int32 give the mask of
     :func:`repro_torch.kernels.ref.decode_mask`.  Any strides with a
-    contiguous head dimension.  → (B, H, d)."""
+    contiguous head dimension and 16-byte aligned rows.  The cache is split
+    across blocks as :func:`plan_splits` says, with fp32 scratch for the
+    splits' partial results.  → (B, H, d)."""
     global launches
     B, H, d = q.shape
     K, T = k.shape[1], k.shape[2]
@@ -76,15 +118,18 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q_pos is not None:
         q_pos = _int32_vector("q_pos", q_pos, (B,))
     out = torch.empty((B, H, d), dtype=q.dtype, device=q.device)
+    nsplit, chunk = plan_splits(B, K, T, d, q.element_size(), _sm_count(q.device.index))
+    part = (torch.empty(B * K * nsplit * (H // K) * (d + 2), dtype=torch.float32,
+                        device=q.device) if nsplit > 1 else None)
     strides = (ctypes.c_longlong * 10)(*(q.stride()[:2] + k.stride()[:3]
                                          + v.stride()[:3] + out.stride()[:2]))
     lib = _lib()
     err = lib.decode_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lengths.data_ptr(),
+        part.data_ptr() if part is not None else None, lengths.data_ptr(),
         q_pos.data_ptr() if q_pos is not None else None,
         slot_pos.data_ptr() if slot_pos is not None else None, strides,
-        B, H, K, T, d, DTYPES[q.dtype], int(window), float(softcap),
+        B, H, K, T, d, DTYPES[q.dtype], int(window), nsplit, chunk, float(softcap),
         1.0 / math.sqrt(d), torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "decode_attention")
     launches += 1

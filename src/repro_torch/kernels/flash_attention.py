@@ -19,6 +19,9 @@ from repro_torch.kernels.ref import mha_reference
 
 HEAD_DIMS = (64, 128, 256)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# keys per kv tile of each instantiation (BK and kv_tile<D> in the source)
+KV_TILE = {**{(torch.float32, d): 32 for d in HEAD_DIMS},
+           **{(torch.bfloat16, d): 32 if d == 256 else 64 for d in HEAD_DIMS}}
 
 launches = 0
 

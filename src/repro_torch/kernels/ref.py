@@ -24,16 +24,20 @@ def _softcap(logits: torch.Tensor, cap: float) -> torch.Tensor:
 
 def mha_reference(q, k, v, *, causal: bool = True, window: int = 0,
                   softcap: float = 0.0,
-                  lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  lengths: Optional[torch.Tensor] = None,
+                  acc: torch.dtype = torch.float32) -> torch.Tensor:
     """q: (B, H, Sq, d); k/v: (B, K, Skv, d) (GQA) → (B, H, Sq, d).
 
     ``window`` 0 means global; ``lengths`` (B,) masks keys ≥ lengths[b].
+    It computes in ``acc`` and rounds once to q's dtype: fp32, or float64
+    where a kernel is held to one bf16 ulp of it (``chip_smoke.py``): on a
+    cancelling output the fp32 sums' own error can exceed that ulp.
     """
     B, H, Sq, d = q.shape
     K, Skv = k.shape[1], k.shape[2]
     G = H // K
-    qg = q.reshape(B, K, G, Sq, d).float()
-    logits = torch.einsum("bkgsd,bktd->bkgst", qg, k.float()) / math.sqrt(d)
+    qg = q.reshape(B, K, G, Sq, d).to(acc)
+    logits = torch.einsum("bkgsd,bktd->bkgst", qg, k.to(acc)) / math.sqrt(d)
     logits = _softcap(logits, softcap)
     q_pos = torch.arange(Sq, device=q.device)
     k_pos = torch.arange(Skv, device=q.device)
@@ -47,7 +51,7 @@ def mha_reference(q, k, v, *, causal: bool = True, window: int = 0,
         mask = mask & (k_pos[None, None, :] < lengths[:, None, None])
     logits = torch.where(mask[:, None, None], logits, NEG_INF)
     p = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bkgst,bktd->bkgsd", p, v.float())
+    out = torch.einsum("bkgst,bktd->bkgsd", p, v.to(acc))
     return out.reshape(B, H, Sq, d).to(q.dtype)
 
 
@@ -72,24 +76,26 @@ def decode_mask(lengths, T: int, *, window: int = 0, q_pos=None,
 
 def decode_attention_reference(q, k, v, lengths, *, softcap: float = 0.0,
                                window: int = 0, q_pos=None,
-                               slot_pos=None) -> torch.Tensor:
+                               slot_pos=None,
+                               acc: torch.dtype = torch.float32) -> torch.Tensor:
     """q: (B, H, d); k/v: (B, K, T, d); lengths: (B,) → (B, H, d).
 
     Unlike ``repro.kernels.ref.decode_attention_reference`` this keeps
     ``softcap``, and takes the window and slot positions that decoding
-    against a ring-buffer cache needs (see :func:`decode_mask`).
+    against a ring-buffer cache needs (see :func:`decode_mask`).  ``acc``
+    as in :func:`mha_reference`.
     """
     B, H, d = q.shape
     K, T = k.shape[1], k.shape[2]
     G = H // K
-    qg = q.reshape(B, K, G, d).float()
-    logits = torch.einsum("bkgd,bktd->bkgt", qg, k.float()) / math.sqrt(d)
+    qg = q.reshape(B, K, G, d).to(acc)
+    logits = torch.einsum("bkgd,bktd->bkgt", qg, k.to(acc)) / math.sqrt(d)
     logits = _softcap(logits, softcap)
     mask = decode_mask(lengths, T, window=window, q_pos=q_pos,
                        slot_pos=slot_pos)
     logits = torch.where(mask[:, None, None], logits, NEG_INF)
     p = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bkgt,bktd->bkgd", p, v.float())
+    out = torch.einsum("bkgt,bktd->bkgd", p, v.to(acc))
     return out.reshape(B, H, d).to(q.dtype)
 
 

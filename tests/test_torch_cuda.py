@@ -97,6 +97,139 @@ def test_decode_kernel_matches_plain(cuda, d, G, dtype):
     assert_close(got, da.plain(tq, tk, tv, lengths - 7), dtype)
 
 
+def decode_case(seed, dtype, B, H, K, T, d, device):
+    """q (B, H, d) and a cache in the model's (B, T, K, d) layout handed over
+    as (B, K, T, d) views, from numpy normals."""
+    tq, tk, tv = arrays(seed, dtype, (B, H, d), (B, T, K, d), (B, T, K, d))
+    return tq.to(device), tk.to(device).transpose(1, 2), tv.to(device).transpose(1, 2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["many_splits", "one_slot", "ragged", "empty_row",
+                                  "empty_splits", "window_without_slots"])
+def test_decode_kernel_split_edges(cuda, dtype, case):
+    """Split-KV edges: gemma2-2b's decode shape (9 splits), T = 1, T not a
+    multiple of the split or the tile, a row of lengths 0 (all zeros), a
+    slot_pos in which whole splits hold no live slot, and a window without
+    slot_pos (splits before the window return at once)."""
+    B, H, K, T, d = {"many_splits": (8, 8, 4, 4736, 256), "one_slot": (3, 8, 4, 1, 256),
+                     "ragged": (2, 4, 2, 1000, 128), "empty_row": (3, 4, 2, 777, 64),
+                     "empty_splits": (2, 8, 4, 1500, 256),
+                     "window_without_slots": (3, 8, 2, 3000, 128)}[case]
+    tq, tk, tv = decode_case(11, dtype, B, H, K, T, d, cuda)
+    rng = np.random.default_rng(12)
+    lengths = torch.from_numpy(rng.integers(1, T + 1, B).astype(np.int32))
+    lengths[0] = T
+    kw = dict(softcap=50.0)
+    if case == "empty_row":
+        lengths[1] = 0
+    if case == "empty_splits":
+        n, chunk = da.plan_splits(B, K, T, d, tk.element_size())
+        assert n >= 3
+        q_pos = torch.full((B,), T - 1, dtype=torch.int32)
+        slot_pos = torch.arange(T, dtype=torch.int32)[None].repeat(B, 1)
+        slot_pos[:, :chunk] = -1                 # the first split, and
+        slot_pos[1, chunk:3 * chunk] = -1        # two more of row 1
+        kw.update(q_pos=q_pos.to(cuda), slot_pos=slot_pos.to(cuda))
+    if case == "window_without_slots":
+        kw.update(window=700)
+    lengths = lengths.to(cuda)
+    n0 = da.launches
+    got = da.decode_attention(tq, tk, tv, lengths, **kw)
+    torch.cuda.synchronize()
+    assert da.launches == n0 + 1
+    assert bool(torch.isfinite(got).all())
+    want = da.plain(tq, tk, tv, lengths, **kw)
+    if case == "empty_row":                  # no live slot: 0 (the plain version
+        assert not bool(got[1].any())        # averages v there)
+        got, want = got[[0, 2]], want[[0, 2]]
+    assert_close(got, want, dtype)
+    if case == "many_splits":
+        assert da.plan_splits(B, K, T, d, tk.element_size())[0] > 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", da.HEAD_DIMS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_kernel_sixteen_heads_per_kv_head(cuda, d, dtype):
+    """G = 16 (recurrentgemma-9b's 16 query heads on one kv head) over a
+    2048-slot ring, split across blocks, at every head dimension; a planted
+    fault (heads 8-15 given heads 0-7's queries) must fail the check."""
+    B, K, T = 4, 1, 2048
+    tq, tk, tv = decode_case(13, dtype, B, 16, K, T, d, cuda)
+    q_pos = np.array([4000, 2047, 1000, 5], np.int32)
+    kw = dict(window=T, q_pos=torch.from_numpy(q_pos).to(cuda),
+              slot_pos=torch.from_numpy(ring_slots(T, q_pos, seed=14)).to(cuda))
+    lengths = torch.from_numpy(np.minimum(q_pos + 1, T).astype(np.int32)).to(cuda)
+    assert da.plan_splits(B, K, T, d, tk.element_size())[0] > 1
+    got = da.decode_attention(tq, tk, tv, lengths, **kw)
+    want = da.plain(tq, tk, tv, lengths, **kw)
+    assert_close(got, want, dtype)
+    q_dup = tq.clone()
+    q_dup[:, 8:16] = tq[:, 0:8]
+    with pytest.raises(AssertionError):
+        assert_close(da.decode_attention(q_dup, tk, tv, lengths, **kw), want, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [1, 15, 64, 65, 200, 1000])
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernel_ragged_lengths(cuda, S, d, dtype):
+    """S on and off the 64-row query tile and the 64-key kv tile, ragged
+    lengths (one 0), causal with softcap in the model's (B, S, heads, d)
+    layout; rows past a length are padding and not compared."""
+    B, H, K = 3, 4, 2
+    tq, tk, tv = arrays(15, dtype, (B, S, H, d), (B, S, K, d), (B, S, K, d))
+    tq, tk, tv = (t.to(cuda).transpose(1, 2) for t in (tq, tk, tv))
+    rows = (S, max(1, S // 2 + 1), 0)
+    lengths = torch.tensor(rows, dtype=torch.int32, device=cuda)
+    kw = dict(causal=True, softcap=50.0, lengths=lengths)
+    got = fa.flash_attention(tq, tk, tv, **kw)
+    want = fa.plain(tq, tk, tv, **kw)
+    assert bool(torch.isfinite(got).all())
+    for b, n in enumerate(rows):
+        assert_close(got[b, :, :n], want[b, :, :n], dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [64, 128, 65])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernel_window_edge_on_a_tile_boundary(cuda, window, dtype):
+    """A window of 64 or 128 puts row q's first key q - window + 1 on a
+    64-key tile boundary for every row q ≡ 63 (mod 64); 65 just past it.  A
+    window one tile wide must fail the check."""
+    B, H, K, S, d = 2, 8, 4, 333, 256
+    tq, tk, tv = arrays(16, dtype, (B, H, S, d), (B, K, S, d), (B, K, S, d))
+    tq, tk, tv = (t.to(cuda) for t in (tq, tk, tv))
+    kw = dict(causal=True, window=window, softcap=30.0)
+    want = fa.plain(tq, tk, tv, **kw)
+    assert_close(fa.flash_attention(tq, tk, tv, **kw), want, dtype)
+    with pytest.raises(AssertionError):
+        assert_close(fa.flash_attention(tq, tk, tv, **{**kw, "window": window + 64}),
+                     want, dtype)
+
+
+@pytest.mark.gpu
+def test_attention_wrappers_refuse_unaligned_rows(cuda):
+    """Rows whose stride is not a multiple of 16 bytes cannot be copied 16
+    bytes at a time: both wrappers raise ValueError."""
+    B, H, K, T, d = 2, 4, 2, 64, 64
+    for dt in (torch.float32, torch.bfloat16):
+        wide = torch.zeros((B, K, T, d + 2), dtype=dt, device=cuda)
+        k = wide[..., :d]                      # row stride (d + 2) elements
+        q = torch.zeros((B, H, d), dtype=dt, device=cuda)
+        lengths = torch.full((B,), T, dtype=torch.int32, device=cuda)
+        with pytest.raises(ValueError, match="16-byte"):
+            da.decode_attention(q, k, k, lengths)
+        with pytest.raises(ValueError, match="16-byte"):
+            fa.flash_attention(torch.zeros((B, H, T, d), dtype=dt, device=cuda), k, k)
+        shifted = torch.zeros(B * H * d + 1, dtype=dt, device=cuda)[1:].view(B, H, d)
+        with pytest.raises(ValueError, match="16-byte"):
+            da.decode_attention(shifted, k.contiguous(), k.contiguous(), lengths)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("B,S,R", [(4, 300, 4096), (3, 1000, 300), (2, 17, 129),

@@ -142,3 +142,115 @@ def test_cpu_tensors_take_the_plain_version():
     ops.flash_attention(tq, tk, tv)
     ops.decode_attention(tq[:, :, 0], tk, tv, torch.tensor([8], dtype=torch.int32))
     assert (fa.launches, da.launches) == before
+
+
+# ----------------------------------------------- K2's split-KV planner
+@pytest.mark.parametrize("B,K,T,d,itemsize", [
+    (8, 4, 4736, 256, 2), (8, 1, 2048, 256, 2), (2, 2, 1000, 128, 2),
+    (3, 2, 300, 64, 4), (1, 1, 100000, 128, 2), (8, 1, 1, 256, 2), (8, 1, 0, 256, 2),
+    (4, 4, 528, 256, 2), (300, 1, 4096, 256, 2), (1, 1, 65, 256, 4)])
+def test_split_plan_covers_every_slot_once(B, K, T, d, itemsize):
+    """Split s holds slots [s·chunk, min((s + 1)·chunk, T)): every slot in
+    exactly one split, whole tiles, and no empty split unless T = 0."""
+    n, chunk = da.plan_splits(B, K, T, d, itemsize)
+    assert n >= 1 and chunk > 0 and chunk % da.SPLIT_SLOTS == 0
+    ranges = [range(s * chunk, min((s + 1) * chunk, T)) for s in range(n)]
+    covered = [t for r in ranges for t in r]
+    assert covered == list(range(T))
+    assert all(len(r) for r in ranges) or (T == 0 and n == 1)
+
+
+@pytest.mark.parametrize("arch,B,K,T", [("gemma2-2b", 8, 4, 4736), ("gemma2-2b", 8, 4, 4716),
+                                        ("recurrentgemma-9b", 8, 1, 2048)])
+def test_split_plan_fills_the_card_at_decode_shapes(arch, B, K, T):
+    """At the models' decode shapes (batch 8, d = 256, bf16) the grid holds
+    at least about two blocks per SM of the H100's 132, and not much more
+    than the planner's aim."""
+    n, _ = da.plan_splits(B, K, T, 256, 2)
+    blocks = B * K * n
+    assert 0.9 * 2 * 132 <= blocks <= 1.2 * da.BLOCKS_PER_SM * 132, (arch, n, blocks)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_split_plan_keeps_one_split_at_the_calibration_shapes(dtype):
+    """The calibration's decode points (T ≤ 256, d = 64) run one split: a
+    block reads a whole (b, kv head) in microseconds, and no combining
+    kernel is launched."""
+    from repro_torch.calibrate.kernel_bench import (DEFAULT_BATCHES, DEFAULT_SEQS,
+                                                    kernel_registry)
+    case = kernel_registry()["decode_attention"]
+    for batch in DEFAULT_BATCHES:
+        for seq in DEFAULT_SEQS:
+            (q, k, _, _), _ = case.make(batch, seq, dtype, 0, "cpu")
+            B, K, T, d = k.shape
+            assert da.plan_splits(B, K, T, d, q.element_size()) == (1, seq)
+
+
+def _held_ratio(got, want):
+    """chip_smoke.py's one-bf16-ulp limit: max |got − want| / (1e-5 + 2^-7·|want|)."""
+    return float(((got - want).abs() / (1e-5 + 2.0 ** -7 * want.abs())).max())
+
+
+def test_split_p_holds_one_bf16_ulp():
+    """Why the tensor-core kernels split P into bf16 parts for P·V: with
+    gemma2-2b's decode shape (2 query heads per kv head, d = 256, softcap
+    50, 4736 slots), P rounded once to bf16 moves the bf16 output past the
+    one-ulp limit against the product with P unrounded; in two parts, hi +
+    mid (16 significant bits, as K2 takes it), or three, hi + mid + lo (24,
+    as K1 takes it: see its source), it stays within.  CPU emulation of the
+    roundings, fp32 sums."""
+    import math
+    rng = np.random.default_rng(0)
+    G, T, d = 8, 4736, 256
+    q = torch.from_numpy(rng.standard_normal((G, d), dtype=np.float32)).bfloat16().float()
+    k, v = (torch.from_numpy(rng.standard_normal((T, d), dtype=np.float32)).bfloat16().float()
+            for _ in range(2))
+    logits = 50.0 * torch.tanh(q @ k.T / math.sqrt(d) / 50.0)
+    e = torch.exp(logits - logits.amax(-1, keepdim=True))
+    l = e.sum(-1, keepdim=True)
+    want = ((e / l) @ v).bfloat16().float()
+    hi = e.bfloat16().float()
+    mid = (e - hi).bfloat16().float()
+    lo = (e - hi - mid).bfloat16().float()
+    assert _held_ratio(((hi / l) @ v).bfloat16().float(), want) > 1.0
+    assert _held_ratio((((hi + mid) / l) @ v).bfloat16().float(), want) <= 1.0
+    assert _held_ratio((((hi + mid + lo) / l) @ v).bfloat16().float(), want) <= 1.0
+
+
+@pytest.mark.parametrize("window", [0, 9])
+def test_plain_attention_computes_in_acc(window):
+    """The plain attention versions compute in fp32 unless asked for float64
+    (``acc``), the check of the kernels; float64 gives the direct float64
+    computation (causal, softcap and lengths, with and without a window),
+    and the default stays the fp32 computation of the CPU path."""
+    import math
+    from repro_torch.kernels.ref import (NEG_INF, decode_attention_reference, decode_mask,
+                                         mha_reference)
+    rng = np.random.default_rng(7)
+    B, H, K, S, d = 2, 2, 1, 53, 8
+    q = torch.from_numpy(rng.standard_normal((B, H, S, d)))
+    k, v = (torch.from_numpy(rng.standard_normal((B, K, S, d))) for _ in range(2))
+    lengths = torch.tensor([S, 40], dtype=torch.int32)
+    kw = dict(causal=True, window=window, softcap=30.0, lengths=lengths)
+    got = mha_reference(q, k, v, acc=torch.float64, **kw)
+    assert got.dtype == torch.float64
+    logits = torch.einsum("bkgsd,bktd->bkgst", q.reshape(B, K, 2, S, d), k) / math.sqrt(d)
+    logits = 30.0 * torch.tanh(logits / 30.0)
+    i, j = torch.arange(S)[:, None], torch.arange(S)[None, :]
+    mask = (j <= i) & ((j > i - window) if window else True) & (j[None] < lengths[:, None, None])
+    p = torch.softmax(torch.where(mask[:, None, None], logits, NEG_INF), dim=-1)
+    want = torch.einsum("bkgst,bktd->bkgsd", p, v).reshape(B, H, S, d)
+    torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-12)
+    fp32 = mha_reference(q, k, v, **kw)
+    torch.testing.assert_close(fp32, mha_reference(q.float(), k.float(), v.float(), **kw)
+                               .double(), rtol=0, atol=0)
+    assert 0 < float((fp32 - want).abs().max()) < 1e-5
+    # decode: the last query row of each sequence against the same cache
+    qd = q[torch.arange(B), :, lengths.long() - 1]
+    got = decode_attention_reference(qd, k, v, lengths, softcap=30.0, window=window,
+                                     acc=torch.float64)
+    lg = torch.einsum("bkgd,bktd->bkgt", qd.reshape(B, K, 2, d), k) / math.sqrt(d)
+    lg = torch.where(decode_mask(lengths, S, window=window)[:, None, None],
+                     30.0 * torch.tanh(lg / 30.0), NEG_INF)
+    want = torch.einsum("bkgt,bktd->bkgd", torch.softmax(lg, dim=-1), v).reshape(B, H, d)
+    torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-12)

@@ -115,7 +115,8 @@ IMPORT = re.compile(r"^\s*(import\s+(jax|repro)\b(?!_)|from\s+(jax|repro)(\.|\s)
                     re.M)
 
 
-@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"],
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py"))
+                         + [REPO / "chip_smoke.py", REPO / "parity_probe.py"],
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_port_source_imports_neither_jax_nor_reference(path):
     assert not IMPORT.findall(path.read_text())
