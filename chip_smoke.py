@@ -22,22 +22,27 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 including one split of its plan dropped;
                 K3 at recurrentgemma-9b's prefill shapes within
                 |err| ≤ 1e-5 + 1e-5·|want|; K4 at rwkv6-7b's prefill
-                shapes (H=64 heads of 64, bf16 r/k/v), its output within
-                one bf16 ulp plus a bound on fp32 summation order (see
-                wkv_gamma) and its final fp32 state within
-                |err| ≤ 1e-5 + 1e-5·|want|; K3 again with bf16 a/b/seq and
-                K4 again at the calibration's shape (B=4, S=256, H=2 heads
-                of N=32), each with the same limits; K5 at gemma2-2b's MLP
-                down-projection for a prefill of 8 × 512 tokens (x (4096,
-                9216) and w (9216, 2304) int8), bitwise equal to its exact
-                plain version and within VERIFY_TOL["int8"]·max|want| of the
-                dequantizing reference, its library time that of
-                ``torch._int_mm`` (the int32 product only, unscaled);
+                shapes (H=64 heads of 64, bf16 r/k/v), held to its plain
+                version computed in float64, its output within one bf16 ulp
+                plus a bound on its chunked arithmetic and its final fp32
+                state within that bound (see wkv_atol), planted faults
+                including a segment started from a zero state; K3 again
+                with bf16 a/b/seq and K4 again at the calibration's shape
+                (B=4, S=256, H=2 heads of N=32), each with the same limits;
+                K5 at gemma2-2b's MLP down-projection for a prefill of 8 ×
+                512 tokens (x (4096, 9216) and w (9216, 2304) int8), bitwise
+                equal to its exact plain version with w row-major and
+                column-major and at K − 4 (zero-padded; handed operands
+                whose padding is not zero, it must fail), within
+                VERIFY_TOL["int8"]·max|want| of the dequantizing reference,
+                timed with both layouts of w (the transposing pass's share),
+                its library time that of ``torch._int_mm`` (the int32
+                product only, unscaled);
   4. model    — full-width gemma2-2b (random bf16 weights from a seed)
                 generating 16 tokens for a ragged batch through the kernels
                 (launch counts checked), then the same prefill and first
                 decode step with every kernel call held against its plain
-                version (K1 and K2's computed in float64), and with the
+                version (K1, K2 and K4's computed in float64), and with the
                 plain versions swapped in;
   5. serving  — gemma2-2b behind ``run_server`` with the tris policy on a
                 Poisson workload, launch counts checked against the batches
@@ -93,25 +98,55 @@ PEAK_BYTES = 3.35e12       # H100 SXM HBM3 bandwidth
 RTOL = 2.0 ** -7
 ATOL = 1e-5
 # K3 against plain: both are sequential fp32 recurrences, held to the
-# reference's own limit (tests/test_kernels.py, test_rglru_kernel).  K4's
-# final state is held to the same limit: its update is elementwise,
-# round(round(e^w·s) + round(k·v)) in both, so the two differ at most where
-# their e^w round differently, by a few fp32 ulps that the decay (< 1) keeps
-# from growing.  K4's output o_t[e] is a sum of N + 1 terms, r_d·S[d, e] and
-# the bonus r_d·u_d·k_d·v_e, that kernel and plain version add in different
-# fp32 orders before rounding once to the dtype of r.  Each order is within
-# γ·M of the exact sum (γ = (N + 4)·2^-24, a product of up to four factors
-# per term; M = Σ_d |r_d|·(|S[d, e]| + |u_d·k_d·v_e|)), so the two may differ
-# by 2γ·M before rounding, and by one ulp of the dtype (RTOL) after.  M is
-# large where the terms cancel to a small output, as they do on a full-width
-# model's activations, and ATOL alone failed a right kernel there; the plain recurrence run on |r|, |k|, |v|, |u| and |s0| gives
-# an M at least as large, entry by entry (e^w > 0), so K4's output is held to
-# |err| ≤ ATOL + 2γ·M + RTOL·|want|.
+# reference's own limit (tests/test_kernels.py, test_rglru_kernel).
+#
+# K4 is the chunked form on the tensor cores, which sums in another order
+# than the plain recurrence, so it is held to the plain version computed in
+# float64 (``acc``), entry by entry, with limits from its own arithmetic
+# (u = 2^-24, the unit roundoff of fp32; T = 32 steps a chunk, N the head
+# size, C = ceil(S / T) chunks):
+# - A decay factor: the decays of r, of k and A's pairwise ones are running
+#   products of at most T - 1 factors e^{w} (expf ≤ 2 ulp = 4u, each
+#   product rounded u), ≤ 5Tu; each product with r or k adds u.
+# - A product in 3 tf32 passes: ≤ 12u (the dropped small·small term and
+#   what the small part's own tf32 rounding leaves, 4u each side).
+# - Sums: each k8 step is 24 products summed in the tensor core, whose
+#   fp32 adds truncate (≤ 2u each): 48u; the steps are then added in IEEE
+#   fp32, (N + T) / 8 of them for an output, T / 8 for the state's
+#   increment; A[t, s] sums N terms (≤ Nu).
+# - The state carried into the next chunk: the chunk's decay (≤ (|x| + 4)u
+#   with x = Σ_j w_j, the double sum rounded to fp32 once, expf's 2 ulp
+#   after it) and the fused update (u): ≤ (|x| + 5)u of the carried term.
+#   The segment chain's step into segment p + 1 likewise: ≤ (|X_p| + 5)u of
+#   d_p·|S_p|, X_p the segment's Σ w.
+# So with A_c the state of the plain recurrence run on |r|, |k|, |v|, |u|
+# and |s0| (it bounds every term's absolute value, entry by entry, as
+# e^w > 0) at the start of chunk c, D_c = e^{x_c} and I_c = |k ⊙ decay|^T|V|
+# the chunk's increment, the error E_c of the state at the start of chunk c
+# is at most
+#   E_0 = 0,  E_{c+1} = D_c·E_c + (|x_c| + 5)u·D_c·A_c + γ_i·I_c
+#         (+ (|X_p| + 5)u·d_p·A at segment p's start, where c + 1 starts p + 1),
+#   γ_i = (5T + 12 + 48 + T/8)u,
+# which contracts with the decays: a chunk's rounding fades as the state it
+# sits in does.  An output of chunk c is then within γ_o·M + |r ⊙ decay|·E_c,
+# γ_o = (5T + N + 12 + 48 + (N + T)/8)u, M the output of the absolute-value
+# recurrence.  Kernel and float64 plain version may differ by
+# ATOL + 2(γ_o·M + |r ⊙ decay|·E_c) + RTOL·|want| on an output (RTOL: one ulp
+# of a bf16 output; the factor 2 as before) and by ATOL + 2·E_C on the final
+# state (wkv_atol runs both recurrences in float64 on the card).  These
+# limits replace the earlier ones, whose argument (an elementwise state
+# update, bitwise the plain version's) no longer holds.  The contraction
+# matters: 12u a chunk on the whole carried state, 2γ = 4568u of M at
+# rwkv6-7b's prompts (C = 147), lets a kernel with a single tf32 pass
+# through the output check.  Planted faults show the limits still reject a
+# wrong kernel.
 SCAN_TOL = 1e-5
 # Full-width model, kernel path against plain path on the same weights.
 # With fp32 activations the two differ only in fp32 summation order inside
-# attention, so logits must agree to the reference's logit tolerance, 1e-3
-# (tests/test_models_smoke.py), and the first greedy token must agree.  With
+# the kernels (attention; the WKV kernel's chunked tf32 products, within a
+# few u of float64), so logits must agree to the reference's logit
+# tolerance, 1e-3 (tests/test_models_smoke.py), and the first greedy token
+# must agree.  With
 # bf16 activations each layer's output is rounded to bf16, and one-ulp flips
 # where the two orders round differently are amplified over 26 random-weight
 # layers (0.86 in logits), so the bf16 path is held per kernel call (each
@@ -174,27 +209,60 @@ def held_scan(got, want):
     return max(r[0] for r in results), max(r[1] for r in results)
 
 
-def wkv_gamma(N: int) -> float:
-    """γ of K4's output limit at head size N (see the comment above
-    SCAN_TOL)."""
-    return (N + 4) * 2.0 ** -24
-
-
 def wkv_atol(r, k, v, logw, u, s0):
-    """K4's absolute limit on its output, entry by entry: ATOL + 2γ·M, with
-    M from the plain recurrence on absolute values (see wkv_gamma)."""
+    """K4's absolute limits on its output and final state, entry by entry:
+    ATOL + 2(γ_o·M + |r ⊙ decay|·E_c) and ATOL + 2·E_C, from the float64
+    plain recurrence on absolute values and the chunk by chunk recurrence of
+    the state's error bound E (see the comment above SCAN_TOL)."""
+    import torch
     from repro_torch.kernels import wkv6 as wk
-    mag, _ = wk.plain(r.float().abs(), k.float().abs(), v.float().abs(), logw,
-                      u.abs(), s0.abs())
-    return ATOL + 2.0 * wkv_gamma(r.shape[-1]) * mag
+    B, S, H, N = r.shape
+    T, unit = wk.CHUNK, 2.0 ** -24
+    mag, _ = wk.plain(r.double().abs(), k.double().abs(), v.double().abs(), logw, u.abs(),
+                      s0.abs(), acc=torch.float64)
+    C, (_, Lc) = -(-S // T), wk.plan_segments(B, H, S)
+
+    def chunked(x):  # (B, C, T, H, N) in float64, zeros past S
+        x = torch.nn.functional.pad(x.double(), (0, 0, 0, 0, 0, C * T - S))
+        return x.view(B, C, T, H, N)
+    ra, ka, va, w = (chunked(x) for x in (r.abs(), k.abs(), v.abs(), logw))
+    g_i = (5 * T + 12 + 48 + T / 8) * unit
+    g_o = (5 * T + N + 12 + 48 + (N + T) / 8) * unit
+    a = s0.double().abs()                 # A_c, (B, H, N, N)
+    e = torch.zeros_like(a)               # E_c
+    seg_a, seg_x = a, torch.zeros_like(a[..., 0])
+    carried = torch.empty((B, C, T, H, N), dtype=torch.float32, device=r.device)
+    for c in range(C):
+        lc = w[:, c].cumsum(1)            # Σ_{j<=t} w_j, (B, T, H, N)
+        x = lc[:, -1]
+        carried[:, c] = torch.einsum("bthd,bhde->bthe", ra[:, c] * torch.exp(lc - w[:, c]), e)
+        inc = torch.einsum("bthd,bthe->bhde", ka[:, c] * torch.exp(x[:, None] - lc), va[:, c])
+        dt = torch.exp(x)[..., None]
+        e = dt * e + (x.abs()[..., None] + 5) * unit * dt * a + g_i * inc
+        a = dt * a + inc
+        seg_x = seg_x + x
+        if (c + 1) % Lc == 0 and c + 1 < C:   # the chain's step into the next segment
+            e = e + (seg_x.abs()[..., None] + 5) * unit * torch.exp(seg_x)[..., None] * seg_a
+            seg_a, seg_x = a, torch.zeros_like(seg_x)
+    carried = carried.view(B, C * T, H, N)[:, :S]
+    return ATOL + 2.0 * (g_o * mag.float() + carried), ATOL + 2.0 * e.float()
 
 
-def held_wkv(got, want, out_atol):
-    """``held`` over K4's (out, final state) pair: out within ``out_atol``
-    (``wkv_atol``) and one ulp of its dtype (RTOL), the state at SCAN_TOL."""
-    results = [held(got[0], want[0], atol=out_atol),
-               held(got[1], want[1], atol=SCAN_TOL, rtol=SCAN_TOL)]
-    return max(r[0] for r in results), max(r[1] for r in results)
+def wkv_want(*args):
+    """K4's plain version in float64, the check of the kernel."""
+    import torch
+    from repro_torch.kernels import wkv6 as wk
+    return wk.plain(*args, acc=torch.float64)
+
+
+def held_wkv(got, want, atols):
+    """``held`` over K4's (out, final state) pair: out within ``atols[0]``
+    (``wkv_atol``) and one ulp of its dtype (RTOL), the state within
+    ``atols[1]``.  → (max |err|, worst ratio, (the output's ratio, the
+    state's))."""
+    (e_o, r_o), (e_s, r_s) = (held(got[0], want[0], atol=atols[0]),
+                              held(got[1], want[1], atol=atols[1], rtol=0.0))
+    return max(e_o, e_s), max(r_o, r_s), (r_o, r_s)
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -464,19 +532,28 @@ def wkv6_case(label: str, B: int, S: int, H: int, N: int, prompts, fault_step: i
     u, s0 = normal((H, N), 0.1), normal((B, H, N, N), 0.1)
     args = (r, k, v, logw, u, s0)
     got = wk.wkv6(*args)
-    want = wk.plain(*args)
-    out_atol = wkv_atol(*args)
-    err, ratio = held_wkv(got, want, out_atol)
+    want = wkv_want(*args)
+    atols = wkv_atol(*args)
+    err, ratio, (out_ratio, state_ratio) = held_wkv(got, want, atols)
     require(all(bool(torch.isfinite(x.float()).all()) for x in got), "wkv6 output finite")
-    require(ratio <= 1.0, f"wkv6 {label} max|err| {err}, {ratio}x the limit")
+    require(ratio <= 1.0, f"wkv6 {label} max|err| {err}, output {out_ratio}x and state "
+            f"{state_ratio}x the limit")
     # planted faults: one valid step of the longest prompt skipped (k=0 and
-    # logw=0 there, so S_t = S_{t-1}), and the bonus-u term dropped
+    # logw=0 there, so S_t = S_{t-1}); the bonus-u term dropped; and the
+    # longest prompt's second segment started from a zero state (k=0 and
+    # e^{logw} = 0 on the first segment's last step: e^{-200} is 0 in fp32)
+    P, Lc = wk.plan_segments(B, H, S)
+    require(P > 1, f"wkv6 {label} splits the sequence ({P} segments)")
     k_f, w_f = k.clone(), logw.clone()
     k_f[0, fault_step], w_f[0, fault_step] = 0.0, 0.0
+    k_z, w_z = k.clone(), logw.clone()
+    k_z[0, Lc * 32 - 1], w_z[0, Lc * 32 - 1] = 0.0, -200.0
     fault_ratio = {"one_step_skipped": held_wkv(wk.wkv6(r, k_f, v, w_f, u, s0), want,
-                                                out_atol)[1],
+                                                atols)[1],
                    "bonus_u_dropped": held_wkv(
-                       wk.wkv6(r, k, v, logw, torch.zeros_like(u), s0), want, out_atol)[1]}
+                       wk.wkv6(r, k, v, logw, torch.zeros_like(u), s0), want, atols)[1],
+                   "segment_state_dropped": held_wkv(
+                       wk.wkv6(r, k_z, v, w_z, u, s0), want, atols)[1]}
     require(all(r_ > 1.0 for r_ in fault_ratio.values()),
             f"wkv6 {label} check rejects planted faults {fault_ratio}")
     # every (b, s, h) step: 5N² + 4N fp32 operations; r, k, v and out read or
@@ -484,10 +561,13 @@ def wkv6_case(label: str, B: int, S: int, H: int, N: int, prompts, fault_step: i
     flops = (5.0 * N * N + 4.0 * N) * B * S * H
     nbytes = 2.0 * 4 * B * S * H * N + 4.0 * (B * S * H * N + H * N + 2 * B * H * N * N)
     ms_bound, by = bound(flops, nbytes, PEAK_FP32_FLOPS)
-    res = dict(max_abs_err=err, limit_ratio=ratio, fault_ratio=fault_ratio,
+    res = dict(max_abs_err=err, limit_ratio=ratio, out_ratio=out_ratio,
+               state_ratio=state_ratio, fault_ratio=fault_ratio,
                state_max_abs_err=float((got[1] - want[1]).abs().max()),
                # reported, not held: the output against ATOL + RTOL alone
-               ulp_only_ratio=held(got[0], want[0])[1],
+               ulp_only_ratio=held(got[0], want[0])[1], segments=[P, Lc],
+               # beside the bound: the time its bytes alone take
+               bytes_ms=nbytes / PEAK_BYTES * 1e3,
                ms=cuda_ms(lambda: wk.wkv6(*args), 20),
                plain_ms=cuda_ms(lambda: wk.plain(*args), 2),
                library_ms=None,   # no single PyTorch call computes the recurrence
@@ -498,19 +578,29 @@ def wkv6_case(label: str, B: int, S: int, H: int, N: int, prompts, fault_step: i
 
 def int8_case(label: str, x_q, w_q, sx, sw):
     """K5 on int8 x (M, K) and w (K, N) with their fp32 scales: bitwise equal
-    to its exact plain version, within the calibration's tolerance of the
-    dequantizing reference, and planted faults rejected."""
+    to its exact plain version with w row-major (transposed into scratch)
+    and column-major (read in place), and with K cut by 4 (x and the scratch
+    zero-padded); within the calibration's tolerance of the dequantizing
+    reference; planted faults rejected."""
     import torch
     from repro_torch.calibrate.kernel_bench import VERIFY_TOL, ieee_fp32
     from repro_torch.kernels import int8_matmul as i8
     from repro_torch.kernels.ref import int8_matmul_reference
     (M, K), N = x_q.shape, w_q.shape[1]
+    w_cm = w_q.T.contiguous().T                      # (K, N), column-major
     got = i8.int8_matmul(x_q, w_q, sx, sw)
     want = i8.plain(x_q, w_q, sx, sw)
     err = float((got - want).abs().max())
     require(bool(torch.isfinite(got).all()), f"int8_matmul {label} output finite")
     require(torch.equal(got, want), f"int8_matmul {label} bitwise equal to "
             f"int8_matmul_exact (max|err| {err})")
+    require(torch.equal(i8.int8_matmul(x_q, w_cm, sx, sw), want),
+            f"int8_matmul {label} bitwise equal with w column-major")
+    # K − 4 is no multiple of 16: x and the transposed w are zero-padded
+    x_t, w_t = x_q[:, :K - 4], w_q[:K - 4]
+    want_t = i8.plain(x_t, w_t, sx, sw)
+    require(torch.equal(i8.int8_matmul(x_t, w_t, sx, sw), want_t),
+            f"int8_matmul {label} bitwise equal at K = {K - 4} (padded)")
     with ieee_fp32():
         deq = int8_matmul_reference(x_q, w_q, sx, sw)
     ref_err = float((got - deq).abs().max())
@@ -518,22 +608,37 @@ def int8_case(label: str, x_q, w_q, sx, sw):
     require(ref_err <= ref_tol, f"int8_matmul {label} against the dequantizing "
             f"reference max|err| {ref_err} > {ref_tol}")
     # planted faults, each the kernel's own output where a wrong kernel would
-    # give it: one 64-byte K tile skipped (its columns of x zeroed), and sw
-    # dropped; the bitwise check must reject each
+    # give it: one 64-byte K tile skipped (its columns of x zeroed); sw
+    # dropped; and, at K − 4, the kernel handed x and a K-major w whose
+    # padding past K is not zero (what a wrapper or transposing pass that
+    # left it unzeroed would hand over; with zeros there the same call is
+    # exact); the bitwise check must reject each
+    Kt, Kp = K - 4, i8.padded_k(K - 4)
+
+    def padded(a, fill):     # a (rows, Kt) → (rows, Kp), `fill` past Kt
+        return torch.cat([a, torch.full((a.shape[0], Kp - Kt), fill, dtype=torch.int8,
+                                        device=a.device)], 1)
+    require(torch.equal(i8._launch(padded(x_t, 0), padded(w_t.T, 0), sx, sw, Kt, True),
+                        want_t), f"int8_matmul {label} exact on operands padded with zeros")
     x_f = x_q.clone()
     x_f[:, K // 2:K // 2 + 64] = 0
-    faults = {"k_tile_skipped": i8.int8_matmul(x_f, w_q, sx, sw),
-              "sw_dropped": i8.int8_matmul(x_q, w_q, sx, torch.ones_like(sw))}
-    fault_err = {name: float((out - want).abs().max()) for name, out in faults.items()}
-    require(not any(torch.equal(out, want) for out in faults.values()),
+    faults = {"k_tile_skipped": (i8.int8_matmul(x_f, w_q, sx, sw), want),
+              "sw_dropped": (i8.int8_matmul(x_q, w_q, sx, torch.ones_like(sw)), want),
+              "nonzero_padding": (i8._launch(padded(x_t, 3), padded(w_t.T, 5), sx, sw, Kt,
+                                             True), want_t)}
+    fault_err = {name: float((out - w).abs().max()) for name, (out, w) in faults.items()}
+    require(not any(torch.equal(out, w) for out, w in faults.values()),
             f"int8_matmul {label} check rejects planted faults {fault_err}")
-    w_cm = w_q.T.contiguous().T                      # (K, N), column-major
     # x and w read once (int8), the scales once, out written once (fp32)
     ms_bound, by = bound(2.0 * M * N * K, M * K + K * N + 4.0 * (M + N + M * N),
                          PEAK_INT8_OPS)
+    ms = cuda_ms(lambda: i8.int8_matmul(x_q, w_q, sx, sw), 20)
+    ms_cm = cuda_ms(lambda: i8.int8_matmul(x_q, w_cm, sx, sw), 20)
     res = dict(max_abs_err=err, ref_max_abs_err=ref_err, ref_tol=ref_tol,
-               fault_max_abs_err=fault_err,
-               ms=cuda_ms(lambda: i8.int8_matmul(x_q, w_q, sx, sw), 20),
+               fault_max_abs_err=fault_err, ms=ms,
+               # reported beside it: w column-major (no transposing pass), and
+               # the pass's share of ms, (ms − ms_colmajor) / ms
+               ms_colmajor=ms_cm, transpose_share=(ms - ms_cm) / ms,
                plain_ms=cuda_ms(lambda: i8.plain(x_q, w_q, sx, sw), 3),
                library_ms=cuda_ms(lambda: torch._int_mm(x_q, w_q), 20),
                # reported beside it: the same call with w stored column-major
@@ -610,7 +715,8 @@ def checked_kernels(worst: dict, reported: dict) -> dict:
     """Stand-ins for the model kernels in ``ops`` that run each kernel and
     hold the call against its plain version on the same inputs (K1 and K2
     against float64), keeping each kernel's worst limit ratio in ``worst``
-    and K4's output against ATOL + RTOL alone (not held) in ``reported``."""
+    and, in ``reported``, K4's worst output and state ratios apart and its
+    output against ATOL + RTOL alone (not held)."""
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rglru_scan as rg
@@ -635,8 +741,11 @@ def checked_kernels(worst: dict, reported: dict) -> dict:
         return got
 
     def checked_wkv6(*args):
-        got, want = wk.wkv6(*args), wk.plain(*args)
-        keep("wkv6", held_wkv(got, want, wkv_atol(*args))[1])
+        got, want = wk.wkv6(*args), wkv_want(*args)
+        _, ratio, parts = held_wkv(got, want, wkv_atol(*args))
+        keep("wkv6", ratio)
+        for key, value in zip(("wkv6_output", "wkv6_state"), parts):
+            reported[key] = max(reported.get(key, 0.0), value)
         reported["wkv6_ulp_only"] = max(reported.get("wkv6_ulp_only", 0.0),
                                         held(got[0], want[0])[1])
         return got
@@ -724,7 +833,7 @@ def phase_model(arch: str):
     # bf16 kernel run also holds every kernel call against the plain version
     # on the same inputs.
     worst = {name: 0.0 for name in MODEL_KERNELS}
-    reported = {"wkv6_ulp_only": 0.0}
+    reported = {"wkv6_output": 0.0, "wkv6_state": 0.0, "wkv6_ulp_only": 0.0}
     model32 = fp32_activations(cfg)
     args = (params, tokens, lengths, max_len)
     runs, step_launches = {}, {}
@@ -762,8 +871,9 @@ def phase_model(arch: str):
     same16 = first("bf16", "kernel") == first("bf16", "plain")
     print(f"[model] {arch} per-call limit ratio, bf16 on the model's activations: "
           f"{json.dumps(worst)} (fail above 1)"
-          + (f"; wkv6 output against ATOL + RTOL alone {reported['wkv6_ulp_only']} "
-             "(not held)" if n_rwkv else ""))
+          + (f"; wkv6 output {reported['wkv6_output']}, state {reported['wkv6_state']}, "
+             f"output against ATOL + RTOL alone {reported['wkv6_ulp_only']} (not held)"
+             if n_rwkv else ""))
     print(f"[model] {arch} max|Δlogit| fp32 kernel-vs-plain={d32} "
           f"(tol {LOGIT_TOL_FP32}) bf16 kernel-vs-plain={d16}; to the fp32 path: "
           f"bf16 kernel={far_k} bf16 plain={far_p} ratio={far_k / far_p} "

@@ -1,7 +1,18 @@
 #!/usr/bin/env python3
-"""Which parity measures the bf16 attention kernels need, on one H100.
+"""Which parity measures the kernels need, on one H100.
 
-    python3 parity_probe.py [NAME:SWITCH=VALUE,SWITCH=VALUE ...]
+    python3 parity_probe.py [--kernel attention|wkv6]
+                            [NAME:SWITCH=VALUE,SWITCH=VALUE ...]
+
+``--kernel wkv6`` builds K4 once per variant of its tf32 passes (with no
+arguments: the shipped 3 and the variants ``WKV_UNDONE``: 1 and 2 passes
+on every product, ``WKV_TF32_PASSES``, and 1 pass on the two products that
+give the outputs alone, ``WKV_OUT_TF32_PASSES``) and prints, per variant,
+ptxas's report, the worst limit ratio of any K4 call of an rwkv6-7b prefill
+on its own bf16 activations against the float64 plain version
+(``chip_smoke.py`` phase 8's check), its output's and its final state's
+apart, with the drift ratio, and phase 3's two K4 cases.  The default,
+``attention``:
 
 The bf16 tensor-core paths of K1 (flash_attention) and K2 (decode_attention)
 are held to one bf16 ulp of their plain versions computed in float64, and
@@ -37,12 +48,21 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
 import chip_smoke as cs  # noqa: E402  (puts src/ on the path)
 
-KERNELS = ("flash_attention", "decode_attention")
 # each parity measure that K1 keeps, undone (as K2 ships)
 UNDONE = {"pv_chained": {"PARITY_PV_FRESH": 0},
           "p_two_parts": {"PARITY_P_PARTS": 2},
           "fast_exp": {"PARITY_IEEE_EXP": 0}}
-ARCHS = ("gemma2-2b", "recurrentgemma-9b")
+# K4 with fewer tf32 passes per product than the 3 it ships with: on every
+# product, or on those that give the outputs alone
+WKV_UNDONE = {"one_pass": {"WKV_TF32_PASSES": 1}, "two_passes": {"WKV_TF32_PASSES": 2},
+              "one_pass_output": {"WKV_OUT_TF32_PASSES": 1}}
+# per mode: the kernels built, the models whose activations hold them, the
+# default variants besides the shipped build
+MODES = {"attention": (("flash_attention", "decode_attention"),
+                       ("gemma2-2b", "recurrentgemma-9b"), UNDONE),
+         "wkv6": (("wkv6",), ("rwkv6-7b",), WKV_UNDONE)}
+MODE = "attention"
+KERNELS, ARCHS = MODES[MODE][:2]
 
 
 def parse(args):
@@ -85,8 +105,10 @@ def build(variants) -> dict:
                 if "Compiling entry function" in line:
                     k1 = re.search(r"flash_bf16_kernelILi(\d+)E", line)
                     k2 = re.search(r"decode_kernelI13__nv_bfloat16Li(\d+)ELi(\d+)E", line)
+                    other = re.search(r"\d+(\w+_kernel)(I\w*?E)?", line)
                     fn = (f"K1 d={k1[1]}" if k1 else f"K2 d={k2[1]} NG={k2[2]}" if k2
-                          else None)
+                          else "".join(g for g in other.groups() if g)
+                          if other and KERNELS[0] != "flash_attention" else None)
                 elif fn and "spill stores" in line:
                     spill = int(re.search(r"(\d+) bytes spill stores", line)[1])
                 elif fn and "Used" in line:
@@ -99,12 +121,11 @@ def use(name: str) -> None:
     """Point the K1 and K2 wrappers at variant ``name``'s libraries: their
     cached loaders are filled from the variant's directory."""
     from repro_torch.kernels import _build
-    from repro_torch.kernels import decode_attention as da
-    from repro_torch.kernels import flash_attention as fa
     shipped = _build.library
     _build.library = lambda kernel: ctypes.CDLL(str(variant_dir(name) / f"lib{kernel}.so"))
     try:
-        for mod in (fa, da):
+        for kernel in KERNELS:
+            mod = cs.counters()[kernel]
             mod._lib.cache_clear()
             mod._lib()
     finally:
@@ -112,8 +133,9 @@ def use(name: str) -> None:
 
 
 def model_checks(arch: str, variants) -> dict:
-    """Per variant: the worst K1 and K2 call of a prefill and first decode
-    step of ``arch`` on its own bf16 activations, and the drift ratio."""
+    """Per variant: the worst call of each probed kernel in a prefill and
+    first decode step of ``arch`` on its own bf16 activations, and the drift
+    ratio."""
     import torch
     cfg, model, params, tokens, lengths, max_len = cs.model_setup(arch)
     args = (params, tokens, lengths, max_len)
@@ -124,10 +146,11 @@ def model_checks(arch: str, variants) -> dict:
     out = {}
     for name in variants:
         use(name)
-        worst = {}
-        *run, _, _ = cs.prefill_and_step(model, *args, cs.checked_kernels(worst, {}), tok)
-        out[name] = {"flash_attention": worst["flash_attention"],
-                     "decode_attention": worst["decode_attention"],
+        worst, reported = {}, {}
+        *run, _, _ = cs.prefill_and_step(model, *args, cs.checked_kernels(worst, reported), tok)
+        out[name] = {**{kernel: worst[kernel] for kernel in KERNELS},
+                     **{key: reported[key] for key in ("wkv6_output", "wkv6_state")
+                        if key in reported},
                      "drift_ratio": cs.max_diff(run, plain32) / far_plain}
         print(f"[model] {arch} {name} {json.dumps(out[name])}", flush=True)
     del model, params
@@ -136,25 +159,34 @@ def model_checks(arch: str, variants) -> dict:
 
 
 def kernel_cases(variants) -> dict:
-    """Per variant: phase 3's K1 and K2 cases, their checks recorded, not
-    held."""
+    """Per variant: phase 3's cases of the probed kernels, their checks
+    recorded, not held."""
     failures = []
     cs.require = lambda cond, what: cond or failures.append(what)
-    cases = {"K1 gemma2-2b window 4096": lambda: cs.flash_case("gemma2-2b", 8, 4, 4096, 50.0),
-             "K1 gemma2-2b global": lambda: cs.flash_case("gemma2-2b", 8, 4, 0, 50.0),
-             "K1 recurrentgemma-9b": lambda: cs.flash_case("recurrentgemma-9b", 16, 1, 2048, 0.0),
-             "K2 gemma2-2b window 4096": lambda: cs.decode_case(
-                 "gemma2-2b", 8, 4, 4736, 4096, 50.0, ring=False),
-             "K2 gemma2-2b global": lambda: cs.decode_case(
-                 "gemma2-2b", 8, 4, 4736, 0, 50.0, ring=False),
-             "K2 recurrentgemma-9b": lambda: cs.decode_case(
-                 "recurrentgemma-9b", 16, 1, 2048, 2048, 0.0, ring=True)}
+    cases = {
+        "attention": {
+            "K1 gemma2-2b window 4096": lambda: cs.flash_case("gemma2-2b", 8, 4, 4096, 50.0),
+            "K1 gemma2-2b global": lambda: cs.flash_case("gemma2-2b", 8, 4, 0, 50.0),
+            "K1 recurrentgemma-9b": lambda: cs.flash_case("recurrentgemma-9b", 16, 1, 2048, 0.0),
+            "K2 gemma2-2b window 4096": lambda: cs.decode_case(
+                "gemma2-2b", 8, 4, 4736, 4096, 50.0, ring=False),
+            "K2 gemma2-2b global": lambda: cs.decode_case(
+                "gemma2-2b", 8, 4, 4736, 0, 50.0, ring=False),
+            "K2 recurrentgemma-9b": lambda: cs.decode_case(
+                "recurrentgemma-9b", 16, 1, 2048, 2048, 0.0, ring=True)},
+        "wkv6": {
+            "K4 rwkv6-7b": lambda: cs.wkv6_case("rwkv6-7b", len(cs.PROMPTS), max(cs.PROMPTS),
+                                                64, 64, cs.PROMPTS, 1000),
+            "K4 calibration": lambda: cs.wkv6_case("calibration", 4, 256, 2, 32, (256,) * 4,
+                                                   100)},
+    }[MODE]
+    keys = ("limit_ratio", "out_ratio", "state_ratio", "fault_ratio", "ms", "library_ms",
+            "bound_ms")
     out = {}
     for name in variants:
         use(name)
         failures.clear()
-        out[name] = {case: {key: res[key] for key in ("limit_ratio", "fault_ratio", "ms",
-                                                      "library_ms", "bound_ms")}
+        out[name] = {case: {key: res[key] for key in keys if key in res}
                      for case, res in ((case, run()) for case, run in cases.items())}
         out[name]["failed_checks"] = list(failures)
     return out
@@ -167,7 +199,12 @@ def main() -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    variants = parse(sys.argv[1:]) or {"shipped": {}, **UNDONE}
+    global MODE, KERNELS, ARCHS
+    args = sys.argv[1:]
+    if args[:1] == ["--kernel"]:
+        MODE, args = args[1], args[2:]
+    KERNELS, ARCHS, default = MODES[MODE]
+    variants = parse(args) or {"shipped": {}, **default}
     cs.phase_device()
     result = {name: {"switches": sets} for name, sets in variants.items()}
     for name, regs in build(variants).items():

@@ -112,20 +112,23 @@ def rglru_reference(a, b, s0) -> Tuple[torch.Tensor, torch.Tensor]:
     return torch.stack(seq, dim=1), s
 
 
-def wkv6_reference(r, k, v, logw, u, state0) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Naive sequential WKV recurrence, fp32 throughout, one step at a time:
+def wkv6_reference(r, k, v, logw, u, state0, *,
+                   acc: torch.dtype = torch.float32) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Naive sequential WKV recurrence, one step at a time:
 
         o_t = r_tᵀ S_{t−1} + (r_t ⊙ u ⊙ k_t)ᵀ 1 · v_t
         S_t = diag(e^{w_t}) S_{t−1} + k_t v_tᵀ
 
     r/k/v: (B, S, H, N), any float dtype; logw: (B, S, H, N) fp32; u: (H, N)
     fp32; state0: (B, H, N, N) fp32 → (out (B, S, H, N) in r's dtype, final
-    state (B, H, N, N) fp32).  Any S.
+    state (B, H, N, N) fp32).  Any S.  It computes in ``acc`` and rounds
+    once at the end: fp32 (the CPU path), or float64 where the chunked
+    kernel, which sums in another order, is held to it (``chip_smoke.py``).
     """
-    rr, kk, vv = r.float(), k.float(), v.float()
-    decay = torch.exp(logw.float())
-    uf = u.float()
-    state = state0.float()
+    rr, kk, vv = r.to(acc), k.to(acc), v.to(acc)
+    decay = torch.exp(logw.to(acc))
+    uf = u.to(acc)
+    state = state0.to(acc)
     outs = []
     for t in range(r.shape[1]):
         rt, kt, vt = rr[:, t], kk[:, t], vv[:, t]                # (B, H, N)
@@ -134,7 +137,111 @@ def wkv6_reference(r, k, v, logw, u, state0) -> Tuple[torch.Tensor, torch.Tensor
         state = decay[:, t, :, :, None] * state + kt[..., :, None] * vt[..., None, :]
         outs.append(o)
     out = torch.stack(outs, dim=1) if outs else rr.clone()
-    return out.to(r.dtype), state
+    return out.to(r.dtype), state.float()
+
+
+def wkv6_chunked_reference(r, k, v, logw, u, state0, *, chunk: int = 32,
+                           segments: int = 1,
+                           acc: torch.dtype = torch.float32
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The chunked, segmented WKV of K4's CUDA kernel (``csrc/wkv6.cu``), in
+    plain PyTorch: the kernel's decomposition, not its summation order.  The
+    tests hold it to the sequential reference; nothing on the main path
+    calls it.
+
+    The sequence is cut into chunks of ``chunk`` steps (the tail padded with
+    r = k = v = 0, logw = 0, which leave the state as it is) and into
+    ``segments`` segments of whole chunks, as ``wkv6.plan_segments`` cuts
+    it (the last segment may hold fewer chunks).  Every segment but the last
+    is run from a zero state to its contribution U_p, with its decay d_p =
+    e^{Σ logw}, the sum taken in float64; the segments' incoming states
+    chain as S_{p+1} = d_p ⊙ S_p + U_p; each segment is then run from its
+    incoming state.  Within a chunk, with e = e^{logw} and every decay a
+    running product of e (no factor exceeds 1, so nothing overflows; a
+    product underflows to 0):
+        o  = (r ⊙ Π_{j<t} e_j) S + A V
+        S' = e^{Σ_j logw_j} ⊙ S + (k ⊙ Π_{j>s} e_j)ᵀ V
+    with the chunk's own decay from a float64 sum rounded once, A[t, s] =
+    Σ_d r_td k_sd Π_{s<j<t} e_jd for s < t, A[t, t] = Σ_d r_td u_d k_td and 0
+    above the diagonal: its diagonal blocks of T/4 by running products, each
+    block below them, as the kernel forms it on its tensor cores, as the
+    product of r_t Π_{b<=j<t} e_j and k_s Π_{s<j<b} e_j at a block boundary
+    b between s and t.  Shapes and dtypes as :func:`wkv6_reference`.
+    """
+    B, S, H, N = r.shape
+    T, T2, Q = chunk, chunk // 2, chunk // 4
+    C = -(-S // T)
+    Lc = -(-C // max(1, segments)) if C else 0
+    P = -(-C // Lc) if C else 1
+
+    def chunks(x, dtype):
+        # (B, S, H, N) → (C, B, H, T, N), zero-padded to C·T steps
+        x = torch.nn.functional.pad(x.to(dtype), (0, 0, 0, 0, 0, C * T - S))
+        return x.reshape(B, C, T, H, N).permute(1, 0, 3, 2, 4)
+
+    rr, kk, vv = chunks(r, acc), chunks(k, acc), chunks(v, acc)
+    ww = chunks(logw, torch.float64)
+    uf = u.to(acc)
+
+    def exclusive_cumprod(e):                            # Π_{j<t} e_j along dim 2
+        return torch.nn.functional.pad(e.cumprod(dim=2)[:, :, :-1], (0, 0, 1, 0), value=1.0)
+
+    def state_step(c, state):
+        ew = torch.exp(ww[c].to(acc))
+        k_dec = exclusive_cumprod(ew.flip(2)).flip(2)     # Π_{j>s} e_j
+        d_chunk = torch.exp(ww[c].sum(dim=2).to(acc))
+        return (d_chunk[..., None] * state
+                + torch.einsum("bhsd,bhse->bhde", kk[c] * k_dec, vv[c]))
+
+    def out_step(c, state):
+        ew = torch.exp(ww[c].to(acc))
+        r_dec = rr[c] * exclusive_cumprod(ew)
+        a = torch.zeros((B, H, T, T), dtype=acc, device=r.device)
+        k_end = torch.zeros_like(kk[c])                  # k_s Π_{s<j<end of its block}
+        for lo in range(0, T, Q):                        # the diagonal blocks
+            k_run = torch.zeros_like(kk[c][:, :, lo:lo + Q])
+            for t in range(lo, lo + Q):
+                a[:, :, t, lo:lo + Q] = torch.einsum("bhd,bhsd->bhs", rr[c][:, :, t], k_run)
+                a[:, :, t, t] = (rr[c][:, :, t] * uf * kk[c][:, :, t]).sum(-1)
+                k_run = k_run * ew[:, :, t, None]
+                k_run[:, :, t - lo] = kk[c][:, :, t]
+            k_end[:, :, lo:lo + Q] = k_run
+
+        def r_from(rows):                                # r_t Π_{rows.start<=j<t} e_j
+            return rr[c][:, :, rows] * exclusive_cumprod(ew[:, :, rows])
+
+        def block(t_rows, s_cols, r_fac, k_fac):
+            a[:, :, t_rows, s_cols] = torch.einsum("bhtd,bhsd->bhts", r_fac, k_fac)
+
+        q1, q2, q3 = slice(Q, 2 * Q), slice(2 * Q, 3 * Q), slice(3 * Q, T)
+        s0, high = slice(0, Q), slice(T2, T)
+        r_high = r_from(high)
+        p8 = ew[:, :, q1].prod(dim=2, keepdim=True)      # Π_{Q<=j<T/2} e_j
+        block(high, s0, r_high * p8, k_end[:, :, s0])
+        block(high, q1, r_high, k_end[:, :, q1])
+        block(q1, s0, r_from(q1), k_end[:, :, s0])
+        block(q3, q2, r_from(q3), k_end[:, :, q2])
+        return torch.einsum("bhtd,bhde->bhte", r_dec, state) + a @ vv[c]
+
+    state = state0.to(acc)
+    incoming = [state]
+    for p in range(P - 1):                               # each segment's U_p, d_p
+        contrib = torch.zeros_like(state)
+        total = torch.zeros((B, H, N), dtype=torch.float64, device=r.device)
+        for c in range(p * Lc, (p + 1) * Lc):
+            contrib = state_step(c, contrib)
+            total = total + ww[c].sum(dim=2)
+        incoming.append(torch.exp(total.to(acc))[..., None] * incoming[-1] + contrib)
+    outs = []
+    for p in range(P):
+        state = incoming[p]
+        for c in range(p * Lc, min((p + 1) * Lc, C)):
+            outs.append(out_step(c, state))
+            state = state_step(c, state)
+    if not outs:
+        return r.clone(), state.float()
+    out = torch.stack(outs).permute(1, 0, 3, 2, 4).reshape(B, C * T, H, N)[:, :S]
+    return out.to(r.dtype), state.float()
 
 
 def int8_matmul_reference(x_q, w_q, sx, sw) -> torch.Tensor:

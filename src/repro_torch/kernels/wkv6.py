@@ -2,7 +2,9 @@
 
 The kernel (``csrc/wkv6.cu``) replaces the Pallas TPU kernel
 ``repro.kernels.wkv6.wkv6``; its source says what bounds it on the H100 and
-how its design answers that.  ``launches`` counts the kernel's launches.
+how its design answers that.  It cuts each (batch, head) into segments of
+whole 32-step chunks (``plan_segments``) and runs up to three launches a
+call; ``launches`` counts one per call.
 """
 from __future__ import annotations
 
@@ -17,6 +19,8 @@ from repro_torch.kernels.ref import wkv6_reference
 
 HEAD_SIZES = (32, 64)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+CHUNK = 32             # steps of a chunk, the kernel's T
+TARGET_BLOCKS = 2048   # blocks of the output pass the planner aims at (~8 waves)
 
 launches = 0
 
@@ -30,8 +34,20 @@ def _lib() -> ctypes.CDLL:
     lib = _build.library("wkv6")
     fn = lib.wkv6_fwd
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     return lib
+
+
+def plan_segments(B: int, H: int, S: int) -> Tuple[int, int]:
+    """(P, Lc): each (batch, head) in P segments of Lc chunks of ``CHUNK``
+    steps (the last segment may hold fewer), so that B·H·P comes near
+    ``TARGET_BLOCKS``.  S = 0 gives (1, 0)."""
+    chunks = -(-S // CHUNK)
+    if chunks == 0:
+        return 1, 0
+    P = min(chunks, max(1, -(-TARGET_BLOCKS // max(1, B * H))))
+    Lc = -(-chunks // P)
+    return -(-chunks // Lc), Lc
 
 
 def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.Tensor,
@@ -59,12 +75,22 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.Tensor,
         if not t.is_cuda or t.dtype != dtype or t.device != r.device:
             raise ValueError(f"wkv6: {name} must be a {dtype} tensor on the card "
                              f"of r, got {t.device} {t.dtype}")
-    r, k, v, logw, u, state0 = (t.contiguous() for t in (r, k, v, logw, u, state0))
+    # the kernel loads 16 bytes at a time: a view that starts off that
+    # alignment is copied
+    r, k, v, logw, state0 = (t if t.is_contiguous() and t.data_ptr() % 16 == 0
+                             else t.clone(memory_format=torch.contiguous_format)
+                             for t in (r, k, v, logw, state0))
+    u = u.contiguous()
+    P, Lc = plan_segments(B, H, S)
     out = torch.empty_like(r)
     state = torch.empty_like(state0)
+    # each segment's own contribution, then its incoming state; its decay
+    seg_state = torch.empty((B, H, P - 1, N, N), dtype=torch.float32, device=r.device)
+    seg_decay = torch.empty((B, H, P - 1, N), dtype=torch.float32, device=r.device)
     err = _lib().wkv6_fwd(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(), u.data_ptr(),
-        state0.data_ptr(), out.data_ptr(), state.data_ptr(), B, S, H, N, DTYPES[r.dtype],
+        state0.data_ptr(), out.data_ptr(), state.data_ptr(), seg_state.data_ptr(),
+        seg_decay.data_ptr(), B, S, H, N, DTYPES[r.dtype], P, Lc,
         torch.cuda.current_stream(r.device).cuda_stream)
     _build.check(err, "wkv6")
     launches += 1

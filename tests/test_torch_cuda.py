@@ -7,9 +7,12 @@ The plain versions are themselves held to the JAX kernels and references by
 ``tests/test_torch_rwkv6.py``.  Tolerances are those of
 ``tests/test_kernels.py``: 2e-5 for fp32, 2e-2 for bf16 (fp32 products stay
 IEEE: TF32 is switched off), 1e-5 for the RG-LRU scan, atol 2e-4 and rtol
-1e-3 for the WKV6 state (and for its output in fp32; one bf16 ulp in bf16).
-The int8 matmul is held bitwise to its exact plain version; its plain version
-is held to the Pallas kernel by ``tests/test_torch_int8.py``.
+1e-3 for the WKV6 state (and for its output in fp32; one bf16 ulp in bf16),
+against the plain version in fp32 and, across the chunked kernel's segment
+and chunk boundaries, in float64.  The int8 matmul is held bitwise to its
+exact plain version, with w row-major (transposed into scratch) and
+column-major (read in place); its plain version is held to the Pallas kernel
+by ``tests/test_torch_int8.py``.
 """
 import numpy as np
 import pytest
@@ -285,6 +288,89 @@ def test_wkv6_kernel_matches_plain(cuda, dtype, B, S, H, N):
             torch.testing.assert_close(bad.float(), want_out.float(), atol=2e-4, rtol=rtol)
 
 
+def wkv6_case(B, S, H, N, dtype, device, seed=10, logw_mean=0.0, logw_scale=0.5):
+    rng = np.random.default_rng(seed)
+
+    def normal(shape, scale=1.0):
+        return torch.from_numpy((scale * rng.standard_normal(shape)).astype(np.float32))
+    r, k = (normal((B, S, H, N), 0.5).to(TORCH_DT[dtype]).to(device) for _ in range(2))
+    v = normal((B, S, H, N)).to(TORCH_DT[dtype]).to(device)
+    logw = (-torch.exp(logw_mean + normal((B, S, H, N), logw_scale))).to(device)
+    return r, k, v, logw, normal((H, N), 0.1).to(device), normal((B, H, N, N), 0.1).to(device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N", wk.HEAD_SIZES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,H,S", [(1, 2, 31), (1, 2, 32), (1, 2, 33), (1, 2, 65),
+                                   (16, 64, 63), (16, 64, 64), (16, 64, 65), (16, 64, 97),
+                                   (2, 3, 1), (2, 3, 0)])
+def test_wkv6_kernel_matches_float64_across_boundaries(cuda, dtype, B, H, S, N):
+    """S at and on either side of a chunk boundary (32, 64) and of a segment
+    boundary (one segment a chunk at B·H = 2; segments of 2 and 3 chunks at
+    B·H = 1024), one step, none: the chunked kernel against the plain
+    recurrence in float64, within the limits above."""
+    args = wkv6_case(B, S, H, N, dtype, cuda, seed=S + N)
+    P, Lc = wk.plan_segments(B, H, S)
+    if S > 32:
+        assert P > 1
+    out, state = wk.wkv6(*args)
+    torch.cuda.synchronize()
+    want_out, want_state = wk.plain(*args, acc=torch.float64)
+    rtol = 2.0 ** -7 if dtype == "bfloat16" else 1e-3
+    torch.testing.assert_close(out.float(), want_out.float(), atol=2e-4, rtol=rtol)
+    torch.testing.assert_close(state, want_state, atol=2e-4, rtol=1e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N", wk.HEAD_SIZES)
+def test_wkv6_kernel_extreme_decays_and_a_dropped_segment(cuda, N):
+    """logw down to −exp(3) and beyond (chunk sums past −600, far outside
+    fp32's exp range): finite and within the limits of the float64 plain
+    version.  A second segment started from a zero state (k = 0 and
+    e^{logw} = 0 on the first segment's last step) must fail the check."""
+    B, S, H = 2, 300, 2
+    r, k, v, logw, u, s0 = wkv6_case(B, S, H, N, "float32", cuda, seed=N, logw_mean=1.5,
+                                     logw_scale=1.0)
+    assert float(logw.min()) < -np.exp(3.0)
+    out, state = wk.wkv6(r, k, v, logw, u, s0)
+    want_out, want_state = wk.plain(r, k, v, logw, u, s0, acc=torch.float64)
+    assert bool(torch.isfinite(out).all()) and bool(torch.isfinite(state).all())
+    torch.testing.assert_close(out, want_out, atol=2e-4, rtol=1e-3)
+    torch.testing.assert_close(state, want_state, atol=2e-4, rtol=1e-3)
+    args = wkv6_case(B, S, H, N, "float32", cuda, seed=N)
+    P, Lc = wk.plan_segments(B, H, S)
+    assert P > 1
+    want_out, _ = wk.plain(*args, acc=torch.float64)
+    r, k, v, logw, u, s0 = args
+    k, logw = k.clone(), logw.clone()
+    k[0, Lc * 32 - 1], logw[0, Lc * 32 - 1] = 0.0, -200.0
+    bad, _ = wk.wkv6(r, k, v, logw, u, s0)
+    with pytest.raises(AssertionError):
+        torch.testing.assert_close(bad, want_out, atol=2e-4, rtol=1e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_wkv6_kernel_takes_views_off_16_byte_alignment(cuda, dtype):
+    """r, k, v, logw and state0 as contiguous views one element into larger
+    tensors (off the kernel's 16-byte alignment): the same result as on
+    fresh tensors, bitwise."""
+    args = wkv6_case(2, 70, 3, 32, dtype, cuda, seed=3)
+
+    def shifted(t):
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)
+        view = flat[1:].view(t.shape)
+        view.copy_(t)
+        return view
+    r, k, v, logw, u, s0 = args
+    views = (shifted(r), shifted(k), shifted(v), shifted(logw), u, shifted(s0))
+    assert all(t.data_ptr() % 16 for t in views[:4] + views[5:])
+    out, state = wk.wkv6(*views)
+    want_out, want_state = wk.wkv6(*args)
+    assert torch.equal(out, want_out) and torch.equal(state, want_state)
+
+
 @pytest.mark.gpu
 def test_kernels_reject_what_they_do_not_take(cuda):
     q = torch.zeros((1, 2, 8, 96), device=cuda)
@@ -325,6 +411,55 @@ def test_int8_matmul_kernel_is_exact(cuda, M, K, N):
     x_f = x_q.clone()
     x_f[:, :min(K, 64)] = 0
     assert not torch.equal(i8.int8_matmul(x_f, w_q, sx, sw), got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["row", "col"])
+@pytest.mark.parametrize("M,K,N", [(77, 4, 9), (129, 36, 257), (300, 100, 130),
+                                   (300, 9216, 257), (1, 4, 1)])
+def test_int8_matmul_kernel_layouts_and_padded_k(cuda, layout, M, K, N):
+    """w row-major (the transposing pass into scratch) and column-major (read
+    in place where K is a multiple of 16), K not a multiple of 16 or 32
+    (x and the scratch zero-padded), M and N not multiples of the 128 x 128
+    tile: bitwise equal to the exact plain version, w left untouched; and
+    where K is padded, the kernel handed operands whose padding is not zero
+    rejected (with zeros there the same call is exact)."""
+    x_q, w_q, sx, sw = quantized(M, K + 4, N, seed=M + K, device=cuda)
+    x_q, w_q = x_q[:, :K].contiguous(), w_q[:K].contiguous()
+    if layout == "col":
+        w_q = w_q.T.contiguous().T
+    w_before = w_q.clone()
+    got = i8.int8_matmul(x_q, w_q, sx, sw)
+    torch.cuda.synchronize()
+    assert torch.equal(w_q, w_before) and w_q.stride() == w_before.stride()
+    want = i8.plain(x_q, w_q, sx, sw)
+    assert torch.equal(got, want)
+    Kp = i8.padded_k(K)
+    if Kp > K:
+        def padded(a, fill):
+            return torch.cat([a, torch.full((a.shape[0], Kp - K), fill, dtype=torch.int8,
+                                            device=cuda)], 1)
+        assert torch.equal(i8._launch(padded(x_q, 0), padded(w_q.T, 0), sx, sw, K, True), want)
+        assert not torch.equal(i8._launch(padded(x_q, 3), padded(w_q.T, 5), sx, sw, K, True),
+                               want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["row", "col"])
+def test_int8_matmul_kernel_at_max_k(cuda, layout):
+    """K = MAX_K rounded down to a multiple of 4, with every operand at −128:
+    the largest int32 sums the kernel promises, exact."""
+    M, N, K = 3, 5, i8.MAX_K - i8.MAX_K % 4
+    x_q = torch.full((M, K), -128, dtype=torch.int8, device=cuda)
+    w_q = torch.full((K, N), -128, dtype=torch.int8, device=cuda)
+    if layout == "col":
+        w_q = w_q.T.contiguous().T
+    sx = torch.linspace(0.5, 1.5, M, device=cuda)
+    sw = torch.linspace(0.25, 2.0, N, device=cuda)
+    got = i8.int8_matmul(x_q, w_q, sx, sw)
+    assert torch.equal(got, i8.plain(x_q, w_q, sx, sw))
+    assert float(got[0, 0]) == float(np.float32(np.float32(128 * 128 * K) * np.float32(0.5))
+                                     * np.float32(0.25))
 
 
 @pytest.mark.gpu
