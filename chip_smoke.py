@@ -20,15 +20,19 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 ring), within one bf16 ulp (|err| ≤ 1e-5 + 2^-7·|want|) of
                 their plain versions computed in float64, K2's faults
                 including one split of its plan dropped;
-                K3 at recurrentgemma-9b's prefill shapes within
-                |err| ≤ 1e-5 + 1e-5·|want|; K4 at rwkv6-7b's prefill
+                K3 at recurrentgemma-9b's prefill shapes bitwise equal to
+                its plain version (ring or register variant, as its plan
+                chooses; the plan is printed), its faults including the
+                state carried across one stage boundary dropped; K4 at
+                rwkv6-7b's prefill
                 shapes (H=64 heads of 64, bf16 r/k/v), held to its plain
                 version computed in float64, its output within one bf16 ulp
                 plus a bound on its chunked arithmetic and its final fp32
                 state within that bound (see wkv_atol), planted faults
                 including a segment started from a zero state; K3 again
-                with bf16 a/b/seq and K4 again at the calibration's shape
-                (B=4, S=256, H=2 heads of N=32), each with the same limits;
+                with bf16 a/b/seq (bitwise, its B = 1 time beside) and K4
+                again at the calibration's shape (B=4, S=256, H=2 heads of
+                N=32), each with the same limits;
                 K5 at gemma2-2b's MLP down-projection for a prefill of 8 ×
                 512 tokens (x (4096, 9216) and w (9216, 2304) int8), bitwise
                 equal to its exact plain version with w row-major and
@@ -42,8 +46,9 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 generating 16 tokens for a ragged batch through the kernels
                 (launch counts checked), then the same prefill and first
                 decode step with every kernel call held against its plain
-                version (K1, K2 and K4's computed in float64), and with the
-                plain versions swapped in;
+                version (K1, K2 and K4's computed in float64; K3 bitwise,
+                on the ring variant), and with the plain versions swapped
+                in;
   5. serving  — gemma2-2b behind ``run_server`` with the tris policy on a
                 Poisson workload, launch counts checked against the batches
                 served;
@@ -57,9 +62,12 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 ``kernel_records()`` with its defaults (all five kernels,
                 batches (1, 2, 4) × seqs (64, 128, 256), fp32 and bf16, int8
                 for K5: 81 records, each kernel verified against its
-                reference first), the nine per-(kernel, dtype) fits, the int8
-                ``compute_scale`` from ``derive_speed_modes``, and the
-                ``launch.bench_kernels`` smoke sweep; launch counts checked;
+                reference first; K3's fp32 record exactly), the nine
+                per-(kernel, dtype) fits, the int8 ``compute_scale`` from
+                ``derive_speed_modes``, and the ``launch.bench_kernels``
+                smoke sweep; launch counts checked; then K3 bitwise equal
+                to its plain version at every point of the grid in both
+                types;
 then a ``kernels`` JSON line, and last the ``ok`` JSON line.
 Needs one card; imports nothing of JAX or of the JAX package.
 """
@@ -97,8 +105,9 @@ PEAK_BYTES = 3.35e12       # H100 SXM HBM3 bandwidth
 # such errors.
 RTOL = 2.0 ** -7
 ATOL = 1e-5
-# K3 against plain: both are sequential fp32 recurrences, held to the
-# reference's own limit (tests/test_kernels.py, test_rglru_kernel).
+# K3 against plain: both are the same sequential fp32 recurrence, each step
+# rounded twice (a product, then a sum) and each stored state once, so K3 is
+# held bitwise (torch.equal), in both variants and both types.
 #
 # K4 is the chunked form on the tensor cores, which sums in another order
 # than the plain recurrence, so it is held to the plain version computed in
@@ -140,7 +149,7 @@ ATOL = 1e-5
 # rwkv6-7b's prompts (C = 147), lets a kernel with a single tf32 pass
 # through the output check.  Planted faults show the limits still reject a
 # wrong kernel.
-SCAN_TOL = 1e-5
+UNIT = 2.0 ** -24   # u, the unit roundoff of fp32, in K4's limits above
 # Full-width model, kernel path against plain path on the same weights.
 # With fp32 activations the two differ only in fp32 summation order inside
 # the kernels (attention; the WKV kernel's chunked tf32 products, within a
@@ -203,21 +212,25 @@ def decode_want(q, k, v, lengths, **kw):
     return da.plain(q, k, v, lengths, acc=torch.float64, **kw)
 
 
-def held_scan(got, want):
-    """``held`` over K3's (seq, last) pair, at K3's limit."""
-    results = [held(g, w, atol=SCAN_TOL, rtol=SCAN_TOL) for g, w in zip(got, want)]
-    return max(r[0] for r in results), max(r[1] for r in results)
+def exact_scan(got, want):
+    """(K3's (seq, last) pair bitwise equal to the plain version's, max
+    |got − want| over both)."""
+    import torch
+    equal = all(torch.equal(g, w) for g, w in zip(got, want))
+    err = max((float((g.float() - w.float()).abs().max())
+               for g, w in zip(got, want) if g.numel()), default=0.0)
+    return equal, err
 
 
 def wkv_atol(r, k, v, logw, u, s0):
     """K4's absolute limits on its output and final state, entry by entry:
     ATOL + 2(γ_o·M + |r ⊙ decay|·E_c) and ATOL + 2·E_C, from the float64
     plain recurrence on absolute values and the chunk by chunk recurrence of
-    the state's error bound E (see the comment above SCAN_TOL)."""
+    the state's error bound E (see the comment above UNIT)."""
     import torch
     from repro_torch.kernels import wkv6 as wk
     B, S, H, N = r.shape
-    T, unit = wk.CHUNK, 2.0 ** -24
+    T, unit = wk.CHUNK, UNIT
     mag, _ = wk.plain(r.double().abs(), k.double().abs(), v.double().abs(), logw, u.abs(),
                       s0.abs(), acc=torch.float64)
     C, (_, Lc) = -(-S // T), wk.plan_segments(B, H, S)
@@ -471,7 +484,8 @@ def decode_case(arch: str, H: int, K: int, T: int, window: int, softcap: float,
 def rglru_case(dtype: str = "float32"):
     """K3 at recurrentgemma-9b's prefill shapes: the B=4 ragged prompts padded
     to the longest, R=4096, pad steps a=1, b=0 as the model gives them; a and
-    b in ``dtype`` (the model sends fp32; the calibration also bf16)."""
+    b in ``dtype`` (the model sends fp32; the calibration also bf16).  Held
+    bitwise; the register variant and a batch of one are timed beside."""
     import torch
     from repro_torch.kernels import rglru_scan as rg
     B, S, R = len(PROMPTS), max(PROMPTS), 4096
@@ -485,24 +499,44 @@ def rglru_case(dtype: str = "float32"):
                     0.0).to(dt)
     s0 = torch.randn((B, R), generator=g, device="cuda")
     got = rg.rglru_scan(a, b, s0)
+    plan = rg.last_plan
     want = rg.plain(a, b, s0)
     require(got[0].dtype == dt and got[1].dtype == torch.float32, "rglru_scan dtypes")
-    err, ratio = held_scan(got, want)
+    equal, err = exact_scan(got, want)
     require(all(bool(torch.isfinite(x).all()) for x in got), "rglru_scan output finite")
-    require(ratio <= 1.0, f"rglru_scan {dtype} max|err| {err}, {ratio}x the limit")
-    # planted fault: one valid step of the longest prompt skipped (a=1, b=0)
-    a_f, b_f = a.clone(), b.clone()
-    a_f[0, 1000], b_f[0, 1000] = 1.0, 0.0
-    fault_ratio = {"one_step_skipped": held_scan(rg.rglru_scan(a_f, b_f, s0), want)[1]}
-    require(all(r > 1.0 for r in fault_ratio.values()),
-            f"rglru_scan check rejects planted faults {fault_ratio}")
+    require(equal, f"rglru_scan {dtype} {plan} bitwise equal to plain (max|err| {err})")
+    require(plan.variant == "ring", f"rglru_scan {dtype} at the model's shape runs the ring")
+    # planted faults, each the kernel's own output where a wrong kernel would
+    # give it: one valid step of the longest prompt skipped (a=1, b=0); the
+    # state carried into the ring's second stage dropped (a=0 at its first
+    # step, so the state restarts from b there)
+    faults = {}
+    for name, t, fill in (("one_step_skipped", 1000, (1.0, 0.0)),
+                          ("state_dropped_at_stage_boundary", plan.steps, (0.0, None))):
+        a_f, b_f = a.clone(), b.clone()
+        a_f[:, t] = fill[0]
+        if fill[1] is not None:
+            b_f[:, t] = fill[1]
+        faults[name] = exact_scan(rg.rglru_scan(a_f, b_f, s0), want)
+    require(not any(eq for eq, _ in faults.values()),
+            f"rglru_scan check rejects planted faults {faults}")
     # a and b read once, s0 read once, seq and last written once; two
     # fp32 operations a step
     size = a.element_size()
     ms_bound, by = bound(2.0 * B * S * R, size * 3.0 * B * S * R + 4.0 * 2 * B * R,
                          PEAK_FP32_FLOPS)
-    res = dict(max_abs_err=err, limit_ratio=ratio, fault_ratio=fault_ratio,
+    one = [x[:1] for x in (a, b, s0)]   # a batch of one, the card covered by C = 32
+    require(exact_scan(rg.rglru_scan(*one), rg.plain(*one))[0],
+            f"rglru_scan {dtype} {rg.last_plan} at B=1 bitwise equal to plain")
+    one_plan = rg.last_plan
+    res = dict(max_abs_err=err,
+               fault_max_abs_err={k: e for k, (_, e) in faults.items()},
+               plan=plan._asdict(),
                ms=cuda_ms(lambda: rg.rglru_scan(a, b, s0), 20),
+               register_ms=cuda_ms(lambda: rg.rglru_scan(a, b, s0, use=rg.REGISTER), 20),
+               batch1_plan=one_plan._asdict(),
+               batch1_ms=cuda_ms(lambda: rg.rglru_scan(*one), 20),
+               batch1_register_ms=cuda_ms(lambda: rg.rglru_scan(*one, use=rg.REGISTER), 20),
                plain_ms=cuda_ms(lambda: rg.plain(a, b, s0), 2),
                library_ms=None,   # no single PyTorch call computes the recurrence
                bound_ms=ms_bound, bound_by=by)
@@ -674,6 +708,9 @@ def int8_calibration_largest():
     return int8_case("calibration's largest point", *args)
 
 
+RGLRU_EXTRA = ("plan", "register_ms", "batch1_plan", "batch1_ms", "batch1_register_ms")
+
+
 def merge(cases):
     """One kernel's record over a model's layer kinds: the mean of each time
     over the cases (gemma2-2b: window 4096 and global), the worst error."""
@@ -682,6 +719,8 @@ def merge(cases):
            for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
     out["max_abs_err"] = max(c["max_abs_err"] for c in cases)
     out["bound_by"] = cases[0]["bound_by"]
+    # K3's plan and its times beside (one case a record)
+    out.update({k: v for k, v in cases[0].items() if k in RGLRU_EXTRA})
     return out
 
 
@@ -714,9 +753,10 @@ def model_setup(arch: str):
 def checked_kernels(worst: dict, reported: dict) -> dict:
     """Stand-ins for the model kernels in ``ops`` that run each kernel and
     hold the call against its plain version on the same inputs (K1 and K2
-    against float64), keeping each kernel's worst limit ratio in ``worst``
-    and, in ``reported``, K4's worst output and state ratios apart and its
-    output against ATOL + RTOL alone (not held)."""
+    against float64; K3 bitwise, raising at once), keeping each kernel's
+    worst limit ratio in ``worst`` and, in ``reported``, K4's worst output
+    and state ratios apart and its output against ATOL + RTOL alone (not
+    held), and the plans K3 ran."""
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rglru_scan as rg
@@ -737,7 +777,13 @@ def checked_kernels(worst: dict, reported: dict) -> dict:
 
     def checked_rglru(a, b, s0):
         got = rg.rglru_scan(a, b, s0)
-        keep("rglru_scan", held_scan(got, rg.plain(a, b, s0))[1])
+        equal, err = exact_scan(got, rg.plain(a, b, s0))
+        require(equal, f"rglru_scan {rg.last_plan} on the model's activations bitwise "
+                       f"equal to plain (max|err| {err})")
+        keep("rglru_scan", 0.0)
+        plans = reported.setdefault("rglru_scan_plans", [])
+        if rg.last_plan._asdict() not in plans:
+            plans.append(rg.last_plan._asdict())
         return got
 
     def checked_wkv6(*args):
@@ -873,7 +919,12 @@ def phase_model(arch: str):
           f"{json.dumps(worst)} (fail above 1)"
           + (f"; wkv6 output {reported['wkv6_output']}, state {reported['wkv6_state']}, "
              f"output against ATOL + RTOL alone {reported['wkv6_ulp_only']} (not held)"
-             if n_rwkv else ""))
+             if n_rwkv else "")
+          + (f"; rglru_scan bitwise on every call, plans "
+             f"{json.dumps(reported['rglru_scan_plans'])}" if n_rec else ""))
+    if n_rec:
+        require(all(p["variant"] == "ring" for p in reported["rglru_scan_plans"]),
+                "every rglru_scan call of the model runs the ring variant")
     print(f"[model] {arch} max|Δlogit| fp32 kernel-vs-plain={d32} "
           f"(tol {LOGIT_TOL_FP32}) bf16 kernel-vs-plain={d16}; to the fp32 path: "
           f"bf16 kernel={far_k} bf16 plain={far_p} ratio={far_k / far_p} "
@@ -967,6 +1018,24 @@ def phase_calibration():
             for name, case in reg.items()}
     want["int8_matmul"] += 1 + 3
     require(launches == want, f"calibration launches {launches} != {want}")
+    # K3 bitwise: its fp32 records verified exactly against the sequential
+    # reference, and every grid point in both types equal to the plain
+    # version (these calls are not counted)
+    from repro_torch.kernels import rglru_scan as rg
+    require(all(r["result"]["max_err_vs_ref"] == 0.0 for r in records
+                if r["kernel"] == "rglru_scan" and r["dtype"] == "float32"),
+            "rglru_scan fp32 calibration records verified exactly")
+    plans = {}
+    for dt in reg["rglru_scan"].dtypes:
+        for batch in DEFAULT_BATCHES:
+            for seq in DEFAULT_SEQS:
+                (a, b, s0), _ = reg["rglru_scan"].make(batch, seq, dt, 0, "cuda")
+                equal, err = exact_scan(rg.rglru_scan(a, b, s0), rg.plain(a, b, s0))
+                require(equal, f"rglru_scan {dt} {rg.last_plan} at calibration point "
+                               f"B={batch} S={seq} bitwise equal to plain (max|err| {err})")
+                plans[f"{dt} B={batch} S={seq}"] = tuple(rg.last_plan)
+    print(f"[calibration] rglru_scan bitwise equal to plain at every grid point; "
+          f"plans (variant, C, T, P) {json.dumps(plans)}")
     return launches
 
 

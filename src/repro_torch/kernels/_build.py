@@ -9,6 +9,7 @@ module is imported.
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 import shutil
 import subprocess
@@ -75,6 +76,16 @@ def library(name: str) -> ctypes.CDLL:
     """Load the shared library of kernel ``name``, building it if needed."""
     build([name])
     return ctypes.CDLL(str(_lib_path(name)))
+
+
+H100_SMS = 132   # SMs of an H100 SXM: the planners' default card
+
+
+@functools.cache
+def sm_count(index: int) -> int:
+    """SMs of card ``index``, by which the planners size their grids."""
+    import torch
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def check(err: int, what: str) -> None:

@@ -1,6 +1,6 @@
-// Helpers shared by the kernels: element conversion, tile loads, and the
-// PTX wrappers (cp.async, ldmatrix, mma.sync) of the tensor-core attention
-// kernels.
+// Helpers shared by the kernels: element conversion, tile loads, the PTX
+// wrappers (cp.async, ldmatrix, mma.sync) of the tensor-core attention
+// kernels, and the mbarrier and bulk-copy wrappers of the RG-LRU ring.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -368,6 +368,52 @@ __device__ __forceinline__ void pv_step(const float (&s)[NT][4], float (&acc)[NO
                [&](int, int e) { return vb[2 * h + e]; });
     }
   }
+}
+
+// ---- mbarriers and one-dimensional bulk copies (the RG-LRU ring) ----
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+// Make the initialised mbarriers visible to the other threads and to the
+// asynchronous proxy (then __syncthreads).
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+// One arrival that also expects `bytes` more of asynchronous copies.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+// Wait until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  }
+}
+// `bytes` (a multiple of 16; both addresses 16-byte aligned) from global to
+// shared memory, counted on `bar` as they land.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
 }
 
 }  // namespace repro_torch

@@ -26,7 +26,6 @@ GROUP_SIZES = (1, 2, 4, 8, 16)
 TILE = {**{(torch.float32, d): 32 for d in HEAD_DIMS},
         **{(torch.bfloat16, d): 32 if d == 256 else 64 for d in HEAD_DIMS}}
 SPLIT_SLOTS = math.lcm(*TILE.values())   # a split is a whole number of tiles
-H100_SMS = 132
 BLOCKS_PER_SM = 2        # the grid the planner aims at: about 2 blocks per SM
 MIN_SPLIT_BYTES = 256 * 1024
 
@@ -34,7 +33,7 @@ launches = 0
 
 
 def plan_splits(B: int, K: int, T: int, d: int, itemsize: int,
-                sms: int = H100_SMS) -> Tuple[int, int]:
+                sms: int = _build.H100_SMS) -> Tuple[int, int]:
     """How the kernel cuts each (b, kv head)'s cache of T slots across
     blocks: (number of splits, slots per split).  Split s holds slots
     [s·chunk, min((s + 1)·chunk, T)); every slot lies in exactly one split
@@ -56,11 +55,6 @@ def plan_splits(B: int, K: int, T: int, d: int, itemsize: int,
     want = -(-BLOCKS_PER_SM * sms // (B * K))
     per = -(-tiles // min(want, tiles))
     return -(-tiles // per), per * SPLIT_SLOTS
-
-
-@functools.cache
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 # The plain PyTorch version of the kernel: the CPU path, and the card-side
@@ -118,7 +112,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q_pos is not None:
         q_pos = _int32_vector("q_pos", q_pos, (B,))
     out = torch.empty((B, H, d), dtype=q.dtype, device=q.device)
-    nsplit, chunk = plan_splits(B, K, T, d, q.element_size(), _sm_count(q.device.index))
+    nsplit, chunk = plan_splits(B, K, T, d, q.element_size(), _build.sm_count(q.device.index))
     part = (torch.empty(B * K * nsplit * (H // K) * (d + 2), dtype=torch.float32,
                         device=q.device) if nsplit > 1 else None)
     strides = (ctypes.c_longlong * 10)(*(q.stride()[:2] + k.stride()[:3]

@@ -1,24 +1,116 @@
-"""RG-LRU scan: the CUDA kernel's wrapper and its plain version.
+"""RG-LRU scan: the CUDA kernel's wrapper, its planner and its plain version.
 
 The kernel (``csrc/rglru_scan.cu``) replaces the Pallas TPU kernel
 ``repro.kernels.rglru_scan.rglru_scan``; its source says what bounds it on
-the H100 and how its design answers that.  ``launches`` counts the kernel's
-launches.
+the H100 and how its design answers that.  It has two variants, both
+bitwise equal to :func:`plain`: a ring of bulk copies in shared memory, and
+the register body for the shapes bulk copies cannot take and for small
+problems.  :func:`plan`
+chooses one before each launch; ``last_plan`` holds the plan of the latest
+launch and ``launches`` counts the launches.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._build import H100_SMS
 from repro_torch.kernels.ref import rglru_reference
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+VARIANTS = {"register": 0, "ring": 1}
+SMALL = 4 * 256 * 256           # B·S·R at most that the register body takes
+RING_CHANNELS = (128, 32)       # C, channels a block of the ring variant
+MAX_STEPS = 128                 # T at most
+STAGE_BYTES = 32 * 1024         # a stage's a and b rows at most
+RING_BYTES_PER_SM = 64 * 1024   # the ring's shared memory an SM aims at
+MAX_STAGES = 32                 # P at most (the kernel's mbarrier slots)
+BARRIER_BYTES = 2 * MAX_STAGES * 8
+PRODUCERS = 8                   # producer warps a block of the ring
+SMEM_PER_SM = 233472            # 228 KB an SM, of which each block reserves
+SMEM_RESERVED = 1024            # 1 KB for the system
+SMEM_PER_BLOCK = 232448         # 227 KB, a block's most
+BLOCKS_PER_SM = 32              # resident blocks an SM holds at most
+THREADS_PER_SM = 2048
 
 launches = 0
+
+
+class Plan(NamedTuple):
+    """How one call runs: ``variant`` "ring" or "register"; ``channels`` (C)
+    a block; ``steps`` (T) a stage of the ring (the register body: steps
+    whose loads it holds in registers at once); ``stages`` (P) of the ring
+    (1 for the register body)."""
+    variant: str
+    channels: int
+    steps: int
+    stages: int
+
+    def smem_bytes(self, itemsize: int) -> int:
+        """Dynamic shared memory a block takes."""
+        if self.variant == "register":
+            return 0
+        return BARRIER_BYTES + 2 * self.stages * self.steps * self.channels * itemsize
+
+    def threads(self) -> int:
+        """Threads a block."""
+        return self.channels + (32 * PRODUCERS if self.variant == "ring" else 0)
+
+    def blocks(self, B: int, R: int) -> int:
+        return B * -(-R // self.channels)
+
+
+REGISTER = Plan("register", 128, 16, 1)
+last_plan: Optional[Plan] = None
+
+
+@functools.lru_cache(maxsize=1024)   # a lookup, not a plan, on the host's path
+def plan(B: int, S: int, R: int, itemsize: int, sm_count: int = H100_SMS,
+         aligned: bool = True) -> Plan:
+    """The variant and shape of one call on a card of ``sm_count`` SMs.
+
+    The register body when bulk copies cannot take the call (a row of
+    ``R * itemsize`` bytes that is not a multiple of 16, or a base of a or b
+    off 16-byte alignment: ``aligned`` False), and for problems of at most
+    ``SMALL`` elements B·S·R, the calibration grid's largest (B ≤ 4,
+    S ≤ 256, R = 256).  On that grid a synchronised call, the calibration's
+    own measure, took 1-19 µs less with the register body than with the
+    ring at all 9 points in fp32 and at 7 of 9 in bf16 (medians of 9 sweeps,
+    ``launch/sweep_rglru.py --calibration``; ``PERF.md`` §6), while at
+    ``profile_step.py``'s 8 × 512 × 4096 the ring took 0.075 ms to the
+    register body's 0.093; sizes in between are not measured.  The ring's
+    shape, from ``launch/sweep_rglru.py`` on an H100:
+    - C, channels a block, the one of ``RING_CHANNELS`` that puts the fewest
+      channels on the busiest SM (ceil(blocks / SMs) · C), the larger C on a
+      tie (wider rows, fewer copies): C = 128 at B = 4, R = 4096; C = 32 at
+      B = 1, R = 4096 (128 blocks, where C = 128 would give 32).  C = 64
+      was slower than both at B = 1 and at B = 4 in development builds,
+      and is not built;
+    - T steps a stage: as many as fit ``STAGE_BYTES`` of a and b rows, at
+      most ``MAX_STEPS`` and at most S (T = 32 in fp32 and 64 in bf16 at
+      C = 128; 128 at C = 32);
+    - P stages, so that the blocks an SM holds take about
+      ``RING_BYTES_PER_SM`` of ring between them: at least 2 (1 when the
+      sequence is one stage), at most ``MAX_STAGES``, no more than the
+      sequence has, and within the shared memory of a block and of an SM.
+      At B = 4, R = 4096 a deeper ring was slower in both types.
+    Every block is then resident in one wave while ceil(blocks / SMs) stays
+    within what an SM holds (32 blocks, 2048 threads, 228 KB)."""
+    if not aligned or (R * itemsize) % 16 or B * S * R <= SMALL:
+        return REGISTER
+    C = min(RING_CHANNELS, key=lambda c: (-(-(B * -(-R // c)) // sm_count) * c, -c))
+    per_sm = min(-(-(B * -(-R // C)) // sm_count),
+                 BLOCKS_PER_SM, THREADS_PER_SM // (C + 32 * PRODUCERS))
+    T = max(1, min(MAX_STEPS, S, STAGE_BYTES // (2 * C * itemsize)))
+    stage = 2 * T * C * itemsize
+    room = min(SMEM_PER_BLOCK, SMEM_PER_SM // max(per_sm, 1) - SMEM_RESERVED) - BARRIER_BYTES
+    want = RING_BYTES_PER_SM // max(per_sm, 1) // stage
+    P = min(MAX_STAGES, max(-(-S // T), 1), max(2, want), max(1, room // stage))
+    return Plan("ring", C, T, P)
 
 
 def plain(a: torch.Tensor, b: torch.Tensor,
@@ -36,16 +128,17 @@ def _lib() -> ctypes.CDLL:
     lib = _build.library("rglru_scan")
     fn = lib.rglru_scan_fwd
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     return lib
 
 
-def rglru_scan(a: torch.Tensor, b: torch.Tensor,
-               s0: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def rglru_scan(a: torch.Tensor, b: torch.Tensor, s0: torch.Tensor,
+               use: Optional[Plan] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the kernel.  a/b: (B, S, R) float32 or bfloat16, one dtype,
     and s0: (B, R) float32, on one card; any B ≤ 65535, S and R → (seq
-    (B, S, R) in a's dtype, last (B, R) float32)."""
-    global launches
+    (B, S, R) in a's dtype, last (B, R) float32).  ``use`` overrides
+    :func:`plan` (for measurements; a plan the kernel cannot take raises)."""
+    global launches, last_plan
     if a.dim() != 3 or b.shape != a.shape or s0.shape != (a.shape[0], a.shape[2]):
         raise ValueError(f"rglru_scan: bad shapes a{tuple(a.shape)} "
                          f"b{tuple(b.shape)} s0{tuple(s0.shape)}")
@@ -58,12 +151,15 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor,
                              f"the card of a, got {t.device} {t.dtype}")
     B, S, R = a.shape
     a, b, s0 = a.contiguous(), b.contiguous(), s0.contiguous()
+    p = use or plan(B, S, R, a.element_size(), _build.sm_count(a.device.index),
+                    aligned=a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0)
     seq = torch.empty_like(a)
     last = torch.empty_like(s0)
     err = _lib().rglru_scan_fwd(
         a.data_ptr(), b.data_ptr(), s0.data_ptr(), seq.data_ptr(),
-        last.data_ptr(), B, S, R, DTYPES[a.dtype],
-        torch.cuda.current_stream(a.device).cuda_stream)
-    _build.check(err, "rglru_scan")
+        last.data_ptr(), B, S, R, DTYPES[a.dtype], VARIANTS[p.variant], p.channels,
+        p.steps, p.stages, torch.cuda.current_stream(a.device).cuda_stream)
+    _build.check(err, f"rglru_scan ({p})")
     launches += 1
+    last_plan = p
     return seq, last

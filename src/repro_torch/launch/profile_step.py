@@ -8,8 +8,8 @@ batch 8 with 512-token prompts and 15 decode steps (the module constants
 below), and prints, for the prefill and for the mean decode step: wall time
 (host clock around work that ends in ``torch.cuda.synchronize()``), device
 busy time (the union of the kernel intervals in the trace), the device's
-idle share, the number of kernels launched, and the kernels that take the
-most device time.
+idle share, the number of kernels launched, the kernels that take the most
+device time, and the device time of each of the port's own kernels.
 """
 from __future__ import annotations
 
@@ -45,7 +45,8 @@ def _busy(events) -> float:
 
 def _window(fn, n: int):
     """Profile ``fn`` run n times → (wall ms per run, device-busy ms per run,
-    kernels per run, top kernels by device ms per run)."""
+    kernels per run, top kernels by device ms per run, the port's kernels'
+    device ms per run)."""
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -61,7 +62,8 @@ def _window(fn, n: int):
     for e in kernels:
         per_name[e.name] += e.time_range.elapsed_us() / 1e3 / n
     top = sorted(per_name.items(), key=lambda kv: -kv[1])[:8]
-    return wall, _busy(kernels) / 1e3 / n, len(kernels) / n, top
+    port = {k: v for k, v in per_name.items() if "repro_torch" in k}
+    return wall, _busy(kernels) / 1e3 / n, len(kernels) / n, top, port
 
 
 def main() -> None:
@@ -92,12 +94,13 @@ def main() -> None:
                         ("decode_step", run_decode, DECODE_STEPS)):
         if name == "prefill":
             fn()                                 # a second warm prefill
-        wall, busy, count, top = _window(fn, n)
+        wall, busy, count, top, port = _window(fn, n)
         print(json.dumps({
             "phase": name, "arch": arch, "batch": B, "prompt_tokens": S,
             "wall_ms": wall, "device_busy_ms": busy,
             "device_idle_share": 1.0 - busy / wall, "kernels": count,
-            "top_kernels_ms": {k[:80]: v for k, v in top}}))
+            "top_kernels_ms": {k[:80]: v for k, v in top},
+            "port_kernels_ms": port}))
 
 
 if __name__ == "__main__":

@@ -6,7 +6,8 @@ The plain versions are themselves held to the JAX kernels and references by
 ``tests/test_torch_kernels.py``, ``tests/test_torch_rglru.py`` and
 ``tests/test_torch_rwkv6.py``.  Tolerances are those of
 ``tests/test_kernels.py``: 2e-5 for fp32, 2e-2 for bf16 (fp32 products stay
-IEEE: TF32 is switched off), 1e-5 for the RG-LRU scan, atol 2e-4 and rtol
+IEEE: TF32 is switched off), bitwise for the RG-LRU scan (ring or
+register variant, as its ``plan`` chooses), atol 2e-4 and rtol
 1e-3 for the WKV6 state (and for its output in fp32; one bf16 ulp in bf16),
 against the plain version in fp32 and, across the chunked kernel's segment
 and chunk boundaries, in float64.  The int8 matmul is held bitwise to its
@@ -19,6 +20,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import decode_attention as da  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import int8_matmul as i8  # noqa: E402
@@ -235,27 +237,85 @@ def test_attention_wrappers_refuse_unaligned_rows(cuda):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("B,S,R", [(4, 300, 4096), (3, 1000, 300), (2, 17, 129),
-                                   (1, 0, 64)])
-def test_rglru_kernel_matches_plain(cuda, dtype, B, S, R):
-    """Ragged S and R (no multiple of a chunk or a block), and S = 0; bf16
-    a/b give bf16 states (fp32 inside) and an fp32 last state."""
+@pytest.mark.parametrize("B,S,R,shift,variant", [
+    (4, 300, 4096, 0, {"float32": "ring", "bfloat16": "ring"}),   # S not a multiple of T
+    (3, 1000, 300, 0, {"float32": "ring", "bfloat16": "register"}),  # 600 bytes a bf16 row
+    (2, 17, 129, 0, {"float32": "register", "bfloat16": "register"}),
+    (1, 0, 64, 0, {"float32": "register", "bfloat16": "register"}),   # within SMALL
+    (3, 1, 4096, 0, {"float32": "register", "bfloat16": "register"}),  # S = 1
+    (1, 333, 4096, 0, {"float32": "ring", "bfloat16": "ring"}),   # B = 1, 32-channel blocks
+    (2, 1000, 256, 1, {"float32": "register", "bfloat16": "register"}),  # bases off 16 bytes
+])
+def test_rglru_kernel_matches_plain(cuda, dtype, B, S, R, shift, variant):
+    """Both variants bitwise equal to the plain version: ragged S and R (no
+    multiple of a stage or a block), S = 0 and 1, B = 1, and a and b viewed
+    one element past a 16-byte boundary (past SMALL, so only the alignment
+    sends it to the register body); bf16 a/b give bf16 states (fp32 inside)
+    and an fp32 last state.  Each call takes the variant the plan names and
+    launches once."""
     rng = np.random.default_rng(9)
-    a = torch.from_numpy(rng.uniform(0.5, 0.999, (B, S, R)).astype(np.float32))
-    b = torch.from_numpy(0.1 * rng.standard_normal((B, S, R), dtype=np.float32))
-    a, b = (x.to(TORCH_DT[dtype]).to(cuda) for x in (a, b))
+    n = B * S * R + shift
+    a = torch.from_numpy(rng.uniform(0.5, 0.999, n).astype(np.float32))
+    b = torch.from_numpy(0.1 * rng.standard_normal(n, dtype=np.float32))
+    a, b = (x.to(TORCH_DT[dtype]).to(cuda)[shift:].view(B, S, R) for x in (a, b))
     s0 = torch.from_numpy(rng.standard_normal((B, R), dtype=np.float32)).to(cuda)
+    aligned = a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0
+    assert aligned == (shift == 0 or B * S * R == 0)
     n0 = rg.launches
     seq, last = rg.rglru_scan(a, b, s0)
     torch.cuda.synchronize()
     assert rg.launches == n0 + 1
+    assert rg.last_plan.variant == variant[dtype]
+    sms = _build.sm_count(a.device.index)
+    assert rg.last_plan == rg.plan(B, S, R, a.element_size(), sms, aligned=aligned)
     assert seq.dtype == a.dtype and last.dtype == torch.float32
     if S:
         want_seq, want_last = rg.plain(a, b, s0)
-        torch.testing.assert_close(seq, want_seq, atol=1e-5, rtol=1e-5)
+        assert torch.equal(seq, want_seq)
     else:
         want_last = s0
-    torch.testing.assert_close(last, want_last, atol=1e-5, rtol=1e-5)
+    assert torch.equal(last, want_last)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rglru_ring_plans_match_plain(cuda, dtype):
+    """The ring at plans other than the planner's (each block size, one
+    stage, stages of a step count that divides nothing, the most stages;
+    S = 1 and S = 0, which the planner gives the register body at these
+    widths) stays bitwise, with the state carried across every stage
+    boundary."""
+    rng = np.random.default_rng(10)
+    ring = rg.Plan("ring", 32, 1, 1)
+    for (B, S, R), plans in (
+            ((2, 1000, 4096), (rg.Plan("ring", 32, 7, 3), rg.Plan("ring", 128, 13, 1),
+                               rg.Plan("ring", 128, 1, rg.MAX_STAGES),
+                               rg.Plan("ring", 32, 128, 4))),
+            ((3, 1, 4096), (ring, rg.Plan("ring", 128, 1, 2))), ((1, 0, 64), (ring,))):
+        a = torch.from_numpy(rng.uniform(0.5, 0.999, (B, S, R)).astype(np.float32))
+        b = torch.from_numpy(0.1 * rng.standard_normal((B, S, R), dtype=np.float32))
+        a, b = (x.to(TORCH_DT[dtype]).to(cuda) for x in (a, b))
+        s0 = torch.from_numpy(rng.standard_normal((B, R), dtype=np.float32)).to(cuda)
+        want = rg.plain(a, b, s0) if S else (torch.empty_like(a), s0)
+        for p in plans:
+            got = rg.rglru_scan(a, b, s0, use=p)
+            torch.cuda.synchronize()
+            assert rg.last_plan == p
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), p
+
+
+@pytest.mark.gpu
+def test_rglru_ring_refuses_what_bulk_copies_cannot_take(cuda):
+    """A ring plan handed a base off 16-byte alignment, or rows that are not
+    a multiple of 16 bytes, raises: nothing falls back to the register body."""
+    a = torch.zeros(2 * 8 * 256 + 1, device=cuda)[1:].view(2, 8, 256)
+    s0 = torch.zeros((2, 256), device=cuda)
+    ring = rg.Plan("ring", 32, 8, 2)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        rg.rglru_scan(a, a, s0, use=ring)
+    r = torch.zeros((2, 8, 129), device=cuda)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        rg.rglru_scan(r, r, torch.zeros((2, 129), device=cuda), use=ring)
 
 
 @pytest.mark.gpu
