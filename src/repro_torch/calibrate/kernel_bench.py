@@ -12,7 +12,9 @@ Each (kernel, dtype) is first run once at the smallest grid shape through
 ``repro_torch.kernels.ops`` and checked against its plain reference
 (``repro_torch.kernels.ref``), so every record is backed by a verified
 kernel; one that fails to build, launch or agree raises.  What is clocked
-follows the device:
+follows ``target``: ``"reference"`` clocks the references on either device,
+``"kernel"`` the kernels on the card only (on the CPU it raises), and
+``"auto"``, the default, follows the device:
 
   * **card** (the default) — the kernels (mode ``"kernel"``).
   * **CPU** (only with ``device="cpu"``) — the references (mode
@@ -28,7 +30,6 @@ design ``t = c0 + α·b + β·(b·T)``.
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import functools
 from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence
@@ -36,7 +37,7 @@ from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import ieee_fp32, resolve_device
 from repro_torch.calibrate.fit import fit_phase
 from repro_torch.calibrate.profile import CalibrationProfile
 
@@ -182,20 +183,6 @@ def _first_leaf(out):
     return out[0] if isinstance(out, tuple) else out
 
 
-@contextlib.contextmanager
-def ieee_fp32():
-    """fp32 products in full IEEE fp32 (no TF32) inside the block; the
-    caller's settings come back after it."""
-    matmul, cudnn = torch.get_float32_matmul_precision(), torch.backends.cudnn.allow_tf32
-    torch.set_float32_matmul_precision("highest")
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.set_float32_matmul_precision(matmul)
-        torch.backends.cudnn.allow_tf32 = cudnn
-
-
 def _verify(case: KernelCase, dtype: str, batch: int, seq: int, seed: int,
             device) -> float:
     """Run the real ops entry point vs the reference at one shape; return
@@ -215,21 +202,35 @@ def _verify(case: KernelCase, dtype: str, batch: int, seq: int, seed: int,
     return err
 
 
-def resolve_target(device=None) -> str:
-    """Which implementation the sweep clocks on ``device``: the kernel
-    ("kernel") on the card, the reference ("reference") on the CPU."""
-    return "kernel" if resolve_device(device).type == "cuda" else "reference"
+TARGETS = ("auto", "kernel", "reference")
+
+
+def resolve_target(device=None, target: str = "auto") -> str:
+    """Which implementation the sweep clocks on ``device``: with ``"auto"``
+    the kernel ("kernel") on the card and the reference ("reference") on
+    the CPU; ``"reference"`` anywhere; ``"kernel"`` on the card only — on
+    the CPU it raises, it never falls back."""
+    if target not in TARGETS:
+        raise ValueError(f"unknown kernel target {target!r} (expected one of {TARGETS})")
+    on_card = resolve_device(device).type == "cuda"
+    if target == "kernel" and not on_card:
+        raise RuntimeError("kernel target 'kernel' needs the card; the CPU has only "
+                           "the kernels' plain versions (target 'reference' or 'auto')")
+    if target == "auto":
+        return "kernel" if on_card else "reference"
+    return target
 
 
 def kernel_records(kernels: Optional[Sequence[str]] = None, *,
                    batches: Sequence[int] = DEFAULT_BATCHES,
                    seqs: Sequence[int] = DEFAULT_SEQS,
                    dtypes: Optional[Sequence[str]] = None,
-                   repeats: int = 3, seed: int = 0,
+                   repeats: int = 3, target: str = "auto", seed: int = 0,
                    meta: Optional[Dict[str, Any]] = None,
                    device=None) -> List[Dict[str, Any]]:
     """Wall-clock the kernel grid on ``device`` (the card unless
-    ``device="cpu"``; raises without one); one record per point.
+    ``device="cpu"``; raises without one); one record per point.  ``target``
+    picks what is clocked, as in :func:`resolve_target`.
 
     Records look like the model-sweep calibration records (``phase``,
     ``batch``, ``tokens``, ``result.latency_s``) so the same fitter
@@ -245,7 +246,7 @@ def kernel_records(kernels: Optional[Sequence[str]] = None, *,
     unknown = [n for n in names if n not in reg]
     if unknown:
         raise KeyError(f"unknown kernels {unknown} (known: {sorted(reg)})")
-    mode = resolve_target(dev)
+    mode = resolve_target(dev, target)
     meta = dict(meta or {})
     records: List[Dict[str, Any]] = []
     for name in names:

@@ -2,7 +2,9 @@
 
 The port's own copy of ``HardwareModel`` and the ``HARDWARE`` catalog, with
 the card the port runs on, ``h100``, added beside the reference's entries;
-nothing is registered into ``repro.hw``.
+nothing is registered into ``repro.hw``.  The energy, CO2 and pricing tables
+and functions are the reference's, unchanged: ``h100`` has no row in them,
+so it costs 0.0, the reference's rule for unlisted (self-hosted) hardware.
 """
 from __future__ import annotations
 
@@ -81,3 +83,80 @@ HARDWARE: Dict[str, HardwareModel] = {
     h.name: h for h in (TPU_V5E, GPU_H100, GPU_V100, GPU_2080TI, GPU_T4, GPU_P4,
                         CPU_XEON)
 }
+
+# Energy → CO2: global-average grid intensity (kg CO2e per kWh), the same
+# methodology as carbontracker used in the paper's Fig. 8.
+CO2_KG_PER_KWH = 0.475
+
+# Cloud providers offering the chip (paper Fig. 8b uses anonymized labels).
+# Every key of the reference's HARDWARE has at least one entry so
+# cloud_cost_usd never falls into the silent-zero path for its catalog
+# hardware; the port's h100 has none and costs 0.0 (2080ti has no public
+# cloud SKU; the rate is a render-farm-style hourly equivalent, cpu-xeon
+# mirrors its on-demand board price).
+CLOUD_RATES_USD_PER_HOUR: Dict[str, Dict[str, float]] = {
+    "tpu-v5e": {"C1/I1": 1.20, "C1/I2": 0.84},        # on-demand vs 1yr-commit
+    "v100":    {"C1/I1": 2.48, "C2/I1": 3.06},
+    "2080ti":  {"C3/I1": 0.56},
+    "t4":      {"C1/I3": 0.95, "C2/I3": 0.35},
+    "p4":      {"C2/I2": 0.60},
+    "cpu-xeon": {"C1/I4": 0.34, "C2/I4": 0.30},
+}
+
+# Preemptible/spot pricing per chip-hour: the discount a spot pool's
+# replica-seconds are billed at (in exchange for the reclamation risk the
+# cluster simulator's seeded preemption process models).  Ratios follow
+# typical public spot discounts (55–70% off on-demand).
+SPOT_RATES_USD_PER_HOUR: Dict[str, float] = {
+    "tpu-v5e": 0.48,
+    "v100": 0.74,
+    "2080ti": 0.20,
+    "t4": 0.11,
+    "p4": 0.22,
+    "cpu-xeon": 0.10,
+}
+
+PRICING_CLASSES = ("reserved", "spot")
+
+
+def energy_joules(hw: HardwareModel, seconds: float, util: float = 1.0) -> float:
+    """Energy for a span at a given average utilization (idle draw ~30% TDP)."""
+    avg_watts = hw.tdp_watts * (0.3 + 0.7 * min(max(util, 0.0), 1.0))
+    return avg_watts * seconds
+
+
+def co2_kg(joules: float) -> float:
+    return joules / 3.6e6 * CO2_KG_PER_KWH
+
+
+def cloud_rate_usd_per_hour(hw_name: str, *, instance: str | None = None,
+                            pricing: str = "reserved") -> float:
+    """$/chip-hour for one hardware key under a pricing class.
+
+    ``pricing="reserved"`` (default) reads the on-demand table — the
+    cheapest listed instance, or the named ``instance``.  ``"spot"``
+    reads the preemptible table (falling back to 30% of on-demand for
+    hardware without a listed spot rate).  Unknown hardware costs 0.0
+    (self-hosted); an unknown *instance* on known hardware is a
+    configuration mistake and raises.
+    """
+    if pricing not in PRICING_CLASSES:
+        raise ValueError(f"unknown pricing class {pricing!r} "
+                         f"(expected one of {PRICING_CLASSES})")
+    rates = CLOUD_RATES_USD_PER_HOUR.get(hw_name, {})
+    if not rates:
+        return 0.0
+    if instance is not None and instance not in rates:
+        raise KeyError(f"no instance {instance!r} offering {hw_name!r} "
+                       f"(known: {sorted(rates)})")
+    rate = rates[instance] if instance else min(rates.values())
+    if pricing == "spot":
+        return SPOT_RATES_USD_PER_HOUR.get(hw_name, rate * 0.3)
+    return rate
+
+
+def cloud_cost_usd(hw_name: str, seconds: float, instance: str | None = None,
+                   pricing: str = "reserved") -> float:
+    rate = cloud_rate_usd_per_hour(hw_name, instance=instance,
+                                   pricing=pricing)
+    return rate * seconds / 3600.0

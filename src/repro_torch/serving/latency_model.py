@@ -1,9 +1,11 @@
 """Latency oracles and the measuring clock, ported from
-``repro.serving.latency_model`` — only what the kernel-calibration backend
-needs: the serving speed modes, the shared ``LatencyOracle`` composition,
-the calibrated ``FittedLatencyModel`` and ``MeasuredLatency``.  The
-analytic roofline ``LatencyModel`` needs the port's parameter accounting
-and is not here yet.
+``repro.serving.latency_model``: the analytic roofline ``LatencyModel``
+(on the port's parameter accounting, ``repro_torch.models.registry``), the
+serving speed modes, the shared ``LatencyOracle`` composition, the
+calibrated ``FittedLatencyModel``, ``MeasuredLatency`` (which waits for the
+card), and the network models of the pipeline tier and of multi-region
+serving.  Everything but ``MeasuredLatency`` is the reference's arithmetic,
+unchanged.
 """
 from __future__ import annotations
 
@@ -15,7 +17,13 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 
 from repro_torch import hw as hw_lib
+from repro_torch.configs.catalog import PENDING
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.registry import (build_model, count_params,
+                                         model_flops_per_token, param_shapes)
 
+LAUNCH_OVERHEAD_S = 50e-6      # dispatch + DMA warmup per device step
+COLD_START_DISK_BW = 2e9       # bytes/s from checkpoint storage
 COLD_START_CONST_S = 2.0       # runtime + compile cache init
 
 
@@ -146,6 +154,24 @@ def resolve_speed_mode(mode, overrides: Optional[dict] = None) -> SpeedMode:
     raise TypeError(f"cannot resolve speed mode from {type(mode).__name__}")
 
 
+def apply_speed_mode(oracle: "LatencyOracle", mode) -> "LatencyOracle":
+    """Return an oracle serving under ``mode`` (identity modes pass the
+    oracle through untouched).
+
+    Oracles that know their roofline decomposition
+    (:class:`LatencyModel`, :class:`FittedLatencyModel`) implement
+    ``with_speed_mode`` and get exact per-term scaling; anything else is
+    wrapped in a conservative :class:`SpeedModeOracle`.
+    """
+    mode = resolve_speed_mode(mode)
+    if mode.is_identity:
+        return oracle
+    with_mode = getattr(oracle, "with_speed_mode", None)
+    if with_mode is not None:
+        return with_mode(mode)
+    return SpeedModeOracle(oracle, mode)
+
+
 class LatencyOracle:
     """Shared per-request composition over a prefill/decode split.
 
@@ -198,6 +224,128 @@ class LatencyOracle:
             if len(cache) < self._CACHE_CAP:
                 cache[key] = t
         return t
+
+
+@dataclasses.dataclass
+class LatencyModel(LatencyOracle):
+    """Analytic roofline oracle for ``cfg`` served on ``chips`` × ``hw``.
+
+    Attributes:
+        cfg: architecture being served.
+        hw: hardware model (peak FLOPs, HBM bandwidth, $/hr).
+        chips: chips per replica (weights + KV sharded across them).
+        serve_bytes_per_param: resident bytes per weight (2.0 = bf16).
+        int8: legacy shim — sets ``serve_bytes_per_param`` to 1.0
+            (weight-only quantization; superseded by ``speed_mode``).
+        speed_mode: optional :class:`SpeedMode` scaling the roofline
+            terms (weights/KV/compute) and the effective decode step.
+    """
+    cfg: ModelConfig
+    hw: hw_lib.HardwareModel = hw_lib.TPU_V5E
+    chips: int = 1
+    serve_bytes_per_param: float = 2.0     # bf16 weights
+    int8: bool = False
+    speed_mode: Optional[SpeedMode] = None
+
+    def __post_init__(self):
+        if self.cfg.name in PENDING:
+            raise NotImplementedError(f"{self.cfg.name} is not ported yet; "
+                                      f"it comes with {PENDING[self.cfg.name]}")
+        self.flops_per_token = model_flops_per_token(self.cfg) / 3.0  # fwd
+        # count every param (incl. all experts) for weight traffic; the
+        # shapes come from a model on the meta device, which allocates
+        # nothing
+        self.n_params = count_params(param_shapes(build_model(self.cfg, "meta")))
+        if self.int8:
+            self.serve_bytes_per_param = 1.0
+        mode = self.speed_mode
+        self._compute_scale = mode.compute_scale if mode else 1.0
+        self._kv_scale = mode.kv_bytes_scale if mode else 1.0
+        self._weight_scale = mode.weight_bytes_scale if mode else 1.0
+        self._decode_factor = mode.decode_cost_factor() if mode else 1.0
+        # per-model constants the simulator's hot path would otherwise
+        # re-derive on every engine iteration (layer_kinds() builds a
+        # fresh tuple per call); values and accumulation order are
+        # unchanged, so latencies stay bit-identical
+        kinds = self.cfg.layer_kinds()
+        self._attn_kinds = tuple(k for k in kinds
+                                 if k in ("attn_global", "attn_local"))
+        self._n_attn = sum(k.startswith("attn") for k in kinds)
+        self._weight_bytes = (self.n_params * self.serve_bytes_per_param
+                              * self._weight_scale)
+
+    def with_speed_mode(self, mode: SpeedMode) -> "LatencyModel":
+        """This model re-derived under ``mode`` (fresh latency caches)."""
+        return dataclasses.replace(self, speed_mode=mode)
+
+    # ---- analytic per-phase latencies -----------------------------------
+    def _kv_bytes_per_token(self) -> float:
+        # decode_latency calls this once per engine iteration — memoize
+        # the (deterministic) model-config derivation instead of paying a
+        # module import + recompute on the simulator's hot path
+        v = getattr(self, "_kv_bpt", None)
+        if v is None:
+            from repro_torch.analysis.memory_model import kv_bytes_per_token
+            v = self._kv_bpt = kv_bytes_per_token(self.cfg) * self._kv_scale
+        return v
+
+    # ---- memory-subsystem hooks (repro_torch.serving.memory) -------------
+    def kv_bytes_per_token(self) -> float:
+        """Public alias for the per-token KV footprint (memory accounting)."""
+        return self._kv_bytes_per_token()
+
+    def weight_bytes(self) -> float:
+        """Resident serving weights on one replica (all chips pooled)."""
+        return self._weight_bytes
+
+    def prefill_latency(self, batch: int, prompt: int) -> float:
+        cfg = self.cfg
+        flops = batch * prompt * self.flops_per_token
+        # quadratic attention term (windowed layers capped at the window)
+        for kind in self._attn_kinds:
+            if kind == "attn_global":
+                span = prompt
+            else:                       # attn_local
+                span = min(cfg.local_window or prompt, prompt)
+            flops += 4 * batch * prompt * span * cfg.num_heads * cfg.head_dim / 2
+        act_bytes = 8 * batch * prompt * cfg.d_model * 2.0 * cfg.num_layers
+        compute_s = flops * self._compute_scale \
+            / (self.chips * self.hw.peak_flops)
+        memory_s = (self._weight_bytes / self.chips + act_bytes / self.chips) \
+            / self.hw.hbm_bw
+        return max(compute_s, memory_s) + LAUNCH_OVERHEAD_S
+
+    def decode_latency(self, batch: int, context: int) -> float:
+        cfg = self.cfg
+        flops = batch * self.flops_per_token
+        flops += 4 * batch * min(context, 1 << 30) * cfg.num_heads \
+            * cfg.head_dim * self._n_attn
+        kv_bytes = batch * context * self._kv_bytes_per_token()
+        compute_s = flops * self._compute_scale \
+            / (self.chips * self.hw.peak_flops)
+        memory_s = (self._weight_bytes + kv_bytes) \
+            / (self.chips * self.hw.hbm_bw)
+        return (max(compute_s, memory_s) + LAUNCH_OVERHEAD_S) \
+            * self._decode_factor
+
+    def cold_start(self) -> float:
+        return COLD_START_CONST_S + self._weight_bytes \
+            / (self.chips * COLD_START_DISK_BW)
+
+    def to_profile(self, *, batches=(1, 2, 4, 8, 16),
+                   seqs=(32, 64, 128, 256), contexts=None,
+                   holdout_fraction: float = 0.0):
+        """Fit this oracle's analytic grid into a calibration profile
+        (``repro_torch.calibrate`` round-trip — see ``CalibrationProfile``)."""
+        from repro_torch.calibrate.fit import fit_records
+        from repro_torch.calibrate.microbench import oracle_records
+        records = oracle_records(self, batches=batches, seqs=seqs,
+                                 contexts=contexts)
+        return fit_records(
+            records, model=self.cfg.name, hardware=self.hw.name,
+            chips=self.chips, source="oracle",
+            holdout_fraction=holdout_fraction,
+            cold_start_s=self.cold_start())
 
 
 @dataclasses.dataclass
@@ -273,6 +421,53 @@ class FittedLatencyModel(LatencyOracle):
                    name=profile.key)
 
 
+class SpeedModeOracle(LatencyOracle):
+    """Generic :class:`SpeedMode` wrapper for oracles without a native
+    ``with_speed_mode``.
+
+    Without a roofline decomposition the byte scales cannot be applied
+    per-term, so the wrapper is conservative: prefill scales by
+    ``compute_scale`` only, decode by ``max(compute_scale,
+    kv_bytes_scale)`` times the speculative ``decode_cost_factor()``.
+    KV/weight memory hooks are forwarded scaled when the base oracle
+    exposes them.
+    """
+
+    def __init__(self, base: LatencyOracle, mode: SpeedMode):
+        self.base = base
+        self.mode = mode
+        # duck-typed bases (tests, ad-hoc oracles) may not carry hardware
+        # identity; fall back to the oracle defaults so cost accounting
+        # still runs
+        self.hw = getattr(base, "hw", None) or hw_lib.HARDWARE["tpu-v5e"]
+        self.chips = getattr(base, "chips", 1)
+        self._decode_scale = (max(mode.compute_scale, mode.kv_bytes_scale)
+                              * mode.decode_cost_factor())
+
+    def prefill_latency(self, batch: int, prompt: int) -> float:
+        return self.base.prefill_latency(batch, prompt) \
+            * self.mode.compute_scale
+
+    def decode_latency(self, batch: int, context: int) -> float:
+        return self.base.decode_latency(batch, context) * self._decode_scale
+
+    # memory hooks exist only when the base oracle has them, so the
+    # duck-typed probes in repro_torch.serving.memory behave as if they were
+    # looking at the base directly
+    def __getattr__(self, name):
+        if name in ("base", "mode"):       # guard pre-__init__ recursion
+            raise AttributeError(name)
+        if name == "kv_bytes_per_token":
+            base_fn = self.base.kv_bytes_per_token
+            return lambda: base_fn() * self.mode.kv_bytes_scale
+        if name == "weight_bytes":
+            base_fn = self.base.weight_bytes
+            return lambda: base_fn() * self.mode.weight_bytes_scale
+        if name == "cold_start":
+            return self.base.cold_start
+        raise AttributeError(name)
+
+
 def _wait(out) -> None:
     """Wait for the card where ``out`` (a tensor, or a tuple or list whose
     first item is one) lives on it; a CPU result is already computed."""
@@ -310,3 +505,98 @@ class MeasuredLatency:
         for _ in range(self.iters):
             _wait(self.fn(*args))
         return (time.perf_counter() - t0) / self.iters
+
+
+# --- network models for the pipeline tier (paper Fig. 14) ------------------
+@dataclasses.dataclass(frozen=True)
+class NetworkModel:
+    name: str
+    bandwidth_bps: float
+    rtt_s: float
+    jitter_s: float = 0.0
+
+    def transmit(self, payload_bytes: int) -> float:
+        return self.rtt_s + payload_bytes * 8 / self.bandwidth_bps
+
+
+NETWORKS: Dict[str, NetworkModel] = {
+    "lan": NetworkModel("lan", 10e9, 0.0002),
+    "wifi": NetworkModel("wifi", 100e6, 0.004),
+    "4g": NetworkModel("4g", 20e6, 0.045),
+    # datacenter interconnects for the disaggregated prefill→decode
+    # KV-cache handoff (bytes = kv_bytes_per_token × prompt_tokens)
+    "infiniband": NetworkModel("infiniband", 400e9, 5e-6),
+    "nvlink": NetworkModel("nvlink", 7.2e12, 2e-6),
+}
+
+
+# --- multi-region serving (heterogeneous pools with a region tag) -----------
+#: WAN links between serving regions, keyed by unordered region pair.
+#: ``simulate_cluster`` charges the link's transmit time to a request
+#: whenever the router sends it to a pool outside the cluster's
+#: front-door region (the first pool's region).  RTTs follow typical
+#: public inter-region latency matrices; per-flow bandwidth is the
+#: practical WAN share, not the trunk capacity.
+INTER_REGION_NETWORKS: Dict[tuple, NetworkModel] = {
+    ("us-central", "us-east"): NetworkModel("us-central<->us-east",
+                                            25e9, 0.032),
+    ("us-central", "eu-west"): NetworkModel("us-central<->eu-west",
+                                            10e9, 0.105),
+    ("us-east", "eu-west"): NetworkModel("us-east<->eu-west", 12e9, 0.078),
+    ("us-central", "asia-east"): NetworkModel("us-central<->asia-east",
+                                              8e9, 0.140),
+    ("us-east", "asia-east"): NetworkModel("us-east<->asia-east",
+                                           8e9, 0.170),
+    ("eu-west", "asia-east"): NetworkModel("eu-west<->asia-east",
+                                           6e9, 0.210),
+}
+
+#: Fallback link for region pairs not in the table (same order of
+#: magnitude as a cross-continent hop).
+DEFAULT_INTER_REGION = NetworkModel("inter-region", 10e9, 0.080)
+
+
+def inter_region_network(a: str, b: str) -> Optional[NetworkModel]:
+    """The WAN link between regions ``a`` and ``b``, or None when the
+    hop stays inside one region (same name, or either side unset —
+    region-less pools are co-located with the front door)."""
+    if not a or not b or a == b:
+        return None
+    return (INTER_REGION_NETWORKS.get((a, b))
+            or INTER_REGION_NETWORKS.get((b, a))
+            or DEFAULT_INTER_REGION)
+
+
+def oracle_for_hardware(base: LatencyOracle, hardware: str = "",
+                        chips: int = 0) -> LatencyOracle:
+    """Re-target a latency oracle at another hardware catalog entry.
+
+    The per-pool plumbing of heterogeneous clusters: a pool that names
+    its own ``hardware``/``chips`` gets the *same analytic model* served
+    on that chip (fresh roofline terms and latency caches via
+    ``dataclasses.replace``).  When the pool matches the base oracle the
+    base is returned as-is, sharing its memoized latency caches.
+
+    Fitted oracles embed one machine's measured coefficients, so they
+    cannot be re-targeted analytically — pools backed by a
+    :class:`FittedLatencyModel` must supply their own per-hardware
+    profile (``PoolSpec.profile``) instead.
+    """
+    base_hw = getattr(base, "hw", None)
+    base_chips = getattr(base, "chips", 1)
+    hw_name = hardware or (base_hw.name if base_hw is not None else "")
+    n_chips = chips or base_chips
+    if base_hw is not None and hw_name == base_hw.name \
+            and n_chips == base_chips:
+        return base
+    if hw_name not in hw_lib.HARDWARE:
+        raise ValueError(f"unknown hardware {hw_name!r} "
+                         f"(known: {sorted(hw_lib.HARDWARE)})")
+    if not isinstance(base, LatencyModel):
+        raise ValueError(
+            f"cannot re-target a {type(base).__name__} oracle at "
+            f"{hw_name!r}: fitted/measured oracles embed one machine's "
+            "coefficients — give the pool its own calibrated profile "
+            "for that hardware")
+    return dataclasses.replace(base, hw=hw_lib.HARDWARE[hw_name],
+                               chips=n_chips)

@@ -556,3 +556,83 @@ def test_new_kernel_wrappers_reject_what_they_do_not_take(cuda):
         wk.wkv6(*(t.half() for t in args[:3]), *args[3:])
     with pytest.raises(ValueError, match="head size"):
         wk.wkv6(*(t[..., :16] for t in args[:4]), args[4][:, :16], args[5][..., :16, :16])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", ("fc", "cnn", "lstm", "transformer"))
+def test_generated_family_on_the_card_matches_its_cpu_run(cuda, family):
+    from repro_torch.core import generator as gen
+    spec = gen.GeneratedSpec(family, layers=3, width=128, batch=4, seq=16)
+    model, (x,) = gen.build(spec, cuda)
+    cpu_model, _ = gen.build(spec, "cpu")
+    assert all(torch.equal(p.cpu(), q) for p, q in zip(model.parameters(),
+                                                        cpu_model.parameters()))
+    xs = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        tuple(x.shape), dtype=np.float32))
+    with torch.inference_mode():
+        got = model(xs.to(cuda)).cpu().double()
+        want = cpu_model.double()(xs.double())
+    assert got.shape == want.shape == (4, spec.num_classes)
+    assert bool(((got - want).abs() <= 1e-5 + 1e-4 * want.abs()).all())
+
+
+@pytest.mark.gpu
+def test_measured_calibration_job_with_the_kernel_hook_on_the_card(cuda):
+    from repro_torch.calibrate import run_calibration_job
+    from repro_torch.core import CalibrationSpec
+    spec = CalibrationSpec(job_id="hook", model={"kind": "generated", "family": "fc",
+                                                 "layers": 2, "width": 64},
+                           batches=(1, 2, 4), seqs=(64,), repeats=2,
+                           kernels=("rglru_scan",))
+    before = rg.launches
+    res = run_calibration_job(spec)
+    kernel_recs = [r for r in res.extra_records if r.get("backend") == "hopper-kernel"]
+    assert res.metrics["mode"] == res.metrics["profile"]["source"] == "measured-cuda"
+    assert all(r["result"]["mode"] == "measured-cuda" for r in res.extra_records
+               if "backend" not in r)
+    assert len(kernel_recs) == 3 * 2 and all(
+        r["result"]["mode"] == "kernel-cuda" for r in kernel_recs)
+    # per dtype: one verification, then per point a warm-up and 2 timed calls
+    assert rg.launches - before == 2 * (1 + 3 * (1 + 2))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", ("fc", "cnn", "lstm", "transformer"))
+def test_generated_job_on_the_card_stays_ieee_fp32_where_tf32_is_allowed(family, monkeypatch):
+    """The session's measured forward of a generated model with PyTorch's
+    flags left allowing TF32 (so not the ``cuda`` fixture, which turns it
+    off): every forward runs with TF32 off, and its output is the same
+    model's in float64 on the CPU within 1e-5 + 1e-4·|want|."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.core import generator as gen
+    from repro_torch.core.session import run_stages
+    from repro_torch.core.spec import spec_from_dict
+    seen, build = [], gen.build
+
+    def spying_build(spec, device=None):
+        model, inputs = build(spec, device)
+        model.register_forward_hook(lambda m, args, out: seen.append(
+            (spec, args[0].cpu(), out.cpu(), torch.get_float32_matmul_precision(),
+             torch.backends.cudnn.allow_tf32)))
+        return model, inputs
+
+    monkeypatch.setattr(gen, "build", spying_build)
+    saved = torch.get_float32_matmul_precision(), torch.backends.cudnn.allow_tf32
+    torch.set_float32_matmul_precision("high")
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        res = run_stages(spec_from_dict({
+            "job_id": family, "model": {"kind": "generated", "family": family,
+                                        "layers": 2, "width": 128, "batch_hint": 4}}))
+    finally:
+        torch.set_float32_matmul_precision(saved[0])
+        torch.backends.cudnn.allow_tf32 = saved[1]
+    assert res.metrics["mode"] == "measured-cuda" and seen
+    assert {r[3:] for r in seen} == {("highest", False)}
+    spec, x, got = seen[0][:3]
+    cpu_model, _ = build(spec, "cpu")
+    with torch.inference_mode():
+        want = cpu_model.double()(x.double())
+    assert got.shape == want.shape == (4, spec.num_classes)
+    assert bool(((got.double() - want).abs() <= 1e-5 + 1e-4 * want.abs()).all())
