@@ -87,8 +87,23 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 must equal those of a second session with concurrent
                 followers; the PerfDB file must hold every record and read
                 back equal;
-then a ``kernels`` JSON line (``hook_launches``: phase 11's), and last the
-``ok`` JSON line.
+ 12. plan     — measure → model → plan through the job-config launcher
+                (``repro_torch.launch.run_jobs``), from a temporary working
+                directory holding a copy of configs/: an oracle calibration
+                of gemma2-2b on h100 on calibrate_plan.json's grid (batches
+                1–16 × seqs 32–256) with all five kernels on its hook (180
+                verified records, launch counts exact; after the phase every
+                kernel held at every point, as in phase 10); then, in a
+                second run, a plan on the h100 profile it fitted
+                (calibrate_plan.json's workload and SLO, replicas 1/2/4 ×
+                tfs/continuous × fp16/int8/speculative, objective p99_s: 18
+                candidates, the best re-simulated exactly); then all seven
+                configs/jobs/*.json inline and with concurrent followers
+                (records equal), each session's HTML report, and a span
+                timeline on the fitted profile (engine spans; the summary
+                equal to the run without observability);
+then a ``kernels`` JSON line (``hook_launches``: phase 11's,
+``plan_hook_launches``: phase 12's), and last the ``ok`` JSON line.
 Needs one card; imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
@@ -1341,6 +1356,189 @@ def phase_session():
     return launches
 
 
+# Phase 12: calibrate_plan.json's calibration grid and plan workload on the
+# card's own profile.  The calibration and the plan are two runs of the
+# launcher, in that order: the two-tier scheduler runs the shortest job
+# first, so a plan submitted beside the calibration that writes its profile
+# could start before it.  h100 has no price (cost_usd 0.0), so the plan names
+# an objective a run can tell apart: p99_s.
+PLAN_GRID = dict(batches=(1, 2, 4, 8, 16), seqs=(32, 64, 128, 256))
+PLAN_MODES = ("fp16", "int8", "speculative")
+
+
+def launch_file(path: str, executor: str = "inline", db: str = ""):
+    """``repro_torch.launch.run_jobs`` on a job file, from the working
+    directory, on the card; returns the session."""
+    from repro_torch.launch.run_jobs import parse_args, run_config
+    return run_config(parse_args(["--config", path, "--executor", executor]
+                                 + (["--db", db] if db else [])))
+
+
+def launch_jobs(jobs, name: str):
+    """``launch_file`` on ``jobs`` written to ``name`` in the working
+    directory."""
+    Path(name).write_text(json.dumps({"jobs": jobs}))
+    return launch_file(name)
+
+
+def records_by_job(db: str) -> dict:
+    """A PerfDB file's records per job, without their wall-clocked fields."""
+    from repro_torch.core import PerfDB
+    out = {}
+    for rec in PerfDB(db).all():
+        rec = {k: v for k, v in rec.items() if k not in WALL_CLOCKED}
+        rec["result"] = {k: v for k, v in rec["result"].items()
+                         if k != "sim_events_per_sec"}
+        out.setdefault(rec["job_id"], []).append(rec)
+    return out
+
+
+def phase_plan():
+    """measure → model → plan on the card: an oracle calibration of gemma2-2b
+    on h100 with all five kernels on its hook, then a plan on the profile it
+    fitted, then every committed job config inline and with concurrent
+    followers, each config's report, and a span timeline on the fitted
+    profile.  All through the launcher, from a temporary working directory
+    that holds a copy of configs/ (the configs' relative paths resolve
+    there).  Counts at 0 just before the calibration, read after the
+    configs: only the hook launches the port's kernels.  Nothing is caught."""
+    import dataclasses as dc
+    import os
+    import shutil
+    import tempfile
+
+    from repro_torch.calibrate.kernel_bench import kernel_registry
+    from repro_torch.calibrate.planner import PlanCandidate, simulate_candidate
+    from repro_torch.calibrate.profile import load_profile
+    from repro_torch.core import resolve_policy
+    from repro_torch.core.spec import SoftwareSpec
+    from repro_torch.obs import ObsSpec, write_trace
+    from repro_torch.serving.cluster import ClusterSpec, simulate_cluster
+    from repro_torch.serving.latency_model import NETWORKS
+    t_phase = time.perf_counter()
+    reg = kernel_registry()
+    plan_cfg = json.loads((ROOT / "configs" / "jobs" / "calibrate_plan.json").read_text())
+    (plan_job,) = [j for j in plan_cfg["jobs"] if j.get("kind") == "plan"]
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            shutil.copytree(ROOT / "configs", "configs")
+            reset_launches()
+            t0 = time.perf_counter()
+            cal = launch_jobs([{
+                "kind": "calibration", "job_id": "cal-h100", "model": {"name": "gemma2-2b"},
+                "hardware": "h100", "chips": 1, **PLAN_GRID, "holdout_fraction": 0.25,
+                "kernels": sorted(reg), "profile_dir": tmp}], "calibrate.json")
+            t_cal = time.perf_counter() - t0
+            plan = launch_jobs([{
+                "kind": "plan", "job_id": "plan-h100", "profile": "gemma2-2b@h100",
+                "profile_dir": tmp, "workload": plan_job["workload"],
+                "slo_latency_s": 0.25, "slo_target": 0.99, "replicas": [1, 2, 4],
+                "policies": ["tfs", "continuous"], "routers": ["least-loaded"],
+                "speed_modes": list(PLAN_MODES), "objective": "p99_s"}], "plan.json")
+            t_plan = time.perf_counter() - t0 - t_cal
+            configs = {}
+            for path in sorted(Path("configs/jobs").glob("*.json")):
+                runs = {ex: launch_file(str(path), ex, db=f"{path.stem}-{ex}.jsonl")
+                        for ex in ("inline", "concurrent")}
+                configs[path.name] = (runs["inline"], {
+                    ex: records_by_job(f"{path.stem}-{ex}.jsonl") for ex in runs})
+            launches = read_launches()
+            print(f"[plan] calibration s={t_cal:.1f} plan s={t_plan:.1f} configs "
+                  f"s={time.perf_counter() - t0 - t_cal - t_plan:.1f} "
+                  f"launches={json.dumps(launches)}")
+            # the calibration and its hook
+            (cal_res,) = cal.results()
+            spec, m = cal_res.spec, cal_res.metrics
+            kernel_recs = [r for r in cal_res.extra_records
+                           if r.get("backend") == "hopper-kernel"]
+            points = len(spec.batches) * len(spec.seqs)
+            pairs = sum(len(case.dtypes) for case in reg.values())
+            print(f"[plan] cal-h100 mode={m['mode']} n_records={m['n_records']} "
+                  f"n_kernel_records={m['n_kernel_records']} "
+                  f"prefill_coef={m['profile']['prefill']['coef']} "
+                  f"decode_coef={m['profile']['decode']['coef']} "
+                  f"prefill_r2={m['prefill_r2']} decode_r2={m['decode_r2']} "
+                  f"holdout={json.dumps(m.get('holdout'))}")
+            require(m["mode"] == "oracle" and points * pairs == 180
+                    and len(kernel_recs) == m["n_kernel_records"] == 180
+                    and all(r["result"]["mode"] == "kernel-cuda"
+                            and r["result"]["max_err_vs_ref"] >= 0.0 for r in kernel_recs),
+                    f"{len(kernel_recs)} verified kernel records, want 180")
+            # per (kernel, dtype): one verification, then per point a warm-up
+            # and ``repeats`` timed calls; the plan and the configs launch none
+            want = {name: len(case.dtypes) * (1 + points * (1 + spec.repeats))
+                    for name, case in reg.items()}
+            require(launches == want, f"phase 12 launches {launches} != {want}")
+            profile = load_profile("gemma2-2b@h100", tmp)
+            require(profile.hardware == "h100" and sorted(profile.kernels) == sorted(
+                f"{n}/{dt}" for n, case in reg.items() for dt in case.dtypes)
+                and sorted(profile.speed_modes) == sorted(PLAN_MODES),
+                "the h100 profile reads back with its nine kernel fits and speed modes")
+            # the plan on that profile
+            (plan_res,) = plan.results()
+            pm = plan_res.metrics
+            cands = pm["plan"]["candidates"]
+            for c in cands:
+                print(f"[plan] candidate replicas={c['replicas']} policy={c['policy']} "
+                      f"speed_mode={c['speed_mode']} p99_s={c['metrics']['p99_s']} "
+                      f"slo_attainment={c['metrics']['slo_attainment']} "
+                      f"meets_slo={c['meets_slo']}")
+            feasible = [c["objective"] for c in cands if c["meets_slo"]]
+            shown = pm["best"] and {k: pm["best"][k] for k in (
+                "replicas", "policy", "speed_mode", "objective")}
+            print(f"[plan] plan-h100 {len(cands)} candidates, {pm['feasible']} meet the "
+                  f"SLO (p99 <= 0.25 s at 0.99); best {json.dumps(shown)}")
+            require(len(cands) == pm["candidates"] == 18 and feasible == sorted(feasible)
+                    and {c["speed_mode"] for c in cands} == set(PLAN_MODES),
+                    "18 candidates, the feasible ones by p99")
+            workload = plan_res.spec.workload
+            if pm["best"] is not None:
+                best = PlanCandidate(**pm["best"])
+                res = simulate_candidate(profile, workload, best)
+                require(res.summary() == {k: best.metrics[k] for k in res.summary()},
+                        "the best candidate re-simulated gives its metrics exactly")
+            # every committed config: inline == concurrent, and its report
+            for name, (session, recs) in configs.items():
+                html_path = session.report(str(Path(tmp) / f"{name}.html"))
+                html = Path(html_path).read_text()
+                ids = sorted(recs["inline"])
+                require(recs["inline"] == recs["concurrent"] and ids
+                        and len(ids) == len(session.results()),
+                        f"{name}: inline and concurrent records equal")
+                require(len(html) > 0 and all(i in html for i in ids),
+                        f"{name}: the report names every job")
+                print(f"[plan] {name} {len(ids)} jobs, inline == concurrent, report "
+                      f"{len(html)} bytes")
+            require(len(configs) == 7, f"{len(configs)} committed configs")
+            (mp,) = configs["calibrate_plan.json"][1]["inline"]["plan-gemma2"]
+            shown = mp["result"]["best"] and {k: mp["result"]["best"][k] for k in (
+                "replicas", "policy", "objective")}
+            print(f"[plan] calibrate_plan.json plan-gemma2 best {json.dumps(shown)}")
+            # a span timeline on the fitted profile, observability on and off
+            policy = resolve_policy(SoftwareSpec(policy="continuous", max_batch=16))
+            cluster = ClusterSpec(replicas=2, router="least-loaded")
+            oracle = profile.to_latency_model()
+            off = simulate_cluster(workload, policy, oracle, cluster=cluster,
+                                   network=NETWORKS["lan"])
+            on = simulate_cluster(workload, policy, oracle, network=NETWORKS["lan"],
+                                  cluster=dc.replace(cluster, obs=ObsSpec()))
+            trace = json.loads(Path(write_trace(on, str(Path(tmp) / "trace.json"))).read_text())
+            engine = [e for e in trace["traceEvents"] if e["ph"] == "X" and e["tid"] == 0]
+            require(on.summary() == off.summary() and engine
+                    and trace["metadata"]["requests_recorded"] == len(on.traces) > 0,
+                    "the timeline holds engine spans and moves no simulated number")
+            print(f"[plan] timeline on gemma2-2b@h100: {len(trace['traceEvents'])} events, "
+                  f"{len(engine)} engine spans, {len(on.traces)} requests")
+        finally:
+            os.chdir(cwd)
+        # every kernel at every point the hook timed (not counted)
+        held_on_grid("plan", spec.batches, spec.seqs)
+    print(f"[plan] phase 12 s={time.perf_counter() - t_phase:.1f}")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1390,6 +1588,8 @@ def main() -> int:
     calibration = phase_calibration()
     torch.cuda.empty_cache()
     hook = phase_session()
+    torch.cuda.empty_cache()
+    plan_hook = phase_plan()
     src = "src/repro_torch/kernels/csrc/"
     replaces = {"flash_attention": "src/repro/kernels/flash_attention.py:94",
                 "decode_attention": "src/repro/kernels/decode_attention.py:73",
@@ -1403,7 +1603,7 @@ def main() -> int:
              launches=(calibration if arch == "calibration" else launches[arch])[kernel],
              launches_on=("calibration sweep, all its dtypes together"
                           if arch == "calibration" else "generate"),
-             hook_launches=hook[kernel], **rec)
+             hook_launches=hook[kernel], plan_hook_launches=plan_hook[kernel], **rec)
         for (kernel, arch, variant), rec in records.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -29,8 +29,7 @@ Ported from ``repro.core.session``.  Generated models are the port's
 everything else is the reference's orchestration.  ``ConcurrentFollowerExecutor``
 runs its followers' jobs in threads: measured jobs on concurrent followers
 share one card and disturb each other's timings, so run measured jobs with
-the ``InlineExecutor`` (the default).  Plan jobs, tenant reports and
-``report()`` come with the next slice of the port.
+the ``InlineExecutor`` (the default).
 """
 from __future__ import annotations
 
@@ -76,24 +75,20 @@ def resolve_policy(sw: SoftwareSpec) -> BatchPolicy:
     return make_policy("tris", preferred=tuple(sw.preferred))
 
 
-def _next_slice(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} comes with the next slice of the port (ROADMAP: Queue 1)")
-
-
 def run_stages(spec: AnyJobSpec, device=None) -> JobResult:
     """Stages 1–3 for one job; pure w.r.t. session state (thread-safe).
 
     ``device`` is where measured work runs — generated models and
     calibration sweeps: the card unless ``device="cpu"``; jobs on the
-    simulator touch no device.  Calibration submissions dispatch to their
-    own stage runner in :mod:`repro_torch.calibrate` (a lazy import keeps
-    the core importable without pulling the calibration stack in)."""
+    simulator touch no device.  Calibration and plan submissions dispatch
+    to their own stage runners in :mod:`repro_torch.calibrate` (lazy imports
+    keep the core importable without pulling the calibration stack in)."""
     if isinstance(spec, CalibrationSpec):
         from repro_torch.calibrate.microbench import run_calibration_job
         return run_calibration_job(spec, device=device)
     if isinstance(spec, PlanSpec):
-        raise _next_slice("the capacity planner (plan jobs)")
+        from repro_torch.calibrate.planner import run_plan_job
+        return run_plan_job(spec)
 
     t0 = time.time()
     hwm = hw_lib.HARDWARE[spec.hardware]
@@ -166,7 +161,8 @@ def run_stages(spec: AnyJobSpec, device=None) -> JobResult:
     if spec.workload.tenants:
         # multi-tenant run: per-tenant goodput/attainment against each
         # tenant's own SLOs + fairness/isolation aggregates
-        raise _next_slice("per-tenant reports (the scenario library)")
+        from repro_torch.scenarios.tenants import tenant_report
+        metrics["tenants"] = tenant_report(res, spec.workload.tenants)
     cluster_info = {
         "replicas": res.replicas,
         "router": res.router,
@@ -447,9 +443,11 @@ class BenchmarkSession:
 
     def report(self, path: str, *, title: str = "Benchmark run report"
                ) -> str:
-        """The reference renders an HTML report here (``repro.obs.report``),
-        which comes with the next slice of the port."""
-        raise _next_slice("the HTML run report (obs/report.py)")
+        """Render the session's results as a standalone HTML report
+        (see :mod:`repro_torch.obs.report`); returns the path written."""
+        from repro_torch.obs.report import write_report
+        return write_report([r.to_record() for r in self._results], path,
+                            title=title)
 
     @property
     def pending(self) -> int:

@@ -175,11 +175,18 @@ class BenchmarkJobSpec:
                                dataclasses.replace(self.cluster,
                                                    obs=self.obs))
         if self.scenario:
-            # the named profiles live in the scenario library
-            raise NotImplementedError(
-                f"scenario {self.scenario!r} needs the scenario library, "
-                "which comes with the next slice of the port (ROADMAP: "
-                "scenarios/)")
+            # resolve the named profile: fill workload fields left at
+            # their defaults, and adopt the profile's SLOs where the job
+            # declares none (idempotent, so to_dict → from_dict round
+            # trips are stable)
+            from repro_torch.scenarios.profiles import get_profile
+            prof = get_profile(self.scenario)
+            object.__setattr__(self, "workload",
+                               prof.apply_to_workload(self.workload))
+            for slo_field, default in prof.slos().items():
+                if default is not None \
+                        and getattr(self, slo_field) is None:
+                    object.__setattr__(self, slo_field, default)
 
     def to_dict(self) -> Dict[str, Any]:
         return dataclasses.asdict(self)
@@ -425,10 +432,9 @@ class PlanSpec:
             object.__setattr__(self, "memory",
                                MemorySpec.from_dict(self.memory))
         if self.tenants:
-            raise NotImplementedError(
-                "multi-tenant plans need the scenario library, which "
-                "comes with the next slice of the port (ROADMAP: "
-                "scenarios/)")
+            from repro_torch.scenarios.tenants import coerce_tenants
+            object.__setattr__(self, "tenants",
+                               coerce_tenants(self.tenants))
         else:
             object.__setattr__(self, "tenants", ())
         for field in ("replicas", "policies", "routers", "max_batches",

@@ -4,11 +4,11 @@ Produces request arrival traces for the serving benchmarks: Poisson (the
 paper's primary mode), uniform, closed-loop, spike/burst patterns, stepped
 ``ramp`` rate sweeps (for saturation-knee finding), and ``trace`` replay
 from recorded JSONL files (schema documented in ``configs/traces/``).
-The reference's scenario kinds (diurnal, flash-crowd, sweep) and
-multi-tenant splits (``WorkloadSpec.tenants``) need its scenario library,
-which a later slice of the port copies; until then they raise
-``NotImplementedError``.  Deterministic given a seed: the same spec gives
-the same request stream as the reference.
+The scenario library (``repro_torch.scenarios``) adds diurnal, flash-crowd,
+and geometric ``sweep`` arrival processes plus multi-tenant splits
+(``WorkloadSpec.tenants``), all dispatched through :func:`generate`.
+Deterministic given a seed: the same spec gives the same request stream as
+the reference.
 """
 from __future__ import annotations
 
@@ -25,14 +25,13 @@ BURST = "burst"
 CLOSED = "closed"
 RAMP = "ramp"
 TRACE = "trace"
-# scenario-library arrival processes (generated by repro.scenarios.arrivals)
+# scenario-library arrival processes (generated by repro_torch.scenarios.arrivals)
 DIURNAL = "diurnal"          # sinusoid-modulated Poisson (day/night cycle)
 FLASH = "flash-crowd"        # baseline + exponential spike/decay
 SWEEP = "sweep"              # geometric scale-to-saturation rate ladder
 
 KINDS = (POISSON, UNIFORM, BURST, CLOSED, RAMP, TRACE, DIURNAL, FLASH,
          SWEEP)
-SCENARIO_KINDS = (DIURNAL, FLASH, SWEEP)
 # kinds whose arrival stream is driven by ``rate``
 RATE_KINDS = (POISSON, UNIFORM, BURST, DIURNAL, FLASH)
 
@@ -132,17 +131,13 @@ class WorkloadSpec:
         if self.kind == DIURNAL and self.diurnal_period_s <= 0:
             raise ValueError("WorkloadSpec.diurnal_period_s must be > 0 "
                              f"(got {self.diurnal_period_s})")
-        if self.kind in SCENARIO_KINDS:
-            raise NotImplementedError(
-                f"workload kind {self.kind!r} needs the scenario library, "
-                "which the port does not have yet (ROADMAP: scenario copy)")
         if self.tenants is not None:
             if len(self.tenants) == 0:
                 object.__setattr__(self, "tenants", None)
             else:
-                raise NotImplementedError(
-                    "multi-tenant workloads need the scenario library, which "
-                    "the port does not have yet (ROADMAP: scenario copy)")
+                from repro_torch.scenarios.tenants import coerce_tenants
+                object.__setattr__(self, "tenants",
+                                   coerce_tenants(self.tenants))
 
 
 def ramp_step_rates(spec: WorkloadSpec) -> List[float]:
@@ -177,6 +172,11 @@ def _load_trace(spec: WorkloadSpec) -> List[Request]:
 
 
 def generate(spec: WorkloadSpec) -> List[Request]:
+    if spec.tenants:
+        # multi-tenant split: one merged, tenant-tagged stream (lazy
+        # import — the scenario library sits above the serving layer)
+        from repro_torch.scenarios.tenants import generate_multi_tenant
+        return generate_multi_tenant(spec)
     if spec.kind == TRACE:
         return _load_trace(spec)
     rng = np.random.default_rng(spec.seed)
@@ -212,6 +212,13 @@ def generate(spec: WorkloadSpec) -> List[Request]:
         # one seed request per client at t=0; the simulator reissues each
         # client's next request on completion until duration_s
         times = [0.0] * spec.concurrency
+    elif spec.kind in (DIURNAL, FLASH, SWEEP):
+        # scenario-library arrival processes (thinned non-homogeneous
+        # Poisson / geometric saturation ladder)
+        from repro_torch.scenarios import arrivals
+        times = {DIURNAL: arrivals.diurnal_times,
+                 FLASH: arrivals.flash_crowd_times,
+                 SWEEP: arrivals.sweep_times}[spec.kind](spec, rng)
     else:
         raise ValueError(spec.kind)
 

@@ -2,7 +2,8 @@
 
 Greedy generation on converted weights must give the JAX engine's token ids;
 ``run_server`` must return the reference's result keys; the copied workload
-generator must give the reference's request streams.  The port must import
+generator must give the reference's request streams, those of the scenario
+library's kinds and tenant splits included.  The port must import
 neither JAX nor anything of ``repro``, and must refuse to run without a card
 unless the CPU was asked for.
 """
@@ -95,8 +96,12 @@ def test_workload_stream_matches_reference(spec, seed):
                                   dict(kind="sweep"),
                                   dict(tenants=({"name": "a", "share": 1.0},))])
 def test_scenario_workloads_wait_for_the_scenario_copy(spec):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        workload.WorkloadSpec(**spec)
+    """The kinds and the tenant split that waited for the scenario library's
+    copy give the reference's request stream, request for request."""
+    got = workload.generate(workload.WorkloadSpec(**spec))
+    want = ref_workload.generate(ref_workload.WorkloadSpec(**spec))
+    assert len(got) > 0
+    assert [dataclasses.asdict(r) for r in got] == [dataclasses.asdict(r) for r in want]
 
 
 def test_port_imports_without_jax():

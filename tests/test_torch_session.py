@@ -13,8 +13,8 @@
   reference's per-job metrics inline and with concurrent followers (rtol
   1e-9; wall-clock fields aside); PerfDB and ``JobResult.to_record``
   round-trip; ``evaluate_schedulers`` and the analysis stage agree.
-* What needs the card raises without one unless the CPU is asked for, and
-  what the next slice brings raises ``NotImplementedError``.
+* What needs the card raises without one unless the CPU is asked for; plan
+  jobs, ``report()``, named scenarios and tenants run as in the reference.
 """
 import dataclasses
 import json
@@ -355,21 +355,37 @@ def test_schedulers_equal_the_reference():
 
 
 def test_leader_shim_and_what_waits_for_the_next_slice(tmp_path):
+    """The leader shim runs a job, and what waited for the planner and the
+    scenario library's copy runs as in the reference: a plan job gives the
+    reference's metrics (rtol 1e-9), ``report()`` writes the reference's
+    HTML for the session's records, a named scenario resolves and a plan's
+    tenants are accepted as the reference's."""
+    from repro.obs.report import render_report as ref_render_report
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", DeprecationWarning)
         leader = Leader(n_workers=2)
     leader.submit(pspec.BenchmarkJobSpec(job_id="l", workload={"rate": 20, "duration_s": 1}))
     assert [r["job_id"] for r in leader.run_all()] == ["l"]
+    plan = dict(job_id="p", profile="gemma2-2b@tpu-v5e",
+                profile_dir=str(REPO / "configs" / "profiles"),
+                workload={"rate": 40, "duration_s": 2, "seed": 3}, replicas=(1, 2))
     session = BenchmarkSession()
-    session.submit(PlanSpec(job_id="p", profile="gemma2-2b@tpu-v5e"))
-    with pytest.raises(NotImplementedError, match="next slice"):
-        session.run()
-    with pytest.raises(NotImplementedError, match="next slice"):
-        session.report(str(tmp_path / "r.html"))
-    with pytest.raises(NotImplementedError, match="next slice"):
-        pspec.BenchmarkJobSpec(job_id="s", scenario="chat")
-    with pytest.raises(NotImplementedError, match="next slice"):
-        PlanSpec(job_id="t", profile="x", tenants=({"name": "a", "share": 1.0},))
+    session.submit(PlanSpec(**plan))
+    ref = RefSession()
+    ref.submit(jspec.PlanSpec(**plan))
+    (got,), (want,) = session.run(), ref.run()
+    assert got.metrics["candidates"] == 4
+    assert_close(strip(jsonable(got.to_record())), strip(jsonable(want.to_record())), 1e-9)
+    path = tmp_path / "r.html"
+    assert session.report(str(path)) == str(path)
+    assert path.read_text() == ref_render_report([got.to_record()])
+    scenario = pspec.BenchmarkJobSpec(job_id="s", scenario="chat")
+    assert scenario.slo_ttft_s == 0.5 and scenario.workload.prefix_tokens == 192
+    assert jsonable(scenario.to_dict()) == jsonable(
+        jspec.BenchmarkJobSpec(job_id="s", scenario="chat").to_dict())
+    tenants = ({"name": "a", "share": 1.0},)
+    assert jsonable(PlanSpec(job_id="t", profile="x", tenants=tenants).to_dict()) == \
+        jsonable(jspec.PlanSpec(job_id="t", profile="x", tenants=tenants).to_dict())
 
 
 PORTED = ("core/perfdb.py", "hw.py", "models/registry.py", "serving/latency_model.py",
@@ -377,7 +393,9 @@ PORTED = ("core/perfdb.py", "hw.py", "models/registry.py", "serving/latency_mode
           "serving/memory.py", "serving/simulator.py", "serving/cluster.py",
           "core/analysis.py", "core/spec.py", "core/results.py", "core/generator.py",
           "calibrate/microbench.py", "core/scheduler.py", "core/session.py",
-          "core/leader.py")
+          "core/leader.py", "scenarios/__init__.py", "scenarios/profiles.py",
+          "scenarios/arrivals.py", "scenarios/synth.py", "scenarios/tenants.py",
+          "calibrate/planner.py", "obs/timeline.py", "obs/report.py")
 
 
 def test_the_slice_keeps_the_reference_module_names():
