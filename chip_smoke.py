@@ -17,9 +17,12 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 K1 and K2 at gemma2-2b's shapes (bf16, H=8, K=4, d=256,
                 softcap 50, window 4096 and global) and at recurrentgemma-9b's
                 (H=16, K=1, window 2048, no softcap; K2 over a 2048-slot
-                ring), within one bf16 ulp (|err| ≤ 1e-5 + 2^-7·|want|) of
-                their plain versions computed in float64, K2's faults
-                including one split of its plan dropped;
+                ring), granite-moe-3b-a800m's (H=24, K=8, d=64: 3 query heads
+                per kv head) and dbrx-132b's (H=48, K=8, d=128: 6), both
+                global without softcap, within one bf16 ulp (|err| ≤ 1e-5 +
+                2^-7·|want|) of their plain versions computed in float64,
+                their faults including the last head of each group dropped
+                and, for K2, one split of its plan dropped;
                 K3 at recurrentgemma-9b's prefill shapes bitwise equal to
                 its plain version (ring or register variant, as its plan
                 chooses; the plan is printed), its faults including the
@@ -102,6 +105,22 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 (records equal), each session's HTML report, and a span
                 timeline on the fitted profile (engine spans; the summary
                 equal to the run without observability);
+ 13. model    — phase 4 for full-width granite-moe-3b-a800m (32 layers, 40
+                experts top-8 of d_ff 512 behind K1/K2 attention, 24 query
+                heads on 8), with the routing apart: the fp32 plain run fixes
+                each layer's top-k choices; the fp32 kernel run's own choices
+                are reported (decisions that differ, with their margins), and
+                the comparison runs are pinned to the plain run's routing by a
+                stand-in for the router; every decision the kernel run would
+                take otherwise must sit at a near tie; the fp32 logits with
+                routing pinned held to max(1e-3, MOE_DRIFT × those of a
+                control, the plain path with attention summed in float64),
+                which attention rounded through bf16 must fail;
+ 14. serving  — phase 5 for granite-moe-3b-a800m;
+ 15. model    — phase 13 for dbrx-132b at full width (16 experts top-4 of
+                d_ff 10752, 48 query heads of 128 on 8) and 4 of its 40
+                layers (MODEL_RUNS: all 40 do not fit one card), on shorter
+                prompts;
 then a ``kernels`` JSON line (``hook_launches``: phase 11's,
 ``plan_hook_launches``: phase 12's), and last the ``ok`` JSON line.
 Needs one card; imports nothing of JAX or of the JAX package.
@@ -199,11 +218,46 @@ UNIT = 2.0 ** -24   # u, the unit roundoff of fp32, in K4's limits above
 # path as the bf16 plain path's do (measured 1.02 on gemma2-2b).
 LOGIT_TOL_FP32 = 1e-3
 BF16_DRIFT_RATIO = 1.1
+# MoE models route each token to its top k of E experts, a discrete choice:
+# where two gates nearly tie, the fp32 rounding in which the kernel path and
+# the plain path differ can swap them, and a swap moves that token's FFN
+# output by O(1), and later tokens' capacity positions with it.  So the MoE
+# phases compare the paths with routing pinned to the fp32 plain run's
+# choices (a stand-in for models/moe.py's _route in this script; the package
+# has no switch), and hold the routing apart, by this argument: if expert i
+# is in the plain run's top k and j is not, but another run ranks j above i,
+# then z_i − z_j ≥ z_(k) − z_(k+1) in the plain run's router logits z, while
+# z'_j ≥ z'_i in the other's z', so the plain run's margin z_(k) − z_(k+1)
+# ≤ |δz_i| + |δz_j| ≤ 2·max|δz|, δz = z' − z (on log-gates, log g = z −
+# logsumexp z, the same differences).  With routing pinned, the router's
+# logits are held like the model's: within the fp32 logit limit below, so
+# every decision the kernel run would take otherwise must sit at a
+# plain-run margin z_(k) − z_(k+1) ≤ 2·(that limit): a near tie.
+#
+# The fp32 logit limit of an MoE model.  Even pinned, a random-weight MoE
+# stack amplifies fp32 rounding with depth: on granite-moe-3b-a800m (32
+# layers) the fp32 plain path with its attention summed in float64 instead
+# — a more exact evaluation of the same function — lies 0.0099 from the fp32
+# plain path in logits and 0.0186 in router log-gates (the kernel path
+# 0.0089 and 0.0176; chip_smoke.py on "NVIDIA H100 80GB HBM3, 700.00 W"),
+# ten times LOGIT_TOL_FP32.  So each MoE phase runs that control, pinned
+# alike, and holds the fp32 kernel path to max(LOGIT_TOL_FP32, MOE_DRIFT ×
+# the control's distance), in logits and in router log-gates; at 4 layers
+# (dbrx-132b) LOGIT_TOL_FP32 binds.  A kernel path that rounds attention
+# through bf16 (what a kernel computing in the wrong precision gives) is run
+# as the fault the limit must reject.
+MOE_DRIFT = 2.0
 PROMPTS = (4700, 1500, 300, 17)   # ragged prefill, one prompt past the window
+# dbrx-132b at full width and 4 of its 40 layers (27.3 GB of bf16 weights;
+# all 40 take 263 GB, more than one card holds): its fp32 comparison runs
+# hold a layer's weights in fp32 (13 GB) and the plain attention's fp32
+# logits, 48 heads wide, so its prompts are shorter than PROMPTS
+MODEL_RUNS = {"dbrx-132b": dict(layers=4, prompts=(1024, 700, 300, 17))}
 DECODE_STEPS = 16
 SERVE = {"gemma2-2b": dict(rate=8.0, duration_s=10.0, prompt_tokens=512),
          "recurrentgemma-9b": dict(rate=4.0, duration_s=5.0, prompt_tokens=512),
-         "rwkv6-7b": dict(rate=4.0, duration_s=5.0, prompt_tokens=512)}
+         "rwkv6-7b": dict(rate=4.0, duration_s=5.0, prompt_tokens=512),
+         "granite-moe-3b-a800m": dict(rate=8.0, duration_s=10.0, prompt_tokens=512)}
 MODEL_KERNELS = ("flash_attention", "decode_attention", "rglru_scan", "wkv6")
 KERNELS = MODEL_KERNELS + ("int8_matmul",)   # K5 runs on the calibration path only
 
@@ -381,19 +435,28 @@ def phase_build():
                     spilled.append(fn)
             elif "Used" in line:
                 print(f"[ptxas] {fn}: {line.split(':', 1)[1].strip()}; {spill}")
-    print("[ptxas] decode_attention: decode_kernel<T, D, NG> takes H/K up to 16 "
-          "in one block (NG = 2 tiles of 8 heads above 8); combine_kernel merges "
-          "the splits")
+    print("[ptxas] decode_attention: decode_kernel<T, D, NG> takes any H/K from 1 "
+          "to 16 in one block (NG = 2 tiles of 8 heads above 8); combine_kernel "
+          "merges the splits")
     require(not spilled, f"no kernel instantiation spills: {spilled}")
 
 
-def flash_case(arch: str, H: int, K: int, window: int, softcap: float):
+def last_head_dropped(out, G: int):
+    """A planted fault: ``out`` (B, H, ...) with the last of each group of G
+    query heads zeroed, the output of a kernel that drops that head (one
+    that rounds G down to a power of two or to its head tiles' width)."""
+    f = out.clone()
+    f[:, G - 1::G] = 0
+    return f
+
+
+def flash_case(arch: str, H: int, K: int, window: int, softcap: float, d: int = 256):
     """K1 at the prefill shapes of ``arch``: B=4 ragged prompts padded to the
-    longest, H query heads on K kv heads, d=256."""
+    longest, H query heads on K kv heads of d."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
-    B, d, S = len(PROMPTS), 256, max(PROMPTS)
+    B, S = len(PROMPTS), max(PROMPTS)
     g = torch.Generator(device="cuda").manual_seed(1)
     # the model's layout: (B, S, heads, d), handed over as transposed views
     q, k, v = (torch.randn((B, S, h, d), generator=g, device="cuda").to(torch.bfloat16)
@@ -410,11 +473,13 @@ def flash_case(arch: str, H: int, K: int, window: int, softcap: float):
     require(ratio <= 1.0, f"flash_attention {arch} window={window} max|err| {err}, "
             f"{ratio}x the limit")
     # planted faults, each the kernel's own output where a wrong kernel would
-    # give it: the longest prompt's last kv tile skipped, and (local layers)
-    # the window edge one tile late; the check above must reject each
+    # give it: the longest prompt's last kv tile skipped, the last head of
+    # each group dropped, and (local layers) the window edge one tile late;
+    # the check above must reject each
     tile = fa.KV_TILE[q.dtype, d]
     short = lengths - torch.tensor([tile, 0, 0, 0], dtype=torch.int32, device="cuda")
-    faults = {"last_tile_skipped": fa.flash_attention(q, k, v, **{**kw, "lengths": short})}
+    faults = {"last_tile_skipped": fa.flash_attention(q, k, v, **{**kw, "lengths": short}),
+              "last_head_dropped": last_head_dropped(got, H // K)}
     if window:
         faults["window_one_tile_wide"] = fa.flash_attention(
             q, k, v, **{**kw, "window": window + tile})
@@ -437,22 +502,22 @@ def flash_case(arch: str, H: int, K: int, window: int, softcap: float):
                library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
                    q, k, v, attn_mask=mask, enable_gqa=True), 10),
                bound_ms=ms_bound, bound_by=by)
-    print(f"[kernel flash_attention] {arch} H={H} K={K} window={window} "
+    print(f"[kernel flash_attention] {arch} H={H} K={K} d={d} window={window} "
           f"softcap={softcap} " + json.dumps(res))
     return res
 
 
 def decode_case(arch: str, H: int, K: int, T: int, window: int, softcap: float,
-                ring: bool):
+                ring: bool, d: int = 256):
     """K2 at the decode shapes of ``arch``: B=8, a cache of T slots in the
-    model's (B, T, K, d) layout, H query heads on K kv heads, d=256.  Without
+    model's (B, T, K, d) layout, H query heads on K kv heads of d.  Without
     ``ring`` slot t holds position t (a full-length cache); with it slot t
     holds the latest position ≡ t (mod T), as in a local layer's ring."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels.ref import decode_mask
-    B, d = 8, 256
+    B = 8
     g = torch.Generator(device="cuda").manual_seed(2)
     q = torch.randn((B, H, d), generator=g, device="cuda").to(torch.bfloat16)
     k, v = (torch.randn((B, T, K, d), generator=g, device="cuda").to(torch.bfloat16)
@@ -474,11 +539,12 @@ def decode_case(arch: str, H: int, K: int, T: int, window: int, softcap: float,
             f"{ratio}x the limit")
     # planted faults, as in flash_case: one tile of slots (1024..1055, live
     # for the six longest rows) skipped; one split of the kernel's plan
-    # (the second, live for six or seven of the eight rows) dropped; on a
-    # full-length cache the window edge one tile late (a ring of the window
-    # holds no position outside it, so there a wider window changes
-    # nothing); with more than 8 query heads per kv head, heads 8-15 given
-    # heads 0-7's queries.  The check above must reject each.
+    # (the second, live for six or seven of the eight rows) dropped; the
+    # last head of each group dropped; on a full-length cache the window
+    # edge one tile late (a ring of the window holds no position outside
+    # it, so there a wider window changes nothing); with more than 8 query
+    # heads per kv head, heads 8-15 given heads 0-7's queries.  The check
+    # above must reject each.
     tile = da.TILE[q.dtype, d]
     gap = slot_pos.clone()
     gap[:, 1024:1024 + tile] = -1
@@ -489,7 +555,8 @@ def decode_case(arch: str, H: int, K: int, T: int, window: int, softcap: float,
     faults = {"one_tile_skipped": da.decode_attention(
         q, k, v, lengths, **{**kw, "slot_pos": gap}),
         "one_split_dropped": da.decode_attention(
-        q, k, v, lengths, **{**kw, "slot_pos": dropped})}
+        q, k, v, lengths, **{**kw, "slot_pos": dropped}),
+        "last_head_dropped": last_head_dropped(got, H // K)}
     if window and not ring:
         faults["window_one_tile_wide"] = da.decode_attention(
             q, k, v, lengths, **{**kw, "window": window + tile})
@@ -511,7 +578,7 @@ def decode_case(arch: str, H: int, K: int, T: int, window: int, softcap: float,
                    q[:, :, None], k, v, attn_mask=mask[:, None, None],
                    enable_gqa=True), 50),
                bound_ms=ms_bound, bound_by=by)
-    print(f"[kernel decode_attention] {arch} H={H} K={K} T={T} ring={ring} "
+    print(f"[kernel decode_attention] {arch} H={H} K={K} d={d} T={T} ring={ring} "
           f"window={window} softcap={softcap} splits={nsplit}x{chunk} " + json.dumps(res))
     return res
 
@@ -767,21 +834,24 @@ def layer_counts(cfg):
             kinds.count(RWKV6))
 
 
-def model_setup(arch: str):
-    """Full-width ``arch`` with random bf16 weights from a seed, and the
-    ragged prompt batch: (cfg, model, params, tokens, lengths, max_len)."""
+def model_setup(arch: str, layers: int = 0, prompts=PROMPTS):
+    """Full-width ``arch`` (its first ``layers`` layers when given) with
+    random bf16 weights from a seed, and the ragged prompt batch: (cfg,
+    model, params, tokens, lengths, max_len)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
     from repro_torch.serving.engine import serving_config
     cfg = serving_config(get_config(arch))
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     model = build_model(cfg)
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
-    B, S = len(PROMPTS), max(PROMPTS)
+    B, S = len(prompts), max(prompts)
     rng = np.random.default_rng(0)
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S))
                               .astype(np.int32)).cuda()
-    lengths = torch.tensor(PROMPTS, dtype=torch.int32, device="cuda")
+    lengths = torch.tensor(prompts, dtype=torch.int32, device="cuda")
     return cfg, model, params, tokens, lengths, S + DECODE_STEPS
 
 
@@ -840,18 +910,73 @@ def plain_kernels() -> dict:
     return {name: mod.plain for name, mod in counters().items() if name in MODEL_KERNELS}
 
 
-def prefill_and_step(m, params, tokens, lengths, max_len, swap: dict, tok=None):
+def bf16_rounded_attention() -> dict:
+    """K1 and K2 with their outputs rounded through bf16, as stand-ins in
+    ``ops``: what a kernel computing in the wrong precision gives."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    return {"flash_attention": lambda *a, **kw: fa.flash_attention(*a, **kw).bfloat16().float(),
+            "decode_attention": lambda *a, **kw: da.decode_attention(*a, **kw).bfloat16().float()}
+
+
+class Routing:
+    """A stand-in for ``models/moe.py``'s ``_route`` (the package has no
+    switch): it runs the real router and keeps, per call (one a layer, the
+    prefill's then the decode step's), the gates and the top-k indices it
+    chose.  Given ``pin``, another run's Routing, it hands the block that
+    run's indices of the same call instead, with this run's gates at them,
+    renormalised as ``_route`` does: the routing of both runs is then the
+    same, and ``calls`` still holds what this run would have chosen."""
+
+    def __init__(self, pin: "Routing" = None):
+        from repro_torch.models import moe
+        self.route, self.pin, self.calls = moe._route, pin, []
+
+    def __call__(self, params, x, E, k):
+        gates, w, idx = self.route(params, x, E, k)
+        self.calls.append((gates, idx))
+        if self.pin is None:
+            return gates, w, idx
+        idx = self.pin.calls[len(self.calls) - 1][1]
+        w = gates.gather(-1, idx)
+        return gates, w / w.sum(-1, keepdim=True).clamp(min=1e-9), idx
+
+
+def routing_flips(ref: Routing, run: Routing) -> list:
+    """Per call: (decisions, decisions whose top-k set differs from the
+    reference run's, each one's margin in the reference run as (logit
+    margin log g_(k) − log g_(k+1), gate margin g_(k) − g_(k+1)), max over
+    the call of |δ log g| = |δz − δ logsumexp z| between the runs)."""
+    import torch
+    out = []
+    for (g0, i0), (g1, i1) in zip(ref.calls, run.calls):
+        k = i0.shape[-1]
+        differ = (i0.sort(-1).values != i1.sort(-1).values).any(-1)
+        top = g0.topk(k + 1, dim=-1).values[differ]
+        margins = [(float(torch.log(a) - torch.log(b)), float(a - b))
+                   for a, b in zip(top[:, k - 1], top[:, k])]
+        drift = float((torch.log(g1) - torch.log(g0)).abs().max())
+        out.append((differ.numel(), int(differ.sum()), margins, drift))
+    return out
+
+
+def prefill_and_step(m, params, tokens, lengths, max_len, swap: dict, tok=None,
+                     route: Routing = None):
     """A prefill of ``m`` and one decode step of ``tok`` (the prefill's greedy
     token when None), with ``swap``'s functions in place of those kernels in
-    ``ops`` (the package has no switch; restored after).  Returns (prefill
-    logits, decode logits, token, {"prefill": launches, "decode_step":
-    launches})."""
+    ``ops`` and ``route`` in place of the MoE router (the package has no
+    switch; restored after).  Returns (prefill logits, decode logits, token,
+    {"prefill": launches, "decode_step": launches})."""
     import torch
     from repro_torch.kernels import ops
+    from repro_torch.models import moe
     from repro_torch.serving.engine import greedy_sample, make_decode_fn, make_prefill_fn
     kernels = {name: getattr(ops, name) for name in swap}
     for name, fn in swap.items():
         setattr(ops, name, fn)
+    router = moe._route
+    if route is not None:
+        moe._route = route
     launches = {}
     try:
         reset_launches()
@@ -864,10 +989,29 @@ def prefill_and_step(m, params, tokens, lengths, max_len, swap: dict, tok=None):
     finally:
         for name, fn in kernels.items():
             setattr(ops, name, fn)
+        moe._route = router
     for what, t in (("prefill", pre), ("decode", dec)):
         require(tuple(t.shape) == (len(tokens), m.cfg.vocab_size), f"{what} logits shape")
         require(bool(torch.isfinite(t).all()), f"{what} logits finite")
     return pre, dec, tok, launches
+
+
+def step_times(m, params, tokens, lengths, max_len) -> dict:
+    """The generate run's steps timed apart, after it: a prefill, then the
+    mean of DECODE_STEPS decode steps, each ended by a synchronise."""
+    import torch
+    from repro_torch.serving.engine import greedy_sample, make_decode_fn, make_prefill_fn
+    t0 = time.perf_counter()
+    cache, logits = make_prefill_fn(m, max_len)(params, tokens, lengths)
+    tok = greedy_sample(logits)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    decode = make_decode_fn(m)
+    for _ in range(DECODE_STEPS):
+        cache, logits = decode(params, cache, tok)
+        tok = greedy_sample(logits)
+    torch.cuda.synchronize()
+    return {"prefill_s": t1 - t0, "decode_step_s": (time.perf_counter() - t1) / DECODE_STEPS}
 
 
 def fp32_activations(cfg):
@@ -882,13 +1026,54 @@ def max_diff(a, b) -> float:
     return max(float((a[i] - b[i]).abs().max()) for i in (0, 1))
 
 
+def report_routing(arch: str, ref: Routing, unpinned: Routing, pinned: Routing,
+                   control: Routing) -> None:
+    """The routing of the fp32 kernel run against the fp32 plain run's
+    (``ref``): run unpinned, the decisions that differ per layer call; run
+    pinned to ``ref``, the decisions it would have taken otherwise.  Held
+    (see MOE_DRIFT): with routing pinned, the router's log-gates within
+    max(LOGIT_TOL_FP32, MOE_DRIFT × the control's) of the plain run's, and
+    every such decision at a plain-run logit margin ≤ 2·that limit; unpinned,
+    the same for every decision of the first call that differs (the layers
+    before it routed alike, so its inputs are the pinned run's).  Later calls
+    of the unpinned run inherit the first flip's O(1) change: reported, not
+    held."""
+    free, held_ = routing_flips(ref, unpinned), routing_flips(ref, pinned)
+    ctl = max(d for _, _, _, d in routing_flips(ref, control))
+    limit = max(LOGIT_TOL_FP32, MOE_DRIFT * ctl)
+    decisions = sum(n for n, _, _, _ in free)
+    first = next((i for i, (_, f, _, _) in enumerate(free) if f), None)
+    print(f"[routing] {arch} fp32 kernel run unpinned: {sum(f for _, f, _, _ in free)} of "
+          f"{decisions} top-k decisions differ from the fp32 plain run's; per layer call "
+          f"(the prefill's, then the decode step's) {[f for _, f, _, _ in free]}; first "
+          f"differing call {first}, its flips' plain-run margins (logit, gate) "
+          f"{free[first][2] if first is not None else []}")
+    flips = [m for _, _, margins, _ in held_ for m in margins]
+    drift = max(d for _, _, _, d in held_)
+    print(f"[routing] {arch} fp32 kernel run pinned to the plain run's routing: max "
+          f"|δ log gate| {drift} per layer call {[d for _, _, _, d in held_]}; the control's "
+          f"{ctl}; limit {limit}; {len(flips)} decisions it would take otherwise, max "
+          f"plain-run logit margin {max((m for m, _ in flips), default=0.0)} (limit "
+          f"{2 * limit}), each (logit, gate) {flips}")
+    require(drift <= limit, "router log-gates with routing pinned within the limit")
+    near = flips + (free[first][2] if first is not None else [])
+    require(all(m <= 2 * limit for m, _ in near),
+            f"every routing flip at a near tie (logit margin <= {2 * limit})")
+
+
 def phase_model(arch: str):
     import torch
     from repro_torch.serving.engine import greedy_sample, make_generate_fn
     torch.cuda.reset_peak_memory_stats()
-    cfg, model, params, tokens, lengths, max_len = model_setup(arch)
+    run = MODEL_RUNS.get(arch, {})
+    prompts = run.get("prompts", PROMPTS)
+    cfg, model, params, tokens, lengths, max_len = model_setup(arch, run.get("layers", 0),
+                                                               prompts)
     n_attn, n_rec, n_rwkv = layer_counts(cfg)
-    B = len(PROMPTS)
+    B = len(prompts)
+    # the weights' init draws each stacked leaf in fp32 first: its peak apart
+    init_gb = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
 
     # the main path: counts at 0 just before, read just after
     reset_launches()
@@ -898,7 +1083,7 @@ def phase_model(arch: str):
     gen_s = time.perf_counter() - t0
     launches = read_launches()
     print(f"[model] {arch} layers={cfg.num_layers} d_model={cfg.d_model} "
-          f"generate B={B} prompts={list(PROMPTS)} "
+          f"generate B={B} prompts={list(prompts)} "
           f"steps={DECODE_STEPS} s={gen_s:.3f} launches={json.dumps(launches)}")
     want = {"flash_attention": n_attn, "decode_attention": n_attn * DECODE_STEPS,
             "rglru_scan": n_rec, "wkv6": n_rwkv, "int8_matmul": 0}
@@ -907,24 +1092,52 @@ def phase_model(arch: str):
     require(bool(((out >= 0) & (out < cfg.vocab_size)).all()), "token ids in range")
 
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[model] {arch} step times (host clock, synchronised): "
+          f"{json.dumps(step_times(model, params, tokens, lengths, max_len))}")
 
     # The same prefill and first decode step through the kernels and through
     # the plain versions, all decoding the same token, with bf16 activations
     # (as served) and with fp32 activations on the same bf16 weights.  The
     # bf16 kernel run also holds every kernel call against the plain version
-    # on the same inputs.
+    # on the same inputs.  An MoE model first runs the fp32 plain path alone
+    # to fix the routing, and the fp32 kernel path unpinned; the other runs
+    # are pinned to that routing, among them the control (the fp32 plain
+    # path with its attention summed in float64) and the fault (the fp32
+    # kernel path with attention rounded through bf16): see MOE_DRIFT.
     worst = {name: 0.0 for name in MODEL_KERNELS}
     reported = {"wkv6_output": 0.0, "wkv6_state": 0.0, "wkv6_ulp_only": 0.0}
     model32 = fp32_activations(cfg)
     args = (params, tokens, lengths, max_len)
-    runs, step_launches = {}, {}
-    tok = None
-    for key, m, swap in ((("bf16", "kernel"), model, checked_kernels(worst, reported)),
-                         (("bf16", "plain"), model, plain_kernels()),
-                         (("fp32", "kernel"), model32, {}),
-                         (("fp32", "plain"), model32, plain_kernels())):
-        pre, dec, tok, step_launches[key] = prefill_and_step(m, *args, swap, tok)
+    runs, step_launches, routes = {}, {}, {}
+    tok = ref = None
+    cases = [(("bf16", "kernel"), model, checked_kernels(worst, reported)),
+             (("bf16", "plain"), model, plain_kernels()),
+             (("fp32", "kernel"), model32, {}),
+             (("fp32", "plain"), model32, plain_kernels())]
+    if cfg.is_moe:
+        ref, unpinned = Routing(), Routing()
+        tok = prefill_and_step(model32, *args, plain_kernels(), route=ref)[2]
+        prefill_and_step(model32, *args, {}, tok, route=unpinned)
+        cases += [(("fp32", "control"), model32, {"flash_attention": flash_want,
+                                                  "decode_attention": decode_want}),
+                  (("fp32", "fault"), model32, bf16_rounded_attention())]
+    for key, m, swap in cases:
+        routes[key] = None if ref is None else Routing(pin=ref)
+        pre, dec, tok, step_launches[key] = prefill_and_step(m, *args, swap, tok,
+                                                             route=routes[key])
         runs[key] = (pre, dec)
+    logit_tol = LOGIT_TOL_FP32
+    if ref is not None:
+        control = max_diff(runs["fp32", "control"], runs["fp32", "plain"])
+        logit_tol = max(LOGIT_TOL_FP32, MOE_DRIFT * control)
+        fault = max_diff(runs["fp32", "fault"], runs["fp32", "plain"])
+        print(f"[model] {arch} fp32 logits with routing pinned: the control (attention "
+              f"summed in float64) {control} from the plain path; limit {logit_tol}; the "
+              f"fault (attention rounded through bf16) {fault}")
+        require(fault > logit_tol, "the fp32 logit limit rejects attention rounded "
+                                   "through bf16")
+        report_routing(arch, ref, unpinned, routes["fp32", "kernel"],
+                       routes["fp32", "control"])
     per_step = {"prefill": {"flash_attention": n_attn, "decode_attention": 0,
                             "rglru_scan": n_rec, "wkv6": n_rwkv, "int8_matmul": 0},
                 "decode_step": {"flash_attention": 0, "decode_attention": n_attn,
@@ -961,15 +1174,17 @@ def phase_model(arch: str):
         require(all(p["variant"] == "ring" for p in reported["rglru_scan_plans"]),
                 "every rglru_scan call of the model runs the ring variant")
     print(f"[model] {arch} max|Δlogit| fp32 kernel-vs-plain={d32} "
-          f"(tol {LOGIT_TOL_FP32}) bf16 kernel-vs-plain={d16}; to the fp32 path: "
+          f"(tol {logit_tol}) bf16 kernel-vs-plain={d16}; to the fp32 path: "
           f"bf16 kernel={far_k} bf16 plain={far_p} ratio={far_k / far_p} "
           f"(tol {BF16_DRIFT_RATIO})")
     print(f"[model] {arch} first token agrees fp32={same32.tolist()} "
           f"top2_gap={gaps('fp32')}; bf16={same16.tolist()} top2_gap={gaps('bf16')} "
-          f"(not held); generate_max_memory_allocated_gb={peak_gb:.2f}")
+          f"(not held); init_max_memory_allocated_gb={init_gb:.2f} "
+          f"generate_max_memory_allocated_gb={peak_gb:.2f} "
+          f"checks_max_memory_allocated_gb={torch.cuda.max_memory_allocated() / 1e9:.2f}")
     require(all(r <= 1.0 for r in worst.values()),
             "every bf16 kernel call on the model's activations within the limit")
-    require(d32 <= LOGIT_TOL_FP32, "fp32 kernel vs plain logits")
+    require(d32 <= logit_tol, "fp32 kernel vs plain logits")
     require(bool(same32.all()), "fp32 first greedy token agrees")
     require(far_k <= BF16_DRIFT_RATIO * far_p, "bf16 kernel path drift")
     return launches
@@ -1564,6 +1779,15 @@ def main() -> int:
             flash_case("recurrentgemma-9b", 16, 1, 2048, 0.0)]),
         ("decode_attention", "recurrentgemma-9b", ""): merge([
             decode_case("recurrentgemma-9b", 16, 1, 2048, 2048, 0.0, ring=True)]),
+        # the MoE archs: 3 and 6 query heads per kv head, global, no softcap
+        ("flash_attention", "granite-moe-3b-a800m", ""): merge([
+            flash_case("granite-moe-3b-a800m", 24, 8, 0, 0.0, d=64)]),
+        ("decode_attention", "granite-moe-3b-a800m", ""): merge([
+            decode_case("granite-moe-3b-a800m", 24, 8, 4736, 0, 0.0, ring=False, d=64)]),
+        ("flash_attention", "dbrx-132b", ""): merge([
+            flash_case("dbrx-132b", 48, 8, 0, 0.0, d=128)]),
+        ("decode_attention", "dbrx-132b", ""): merge([
+            decode_case("dbrx-132b", 48, 8, 4736, 0, 0.0, ring=False, d=128)]),
         ("rglru_scan", "recurrentgemma-9b", ""): merge([rglru_case()]),
         ("rglru_scan", "calibration",
          f"bf16 a/b/seq, timed at recurrentgemma-9b's prefill shape B={len(PROMPTS)} "
@@ -1590,6 +1814,13 @@ def main() -> int:
     hook = phase_session()
     torch.cuda.empty_cache()
     plan_hook = phase_plan()
+    # phases 13-15: the MoE family
+    torch.cuda.empty_cache()
+    launches["granite-moe-3b-a800m"] = phase_model("granite-moe-3b-a800m")
+    torch.cuda.empty_cache()
+    phase_serving("granite-moe-3b-a800m")
+    torch.cuda.empty_cache()
+    launches["dbrx-132b"] = phase_model("dbrx-132b")
     src = "src/repro_torch/kernels/csrc/"
     replaces = {"flash_attention": "src/repro/kernels/flash_attention.py:94",
                 "decode_attention": "src/repro/kernels/decode_attention.py:73",
@@ -1602,7 +1833,9 @@ def main() -> int:
              route="cuda", source=f"{src}{kernel}.cu", replaces=replaces[kernel],
              launches=(calibration if arch == "calibration" else launches[arch])[kernel],
              launches_on=("calibration sweep, all its dtypes together"
-                          if arch == "calibration" else "generate"),
+                          if arch == "calibration" else
+                          f"generate, {MODEL_RUNS[arch]['layers']} layers"
+                          if arch in MODEL_RUNS else "generate"),
              hook_launches=hook[kernel], plan_hook_launches=plan_hook[kernel], **rec)
         for (kernel, arch, variant), rec in records.items()]}))
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,10 @@
-"""The architectures the port serves — the dense homogeneous stacks, the
-RG-LRU hybrid and the attention-free RWKV6 stack — copied from
+"""The architectures the port serves — the dense homogeneous stacks, the MoE
+stacks, the RG-LRU hybrid and the attention-free RWKV6 stack — copied from
 ``repro.configs.catalog`` with the same values.
 
-The other families of the reference catalog need model code the port does
-not have yet; ``get_config`` names the ROADMAP item that brings each.
+The encoder-decoder and VLM archs of the reference catalog need model code
+the port does not have yet; ``get_config`` names the ROADMAP item that
+brings each.
 """
 from __future__ import annotations
 
@@ -19,6 +20,18 @@ RECURRENTGEMMA_9B = ModelConfig(
     d_ff=12_288, vocab_size=256_000,
     layer_pattern=(RGLRU, RGLRU, ATTN_LOCAL), local_window=2048,
     rglru_d_rnn=4096)
+
+# [hf:ibm-granite/granite-3.0-1b-a400m-base family] — 40 experts top-8
+GRANITE_MOE_3B = ModelConfig(
+    name="granite-moe-3b-a800m", family="moe",
+    num_layers=32, d_model=1536, num_heads=24, num_kv_heads=8, head_dim=64,
+    d_ff=512, vocab_size=49_155, num_experts=40, experts_per_token=8)
+
+# [hf:databricks/dbrx-base] — 16 experts top-4, fine-grained
+DBRX_132B = ModelConfig(
+    name="dbrx-132b", family="moe",
+    num_layers=40, d_model=6144, num_heads=48, num_kv_heads=8, head_dim=128,
+    d_ff=10_752, vocab_size=100_352, num_experts=16, experts_per_token=4)
 
 # [arXiv:2408.00118] — local+global alternating, logit softcap
 GEMMA2_2B = ModelConfig(
@@ -54,14 +67,12 @@ RWKV6_7B = ModelConfig(
     layer_pattern=(RWKV6,), rwkv_head_dim=64)
 
 ARCHS: Dict[str, ModelConfig] = {
-    c.name: c for c in (RECURRENTGEMMA_9B, GEMMA2_2B, GRANITE_3_2B, GRANITE_8B,
-                        YI_9B, RWKV6_7B)}
+    c.name: c for c in (RECURRENTGEMMA_9B, GRANITE_MOE_3B, DBRX_132B, GEMMA2_2B,
+                        GRANITE_3_2B, GRANITE_8B, YI_9B, RWKV6_7B)}
 
 # Architectures of the reference catalog that wait for later slices of the
 # port, with the ROADMAP queue item that brings each.
 PENDING: Dict[str, str] = {
-    "granite-moe-3b-a800m": "ROADMAP M9 (MoE)",
-    "dbrx-132b": "ROADMAP M9 (MoE)",
     "whisper-tiny": "ROADMAP M10 (encoder-decoder)",
     "llava-next-34b": "ROADMAP M10 (VLM prefix embeddings)",
 }

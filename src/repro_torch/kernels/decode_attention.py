@@ -21,7 +21,9 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import DTYPES, HEAD_DIMS, _check_operand
 from repro_torch.kernels.ref import decode_attention_reference
 
-GROUP_SIZES = (1, 2, 4, 8, 16)
+# query heads per kv head, H/K: any from 1 to the kernel's MAXG (16), as the
+# reference takes any H % K == 0 (granite-moe-3b-a800m has 3, dbrx-132b 6)
+GROUP_SIZES = tuple(range(1, 17))
 # slots per tile of each instantiation (Shape::TS in the source)
 TILE = {**{(torch.float32, d): 32 for d in HEAD_DIMS},
         **{(torch.bfloat16, d): 32 if d == 256 else 64 for d in HEAD_DIMS}}
@@ -84,7 +86,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      window: int = 0, q_pos: Optional[torch.Tensor] = None,
                      slot_pos: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Launch the kernel.  q: (B, H, d); k/v: (B, K, T, d) on the card,
-    float32 or bfloat16, H/K in {1, 2, 4, 8, 16}, d in {64, 128, 256};
+    float32 or bfloat16, H/K in 1..16 (GROUP_SIZES), d in {64, 128, 256};
     lengths (B,) int32 bounds the slots scanned; ``slot_pos`` (B, T) int32
     and ``q_pos`` (B,) int32 give the mask of
     :func:`repro_torch.kernels.ref.decode_mask`.  Any strides with a

@@ -5,8 +5,10 @@ leaf already turned into a numpy array (``np.asarray`` on the JAX side), so
 this module needs no JAX.  The port keeps the reference's layouts — the
 stacked leading ``layers`` axis, or a hybrid's stacked ``periods`` and
 unstacked ``tail``, ``wq``/``wk``/``wv`` as (D, heads, hd) and ``wo`` as
-(H, hd, D) — so conversion checks every key and shape against
-``DecoderLM.param_shapes`` and copies the values.
+(H, hd, D), an MoE block's ``router`` (D, E) and experts ``wi``/``wg``
+(E, D, F) and ``wo`` (E, F, D) — so conversion checks every key and shape
+against ``DecoderLM.param_shapes`` and copies the values; a tree with
+another expert count is refused.
 """
 from __future__ import annotations
 

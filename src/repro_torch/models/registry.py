@@ -5,7 +5,7 @@
 (``DecoderLM.param_shapes``), which allocates nothing; the counting rules are
 the reference's: a leaf under a path key ``embed`` is skipped where
 embeddings are excluded, and MoE expert weights count k/E of themselves
-toward the active parameters (MoE models raise until ROADMAP M9).
+toward the active parameters.
 """
 from __future__ import annotations
 

@@ -1,5 +1,6 @@
-"""Decoder-only LM for dense attention stacks, the RG-LRU hybrid and the
-attention-free RWKV6 stack, ported from ``repro.models.transformer.DecoderLM``.
+"""Decoder-only LM for dense and MoE attention stacks, the RG-LRU hybrid and
+the attention-free RWKV6 stack, ported from
+``repro.models.transformer.DecoderLM``.
 
 Parameters and caches keep the reference's layout: a homogeneous stack (all
 attention, or all RWKV6) under ``layers`` with a leading layer axis; a
@@ -14,8 +15,11 @@ Entry points, as in the reference:
   decode_step(params, cache, tokens)       one token per sequence
 
 The cache is updated in place (the reference donates it instead) and
-carries per-sequence ``lengths`` so ragged batching works.  MoE and
-encoder-decoder configs wait for later slices of the port.
+carries per-sequence ``lengths`` so ragged batching works.  An MoE config
+(``cfg.is_moe``) gives every layer's FFN the capacity-based top-k experts of
+``models/moe.py``; ``forward`` returns their load-balancing loss summed over
+layers, which ``prefill`` and ``decode_step`` discard, as the reference
+does.  Encoder-decoder configs wait for a later slice of the port.
 """
 from __future__ import annotations
 
@@ -27,7 +31,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
-from repro_torch.models import rglru, rwkv6
+from repro_torch.models import moe, rglru, rwkv6
 from repro_torch.models.config import (ATTN_GLOBAL, ATTN_LOCAL, RGLRU, RWKV6,
                                        ModelConfig)
 
@@ -44,17 +48,16 @@ def _write(dst: Dict[str, Any], src: Dict[str, Any]) -> None:
 
 
 class DecoderLM:
-    """Dense GQA decoder, RG-LRU hybrid or RWKV6 stack; local layers use
-    ``cfg.local_window``, global layers window 0 (the reference passes
+    """Dense or MoE GQA decoder, RG-LRU hybrid or RWKV6 stack; local layers
+    use ``cfg.local_window``, global layers window 0 (the reference passes
     GLOBAL_WINDOW = 2**30 there)."""
 
     def __init__(self, cfg: ModelConfig, device=None):
-        later = ("ROADMAP M9 (MoE)" if cfg.is_moe else
-                 "ROADMAP M10 (encoder-decoder)" if cfg.is_encdec else None)
-        if later:
+        if cfg.is_encdec:
             raise NotImplementedError(
-                f"{cfg.name}: the port's DecoderLM runs dense attention stacks, "
-                f"the RG-LRU hybrid and RWKV6 stacks; this model comes with {later}")
+                f"{cfg.name}: the port's DecoderLM runs dense and MoE attention "
+                "stacks, the RG-LRU hybrid and RWKV6 stacks; this model comes "
+                "with ROADMAP M10 (encoder-decoder)")
         pattern = set(cfg.layer_pattern)
         if RWKV6 in pattern and pattern != {RWKV6}:
             raise ValueError(
@@ -111,7 +114,9 @@ class DecoderLM:
             p["attn"] = {"wq": lead + (d, h, hd), "wk": lead + (d, k, hd),
                          "wv": lead + (d, k, hd), "wo": lead + (h, hd, d)}
         if kind != RWKV6:  # rwkv's channel-mix is its FFN
-            p["ffn"] = {"wi": lead + (d, f), "wg": lead + (d, f), "wo": lead + (f, d)}
+            ffn = (moe.moe_shapes(d, f, c.num_experts) if c.is_moe else
+                   {"wi": (d, f), "wg": (d, f), "wo": (f, d)})
+            p["ffn"] = {name: lead + shape for name, shape in ffn.items()}
         return p
 
     def param_shapes(self) -> Dict[str, Any]:
@@ -136,6 +141,9 @@ class DecoderLM:
             if group == "tm_cm":
                 return rwkv6.rwkv_init(generator, c.d_model, c.d_ff, c.rwkv_head_dim,
                                        dt, dev, lead)
+            if group == "ffn" and c.is_moe:
+                return moe.moe_init(generator, c.d_model, c.d_ff, c.num_experts, dt, dev,
+                                    lead)
             return {name: torch.ones(shape, dtype=dt, device=dev) if name == "scale"
                     else L.dense_init(generator, shape, fan_in[group, name], dt, dev)
                     for name, shape in sub.items()}
@@ -165,9 +173,18 @@ class DecoderLM:
         return L._softcap(logits, self.cfg.final_logit_softcap)
 
     # ---------------------------------------------------------------- blocks
-    def _ffn_block(self, p, x):
-        h = L.rmsnorm(p["ln2"], x, self.cfg.norm_eps)
-        return x + L.mlp_apply(p["ffn"], h)
+    def _ffn_block(self, p, x, aux: bool = False):
+        """→ (x + FFN(norm(x)), the block's load-balancing aux loss): an MoE
+        block's when ``aux`` is asked (forward), else None (prefill and
+        decode discard it, as the reference does, so it is not computed)."""
+        c = self.cfg
+        h = L.rmsnorm(p["ln2"], x, c.norm_eps)
+        if not c.is_moe:
+            return x + L.mlp_apply(p["ffn"], h), None
+        out = moe.moe_apply(p["ffn"], h, num_experts=c.num_experts,
+                            k=c.experts_per_token,
+                            capacity_factor=c.moe_capacity_factor, return_aux=aux)
+        return (x + out[0], out[1]) if aux else (x + out, None)
 
     def _attn_block(self, p, x, positions, window, lengths):
         c = self.cfg
@@ -182,12 +199,14 @@ class DecoderLM:
     # --------------------------------------------------------------- forward
     def forward(self, params, tokens, *, lengths=None,
                 return_hidden: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Teacher-forced pass → (logits (B, S, V), aux loss 0.0); with
+        """Teacher-forced pass → (logits (B, S, V), aux loss: the MoE blocks'
+        load-balancing losses summed over layers, fp32 0.0 without MoE); with
         ``return_hidden`` the final-norm hidden states instead of logits."""
         c = self.cfg
         B, S = tokens.shape
         x = self._embed(params, tokens)
         positions = self._positions(B, S)
+        aux = torch.zeros((), device=x.device)
         for i, kind in enumerate(self.kinds):
             p = self._layer(params, i)
             # as in the reference: each recurrent layer starts from a zero
@@ -202,9 +221,10 @@ class DecoderLM:
                 x = x + rglru.rglru_block_seq(p["rec"], h, state)[0]
             else:
                 x = self._attn_block(p, x, positions, self.windows[i], lengths)
-            x = self._ffn_block(p, x)
+            x, a = self._ffn_block(p, x, aux=True)
+            if a is not None:
+                aux = aux + a
         x = L.rmsnorm(params["final_norm"], x, c.norm_eps)
-        aux = torch.zeros((), device=x.device)
         return (x if return_hidden else self._logits(params, x)), aux
 
     # ----------------------------------------------------------------- cache
@@ -352,7 +372,7 @@ class DecoderLM:
                 x = self._rec_prefill(p, x, valid, lc)
             else:
                 x = self._attn_prefill(p, x, positions, self.windows[i], lengths, lc)
-            x = self._ffn_block(p, x)
+            x = self._ffn_block(p, x)[0]
         cache["lengths"] = lengths.clone()
         x = L.rmsnorm(params["final_norm"], x, self.cfg.norm_eps)
         # Gather the last valid hidden state *before* the vocab product: the
@@ -375,7 +395,7 @@ class DecoderLM:
                 x = self._rec_decode(p, x, lc)
             else:
                 x = self._attn_decode(p, x, q_pos, self.windows[i], lc)
-            x = self._ffn_block(p, x)
+            x = self._ffn_block(p, x)[0]
         cache["lengths"] = q_pos + 1
         x = L.rmsnorm(params["final_norm"], x, self.cfg.norm_eps)
         return cache, self._logits(params, x[:, 0])

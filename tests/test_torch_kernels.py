@@ -76,7 +76,9 @@ def test_flash_plain_lengths_window_softcap_match_ref(dtype):
         assert_close(got[b, :, :n], want[b, :, :n], dtype)
 
 
-@pytest.mark.parametrize("B,H,K,T,d", [(2, 8, 2, 1024, 64), (1, 4, 4, 512, 128)])
+# the last two: G = 3 (granite-moe-3b-a800m's 24 heads on 8) and G = 6 (dbrx-132b's)
+@pytest.mark.parametrize("B,H,K,T,d", [(2, 8, 2, 1024, 64), (1, 4, 4, 512, 128),
+                                       (2, 24, 8, 256, 64), (1, 12, 2, 256, 128)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_decode_plain_matches_pallas_and_ref(B, H, K, T, d, dtype):
     (q, k, v), (tq, tk, tv) = arrays(2, dtype, (B, H, d), (B, K, T, d),

@@ -24,7 +24,7 @@ from repro_torch.models.config import ATTN_LOCAL  # noqa: E402
 from repro_torch.models.convert import params_from_reference  # noqa: E402
 
 TOL = 1e-3
-PORTED = ("gemma2-2b", "granite-3-2b", "rwkv6-7b")
+PORTED = ("gemma2-2b", "granite-3-2b", "rwkv6-7b", "granite-moe-3b-a800m", "dbrx-132b")
 
 
 def pair(name, **overrides):
@@ -96,8 +96,11 @@ def test_prefill_and_decode_match_reference(name):
 
 @pytest.mark.parametrize("name", PORTED)
 def test_prefill_decode_matches_forward(name):
-    """The serving invariant in the port alone: prefill + decode ≡ forward."""
-    _, _, model, params = pair(name)
+    """The serving invariant in the port alone: prefill + decode ≡ forward;
+    for MoE at capacity factor 8.0, where no token is dropped, as the
+    reference's own test of it does (tests/test_models_smoke.py)."""
+    moe = get_config(name).is_moe
+    _, _, model, params = pair(name, **({"moe_capacity_factor": 8.0} if moe else {}))
     toks = torch.from_numpy(tokens_for(model.cfg, seed=1))
     B, S = toks.shape
     lengths = torch.tensor([S - 1, S - 9], dtype=torch.int32)

@@ -259,6 +259,14 @@ def test_other_families_name_their_roadmap_item(overrides, item):
         shapes = DecoderLM(cfg, "cpu").param_shapes()
         assert "tm_cm" in shapes["layers"] and "ffn" not in shapes["layers"]
         return
+    if item == "M9":
+        # ROADMAP M9 (MoE) is ported: every layer's FFN is the experts' block,
+        # router (D, E) and wi/wg (E, D, F), wo (E, F, D)
+        ffn = DecoderLM(cfg, "cpu").param_shapes()["layers"]["ffn"]
+        L, D, F = cfg.num_layers, cfg.d_model, cfg.d_ff
+        assert ffn == {"router": (L, D, 4), "wi": (L, 4, D, F), "wg": (L, 4, D, F),
+                       "wo": (L, 4, F, D)}
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         DecoderLM(cfg, "cpu")
 

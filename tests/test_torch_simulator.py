@@ -149,6 +149,26 @@ def test_latency_model_extras_equal_the_reference():
     assert h100.decode_latency(8, 512) > 0 and "h100" not in jhw.HARDWARE
 
 
+@pytest.mark.parametrize("name", ["granite-moe-3b-a800m", "dbrx-132b"])
+def test_moe_archs_count_and_time_as_the_reference(name):
+    """The MoE archs left PENDING with ROADMAP M9: all their parameters,
+    their active FLOPs per token (experts at k/E) and the roofline's prefill
+    and decode latencies are the reference's."""
+    assert name not in PENDING
+    tree = reg.param_shapes(reg.build_model(ARCHS[name], "meta"))
+    ref_tree = jreg.param_shapes(jreg.build_model(REF_ARCHS[name]))
+    assert reg.count_params(tree) == jreg.count_params(ref_tree)
+    flops = reg.model_flops_per_token(ARCHS[name])
+    assert flops == jreg.model_flops_per_token(REF_ARCHS[name])
+    assert flops < 6.0 * reg.count_params(tree, exclude_embed=True)
+    for hw_name in HW:
+        port, ref = pair(name, hw_name)
+        for b, s in GRID:
+            for fn in ("prefill_latency", "decode_latency"):
+                assert math.isclose(getattr(port, fn)(b, s), getattr(ref, fn)(b, s),
+                                    rel_tol=RTOL_LAT)
+
+
 @pytest.mark.parametrize("name", sorted(PENDING))
 def test_pending_archs_raise_naming_their_queue_item(name):
     cfg = dataclasses.replace(ARCHS["gemma2-2b"], name=name)
