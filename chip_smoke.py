@@ -19,7 +19,11 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 (H=16, K=1, window 2048, no softcap; K2 over a 2048-slot
                 ring), granite-moe-3b-a800m's (H=24, K=8, d=64: 3 query heads
                 per kv head) and dbrx-132b's (H=48, K=8, d=128: 6), both
-                global without softcap, within one bf16 ulp (|err| ≤ 1e-5 +
+                global without softcap, whisper-tiny's (K1 on the encoder,
+                1500 x 1500, and on the cross-attention, 432 x 1500, both
+                not causal, no lengths; K2 on the cross-attention, T = 1500,
+                no slot positions) and llava-next-34b's (H=56, K=8, d=128,
+                causal, at its prefill lengths), within one bf16 ulp (|err| ≤ 1e-5 +
                 2^-7·|want|) of their plain versions computed in float64,
                 their faults including the last head of each group dropped
                 and, for K2, one split of its plan dropped;
@@ -121,12 +125,28 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 d_ff 10752, 48 query heads of 128 on 8) and 4 of its 40
                 layers (MODEL_RUNS: all 40 do not fit one card), on shorter
                 prompts;
+ 16. model    — phase 4 for whisper-tiny, whole (4 encoder + 4 decoder
+                layers, d_model 384, 6 heads of 64), on 1500 frames from a
+                seed (its encoder context) and text prompts (432, 300, 100,
+                17): K1 on the encoder (not causal, 1500 x 1500), the
+                decoder's self-attention and its cross-attention (not
+                causal, text x 1500), K2 on both in decode (the
+                cross-attention with no slot positions); then generate
+                again at the default cache length (the padded prompt),
+                where the longest row decodes past the last slot and drops
+                its write, as the reference does: the fp32 kernel path's
+                tokens equal to the fp32 plain path's run the same way;
+ 17. model    — phase 4 for llava-next-34b at full width and 8 of its 60
+                layers (MODEL_RUNS), 2880 patch embeddings from a seed in
+                front of text prompts (512, 300, 100, 17): K1 causal with 7
+                query heads per kv head, d 128, K2 likewise;
 then a ``kernels`` JSON line (``hook_launches``: phase 11's,
 ``plan_hook_launches``: phase 12's), and last the ``ok`` JSON line.
 Needs one card; imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import re
@@ -252,7 +272,24 @@ PROMPTS = (4700, 1500, 300, 17)   # ragged prefill, one prompt past the window
 # all 40 take 263 GB, more than one card holds): its fp32 comparison runs
 # hold a layer's weights in fp32 (13 GB) and the plain attention's fp32
 # logits, 48 heads wide, so its prompts are shorter than PROMPTS
-MODEL_RUNS = {"dbrx-132b": dict(layers=4, prompts=(1024, 700, 300, 17))}
+#
+# whisper-tiny runs whole on text prompts within its 448-token decoder
+# context (432 + 16 generated) and 1500 frames, its encoder's 30 s of audio.
+#
+# llava-next-34b at full width and 8 of its 60 layers: a layer is 5.578e8
+# parameters (1.116 GB of bf16), 8 layers and the 64000 x 7168 embedding
+# 9.84 GB; all 60 take 67.9 GB, and init draws each stacked leaf in fp32
+# first (wi alone 35 GB at 60 layers), so full depth does not fit beside
+# the checks.  Its 2880 patch embeddings (the config's num_frontend_tokens)
+# go in front of text prompts (512, 300, 100, 17), so the sequences are
+# 3392, 3180, 2980 and 2897 long.  Memory of the attention checks at 56
+# heads and S = 3392: the plain path's fp32 logits over the batch are
+# 4·56·3392²·4 B = 10.3 GB a tensor, two alive at its peak; K1's float64
+# check, one sequence at a time (flash_want), 5.2 GB a tensor.
+MODEL_RUNS = {"dbrx-132b": dict(layers=4, prompts=(1024, 700, 300, 17)),
+              "whisper-tiny": dict(prompts=(432, 300, 100, 17), frames=1500),
+              "llava-next-34b": dict(layers=8, prompts=(512, 300, 100, 17))}
+LLAVA_LENGTHS = tuple(2880 + n for n in MODEL_RUNS["llava-next-34b"]["prompts"])
 DECODE_STEPS = 16
 SERVE = {"gemma2-2b": dict(rate=8.0, duration_s=10.0, prompt_tokens=512),
          "recurrentgemma-9b": dict(rate=4.0, duration_s=5.0, prompt_tokens=512),
@@ -289,8 +326,9 @@ def flash_want(q, k, v, **kw):
     at recurrentgemma-9b's 16 heads."""
     import torch
     from repro_torch.kernels import flash_attention as fa
-    lengths = kw.pop("lengths")
-    return torch.cat([fa.plain(q[b:b + 1], k[b:b + 1], v[b:b + 1], lengths=lengths[b:b + 1],
+    lengths = kw.pop("lengths", None)
+    return torch.cat([fa.plain(q[b:b + 1], k[b:b + 1], v[b:b + 1],
+                               lengths=None if lengths is None else lengths[b:b + 1],
                                acc=torch.float64, **kw) for b in range(q.shape[0])])
 
 
@@ -450,25 +488,26 @@ def last_head_dropped(out, G: int):
     return f
 
 
-def flash_case(arch: str, H: int, K: int, window: int, softcap: float, d: int = 256):
-    """K1 at the prefill shapes of ``arch``: B=4 ragged prompts padded to the
-    longest, H query heads on K kv heads of d."""
+def flash_case(arch: str, H: int, K: int, window: int, softcap: float, d: int = 256,
+               prompts=PROMPTS):
+    """K1 at the prefill shapes of ``arch``: B=4 ragged ``prompts`` padded to
+    the longest, H query heads on K kv heads of d."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
-    B, S = len(PROMPTS), max(PROMPTS)
+    B, S = len(prompts), max(prompts)
     g = torch.Generator(device="cuda").manual_seed(1)
     # the model's layout: (B, S, heads, d), handed over as transposed views
     q, k, v = (torch.randn((B, S, h, d), generator=g, device="cuda").to(torch.bfloat16)
                .transpose(1, 2) for h in (H, K, K))
-    lengths = torch.tensor(PROMPTS, dtype=torch.int32, device="cuda")
+    lengths = torch.tensor(prompts, dtype=torch.int32, device="cuda")
     kw = dict(causal=True, window=window, softcap=softcap, lengths=lengths)
     got = fa.flash_attention(q, k, v, **kw)
     want = flash_want(q, k, v, **kw)
     # rows past a prompt's length are padding the model discards (a row
     # with no key in its window is 0 from the kernel, the mean of v from
     # the plain version); compare the valid rows
-    err, ratio = held(got, want, PROMPTS)
+    err, ratio = held(got, want, prompts)
     require(bool(torch.isfinite(got).all()), "flash_attention output finite")
     require(ratio <= 1.0, f"flash_attention {arch} window={window} max|err| {err}, "
             f"{ratio}x the limit")
@@ -483,7 +522,7 @@ def flash_case(arch: str, H: int, K: int, window: int, softcap: float, d: int = 
     if window:
         faults["window_one_tile_wide"] = fa.flash_attention(
             q, k, v, **{**kw, "window": window + tile})
-    fault_ratio = {name: held(out, want, PROMPTS)[1] for name, out in faults.items()}
+    fault_ratio = {name: held(out, want, prompts)[1] for name, out in faults.items()}
     require(all(r > 1.0 for r in fault_ratio.values()),
             f"flash_attention check rejects planted faults {fault_ratio}")
     pos = torch.arange(S, device="cuda")
@@ -492,7 +531,7 @@ def flash_case(arch: str, H: int, K: int, window: int, softcap: float, d: int = 
         mask &= pos[None, :] > pos[:, None] - window
     mask = (mask[None] & (pos[None, None, :] < lengths[:, None, None]))[:, None]
     # work these inputs need: valid query rows × keys in their mask
-    pairs = sum(sum(min(i + 1, window or i + 1) for i in range(n)) for n in PROMPTS)
+    pairs = sum(sum(min(i + 1, window or i + 1) for i in range(n)) for n in prompts)
     flops = 4.0 * d * H * pairs
     nbytes = 2.0 * d * B * S * (2 * H + 2 * K)       # q, out, k, v once
     ms_bound, by = bound(flops, nbytes)
@@ -580,6 +619,92 @@ def decode_case(arch: str, H: int, K: int, T: int, window: int, softcap: float,
                bound_ms=ms_bound, bound_by=by)
     print(f"[kernel decode_attention] {arch} H={H} K={K} d={d} T={T} ring={ring} "
           f"window={window} softcap={softcap} splits={nsplit}x{chunk} " + json.dumps(res))
+    return res
+
+
+def flash_cross_case(label: str, B: int, H: int, Sq: int, Skv: int, d: int):
+    """K1 not causal and without lengths, queries of Sq rows against Skv keys
+    (H query heads, as many kv heads): whisper-tiny's encoder (Sq = Skv) and
+    its cross-attention (text against frames), at the model's batch."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    g = torch.Generator(device="cuda").manual_seed(3)
+    q, k, v = (torch.randn((B, n, H, d), generator=g, device="cuda").to(torch.bfloat16)
+               .transpose(1, 2) for n in (Sq, Skv, Skv))
+    got = fa.flash_attention(q, k, v, causal=False)
+    want = flash_want(q, k, v, causal=False)
+    err, ratio = held(got, want)
+    require(bool(torch.isfinite(got).all()), "flash_attention output finite")
+    require(ratio <= 1.0, f"flash_attention {label} max|err| {err}, {ratio}x the limit")
+    # planted faults: the last kv tile skipped; keys read only up to Sq (a
+    # kernel that takes Skv = Sq); the causal mask applied; the head dropped
+    tile = fa.KV_TILE[q.dtype, d]
+    full = torch.full((B,), Skv, dtype=torch.int32, device="cuda")
+    faults = {"last_tile_skipped": fa.flash_attention(q, k, v, causal=False,
+                                                      lengths=full - tile),
+              "causal_mask_applied": fa.flash_attention(q, k, v, causal=True),
+              "last_head_dropped": last_head_dropped(got, 1)}
+    if Sq < Skv:
+        faults["keys_cut_at_sq"] = fa.flash_attention(q, k, v, causal=False,
+                                                      lengths=full.clamp(max=Sq))
+    fault_ratio = {name: held(out, want)[1] for name, out in faults.items()}
+    require(all(r > 1.0 for r in fault_ratio.values()),
+            f"flash_attention check rejects planted faults {fault_ratio}")
+    flops = 4.0 * d * H * B * Sq * Skv
+    nbytes = 2.0 * d * B * H * (2 * Sq + 2 * Skv)      # q, out, k, v once
+    ms_bound, by = bound(flops, nbytes)
+    res = dict(max_abs_err=err, limit_ratio=ratio, fault_ratio=fault_ratio,
+               ms=cuda_ms(lambda: fa.flash_attention(q, k, v, causal=False), 20),
+               plain_ms=cuda_ms(lambda: fa.plain(q, k, v, causal=False), 5),
+               library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), 20),
+               bound_ms=ms_bound, bound_by=by)
+    print(f"[kernel flash_attention] {label} B={B} H={H} K={H} d={d} Sq={Sq} Skv={Skv} "
+          f"causal=False " + json.dumps(res))
+    return res
+
+
+def decode_cross_case(label: str, B: int, H: int, T: int, d: int):
+    """K2 with no slot positions (q_pos and slot_pos None): one query token
+    against all T encoder slots, whisper-tiny's cross-attention in decode."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as da
+    g = torch.Generator(device="cuda").manual_seed(4)
+    q = torch.randn((B, H, d), generator=g, device="cuda").to(torch.bfloat16)
+    k, v = (torch.randn((B, T, H, d), generator=g, device="cuda").to(torch.bfloat16)
+            .transpose(1, 2) for _ in range(2))
+    lengths = torch.full((B,), T, dtype=torch.int32, device="cuda")
+    got = da.decode_attention(q, k, v, lengths)
+    want = decode_want(q, k, v, lengths)
+    err, ratio = held(got, want)
+    require(bool(torch.isfinite(got).all()), "decode_attention output finite")
+    require(ratio <= 1.0, f"decode_attention {label} max|err| {err}, {ratio}x the limit")
+    # planted faults: the last tile of slots skipped; one split of the plan
+    # (the second) dropped, through slot positions that mask it and match
+    # the unmasked ones elsewhere; the head dropped
+    tile = da.TILE[q.dtype, d]
+    nsplit, chunk = da.plan_splits(B, H, T, d, q.element_size())
+    require(nsplit > 1, f"decode_attention {label} splits the cache ({nsplit} splits)")
+    slot_pos = torch.arange(T, dtype=torch.int32, device="cuda").repeat(B, 1)
+    slot_pos[:, chunk:2 * chunk] = -1
+    faults = {"last_tile_skipped": da.decode_attention(q, k, v, lengths - tile),
+              "one_split_dropped": da.decode_attention(
+                  q, k, v, lengths, q_pos=lengths - 1, slot_pos=slot_pos),
+              "last_head_dropped": last_head_dropped(got, 1)}
+    fault_ratio = {name: held(out, want)[1] for name, out in faults.items()}
+    require(all(r > 1.0 for r in fault_ratio.values()),
+            f"decode_attention check rejects planted faults {fault_ratio}")
+    nbytes = 2.0 * (2 * B * T * H * d + 2 * B * H * d)   # K/V, q, out
+    ms_bound, by = bound(4.0 * d * H * B * T, nbytes)
+    res = dict(max_abs_err=err, limit_ratio=ratio, fault_ratio=fault_ratio,
+               ms=cuda_ms(lambda: da.decode_attention(q, k, v, lengths), 50),
+               plain_ms=cuda_ms(lambda: da.plain(q, k, v, lengths), 10),
+               library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                   q[:, :, None], k, v), 50),
+               bound_ms=ms_bound, bound_by=by)
+    print(f"[kernel decode_attention] {label} B={B} H={H} K={H} d={d} T={T} q_pos=None "
+          f"slot_pos=None splits={nsplit}x{chunk} " + json.dumps(res))
     return res
 
 
@@ -834,25 +959,51 @@ def layer_counts(cfg):
             kinds.count(RWKV6))
 
 
-def model_setup(arch: str, layers: int = 0, prompts=PROMPTS):
-    """Full-width ``arch`` (its first ``layers`` layers when given) with
-    random bf16 weights from a seed, and the ragged prompt batch: (cfg,
-    model, params, tokens, lengths, max_len)."""
+def kernel_calls(cfg):
+    """(launches of each kernel per prefill, per decode step) of a model."""
+    zero = {name: 0 for name in KERNELS}
+    if cfg.is_encdec:
+        # K1: each encoder layer, and each decoder layer's self- and
+        # cross-attention; K2: each decoder layer's two in decode
+        return ({**zero, "flash_attention": cfg.encoder_layers + 2 * cfg.num_layers},
+                {**zero, "decode_attention": 2 * cfg.num_layers})
+    n_attn, n_rec, n_rwkv = layer_counts(cfg)
+    return ({**zero, "flash_attention": n_attn, "rglru_scan": n_rec, "wkv6": n_rwkv},
+            {**zero, "decode_attention": n_attn})
+
+
+def model_setup(arch: str, run: dict):
+    """Full-width ``arch`` (its first ``run["layers"]`` layers when given)
+    with random bf16 weights from a seed, and the ragged batch of
+    ``run["prompts"]`` (PROMPTS by default): (cfg, model, params, tokens,
+    lengths, max_len, extra).  ``extra`` holds the stub frontend's inputs
+    from a seed, fp32: an encoder-decoder's ``frames`` (B, run["frames"],
+    d_model), a VLM's ``patches`` (B, num_frontend_tokens, d_model), which
+    go in front of the text, so ``lengths`` and ``max_len`` count them."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
     from repro_torch.serving.engine import serving_config
     cfg = serving_config(get_config(arch))
-    if layers:
-        cfg = dataclasses.replace(cfg, num_layers=layers)
+    if run.get("layers"):
+        cfg = dataclasses.replace(cfg, num_layers=run["layers"])
     model = build_model(cfg)
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    prompts = run.get("prompts", PROMPTS)
     B, S = len(prompts), max(prompts)
     rng = np.random.default_rng(0)
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S))
                               .astype(np.int32)).cuda()
-    lengths = torch.tensor(prompts, dtype=torch.int32, device="cuda")
-    return cfg, model, params, tokens, lengths, S + DECODE_STEPS
+    g = torch.Generator(device="cuda").manual_seed(1)
+    extra, P = {}, 0
+    if cfg.is_encdec:
+        extra["frames"] = torch.randn((B, run["frames"], cfg.d_model), generator=g,
+                                      device="cuda")
+    elif cfg.frontend == "vision_patches":
+        P = cfg.num_frontend_tokens
+        extra["patches"] = torch.randn((B, P, cfg.d_model), generator=g, device="cuda")
+    lengths = torch.tensor(prompts, dtype=torch.int32, device="cuda") + P
+    return cfg, model, params, tokens, lengths, P + S + DECODE_STEPS, extra
 
 
 def checked_kernels(worst: dict, reported: dict) -> dict:
@@ -872,7 +1023,8 @@ def checked_kernels(worst: dict, reported: dict) -> dict:
 
     def checked_flash(q, k, v, **kw):
         got = fa.flash_attention(q, k, v, **kw)
-        keep("flash_attention", held(got, flash_want(q, k, v, **kw), kw["lengths"].tolist())[1])
+        rows = None if kw.get("lengths") is None else kw["lengths"].tolist()
+        keep("flash_attention", held(got, flash_want(q, k, v, **kw), rows)[1])
         return got
 
     def checked_decode(q, k, v, lengths, **kw):
@@ -960,35 +1112,46 @@ def routing_flips(ref: Routing, run: Routing) -> list:
     return out
 
 
-def prefill_and_step(m, params, tokens, lengths, max_len, swap: dict, tok=None,
-                     route: Routing = None):
-    """A prefill of ``m`` and one decode step of ``tok`` (the prefill's greedy
-    token when None), with ``swap``'s functions in place of those kernels in
-    ``ops`` and ``route`` in place of the MoE router (the package has no
-    switch; restored after).  Returns (prefill logits, decode logits, token,
-    {"prefill": launches, "decode_step": launches})."""
-    import torch
+@contextlib.contextmanager
+def swapped(swap: dict):
+    """``swap``'s functions in place of those kernels in ``ops`` (the package
+    has no switch), restored after."""
     from repro_torch.kernels import ops
-    from repro_torch.models import moe
-    from repro_torch.serving.engine import greedy_sample, make_decode_fn, make_prefill_fn
     kernels = {name: getattr(ops, name) for name in swap}
     for name, fn in swap.items():
         setattr(ops, name, fn)
+    try:
+        yield
+    finally:
+        for name, fn in kernels.items():
+            setattr(ops, name, fn)
+
+
+def prefill_and_step(m, params, tokens, lengths, max_len, extra: dict, swap: dict,
+                     tok=None, route: Routing = None):
+    """A prefill of ``m`` (with the frontend's inputs ``extra``) and one
+    decode step of ``tok`` (the prefill's greedy token when None), with
+    ``swap``'s functions in place of those kernels in ``ops`` and ``route``
+    in place of the MoE router (the package has no switch; restored after).
+    Returns (prefill logits, decode logits, token, {"prefill": launches,
+    "decode_step": launches})."""
+    import torch
+    from repro_torch.models import moe
+    from repro_torch.serving.engine import greedy_sample, make_decode_fn, make_prefill_fn
     router = moe._route
     if route is not None:
         moe._route = route
     launches = {}
     try:
-        reset_launches()
-        cache, pre = make_prefill_fn(m, max_len)(params, tokens, lengths)
-        launches["prefill"] = read_launches()
-        tok = greedy_sample(pre) if tok is None else tok
-        reset_launches()
-        _, dec = make_decode_fn(m)(params, cache, tok)
-        launches["decode_step"] = read_launches()
+        with swapped(swap):
+            reset_launches()
+            cache, pre = make_prefill_fn(m, max_len)(params, tokens, lengths, **extra)
+            launches["prefill"] = read_launches()
+            tok = greedy_sample(pre) if tok is None else tok
+            reset_launches()
+            _, dec = make_decode_fn(m)(params, cache, tok)
+            launches["decode_step"] = read_launches()
     finally:
-        for name, fn in kernels.items():
-            setattr(ops, name, fn)
         moe._route = router
     for what, t in (("prefill", pre), ("decode", dec)):
         require(tuple(t.shape) == (len(tokens), m.cfg.vocab_size), f"{what} logits shape")
@@ -996,13 +1159,13 @@ def prefill_and_step(m, params, tokens, lengths, max_len, swap: dict, tok=None,
     return pre, dec, tok, launches
 
 
-def step_times(m, params, tokens, lengths, max_len) -> dict:
+def step_times(m, params, tokens, lengths, max_len, extra: dict) -> dict:
     """The generate run's steps timed apart, after it: a prefill, then the
     mean of DECODE_STEPS decode steps, each ended by a synchronise."""
     import torch
     from repro_torch.serving.engine import greedy_sample, make_decode_fn, make_prefill_fn
     t0 = time.perf_counter()
-    cache, logits = make_prefill_fn(m, max_len)(params, tokens, lengths)
+    cache, logits = make_prefill_fn(m, max_len)(params, tokens, lengths, **extra)
     tok = greedy_sample(logits)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
@@ -1067,9 +1230,9 @@ def phase_model(arch: str):
     torch.cuda.reset_peak_memory_stats()
     run = MODEL_RUNS.get(arch, {})
     prompts = run.get("prompts", PROMPTS)
-    cfg, model, params, tokens, lengths, max_len = model_setup(arch, run.get("layers", 0),
-                                                               prompts)
+    cfg, model, params, tokens, lengths, max_len, extra = model_setup(arch, run)
     n_attn, n_rec, n_rwkv = layer_counts(cfg)
+    per_step = dict(zip(("prefill", "decode_step"), kernel_calls(cfg)))
     B = len(prompts)
     # the weights' init draws each stacked leaf in fp32 first: its peak apart
     init_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -1078,22 +1241,26 @@ def phase_model(arch: str):
     # the main path: counts at 0 just before, read just after
     reset_launches()
     t0 = time.perf_counter()
-    out = make_generate_fn(model, DECODE_STEPS, max_len=max_len)(params, tokens, lengths)
+    out = make_generate_fn(model, DECODE_STEPS, max_len=max_len)(params, tokens, lengths,
+                                                                 **extra)
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t0
     launches = read_launches()
-    print(f"[model] {arch} layers={cfg.num_layers} d_model={cfg.d_model} "
-          f"generate B={B} prompts={list(prompts)} "
-          f"steps={DECODE_STEPS} s={gen_s:.3f} launches={json.dumps(launches)}")
-    want = {"flash_attention": n_attn, "decode_attention": n_attn * DECODE_STEPS,
-            "rglru_scan": n_rec, "wkv6": n_rwkv, "int8_matmul": 0}
+    print(f"[model] {arch} layers={cfg.num_layers}"
+          + (f" encoder_layers={cfg.encoder_layers}" if cfg.is_encdec else "")
+          + f" d_model={cfg.d_model} generate B={B} prompts={list(prompts)} "
+          f"{ {k: tuple(v.shape) for k, v in extra.items()} } lengths={lengths.tolist()} "
+          f"max_len={max_len} steps={DECODE_STEPS} s={gen_s:.3f} "
+          f"launches={json.dumps(launches)}")
+    want = {k: per_step["prefill"][k] + DECODE_STEPS * per_step["decode_step"][k]
+            for k in KERNELS}
     require(launches == want, f"generate launches {launches} != {want}")
     require(tuple(out.shape) == (B, DECODE_STEPS + 1), f"tokens shape {out.shape}")
     require(bool(((out >= 0) & (out < cfg.vocab_size)).all()), "token ids in range")
 
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"[model] {arch} step times (host clock, synchronised): "
-          f"{json.dumps(step_times(model, params, tokens, lengths, max_len))}")
+          f"{json.dumps(step_times(model, params, tokens, lengths, max_len, extra))}")
 
     # The same prefill and first decode step through the kernels and through
     # the plain versions, all decoding the same token, with bf16 activations
@@ -1107,7 +1274,7 @@ def phase_model(arch: str):
     worst = {name: 0.0 for name in MODEL_KERNELS}
     reported = {"wkv6_output": 0.0, "wkv6_state": 0.0, "wkv6_ulp_only": 0.0}
     model32 = fp32_activations(cfg)
-    args = (params, tokens, lengths, max_len)
+    args = (params, tokens, lengths, max_len, extra)
     runs, step_launches, routes = {}, {}, {}
     tok = ref = None
     cases = [(("bf16", "kernel"), model, checked_kernels(worst, reported)),
@@ -1138,10 +1305,6 @@ def phase_model(arch: str):
                                    "through bf16")
         report_routing(arch, ref, unpinned, routes["fp32", "kernel"],
                        routes["fp32", "control"])
-    per_step = {"prefill": {"flash_attention": n_attn, "decode_attention": 0,
-                            "rglru_scan": n_rec, "wkv6": n_rwkv, "int8_matmul": 0},
-                "decode_step": {"flash_attention": 0, "decode_attention": n_attn,
-                                "rglru_scan": 0, "wkv6": 0, "int8_matmul": 0}}
     for what, want in per_step.items():
         got = step_launches["fp32", "kernel"][what]
         require(got == want, f"{what} launches {got} != {want}")
@@ -1187,7 +1350,42 @@ def phase_model(arch: str):
     require(d32 <= logit_tol, "fp32 kernel vs plain logits")
     require(bool(same32.all()), "fp32 first greedy token agrees")
     require(far_k <= BF16_DRIFT_RATIO * far_p, "bf16 kernel path drift")
+    if cfg.is_encdec:
+        past_the_last_slot(arch, model, model32, params, tokens, lengths, extra,
+                           per_step)
     return launches
+
+
+def past_the_last_slot(arch, model, model32, params, tokens, lengths, extra, per_step):
+    """An encoder-decoder generating at the default cache length, the padded
+    prompt: its longest row decodes past the last slot from the first step
+    on, and each such step drops its own k/v, as the reference's scatter
+    drops an out-of-range index.  Through the kernels and through the plain
+    versions, in fp32 (tokens held equal) and in bf16 (reported: there two
+    summation orders may flip a near tie); kernel launch counts exact."""
+    import torch
+    from repro_torch.serving.engine import make_generate_fn
+    require(int(lengths.max()) == tokens.shape[1], "the longest prompt fills the cache")
+    want = {k: per_step["prefill"][k] + DECODE_STEPS * per_step["decode_step"][k]
+            for k in KERNELS}
+    toks = {}
+    for dt, m in (("bf16", model), ("fp32", model32)):
+        for path, swap in (("kernel", {}), ("plain", plain_kernels())):
+            reset_launches()
+            with swapped(swap):
+                toks[dt, path] = make_generate_fn(m, DECODE_STEPS)(params, tokens, lengths,
+                                                                   **extra)
+            if path == "kernel":
+                got = read_launches()
+                require(got == want, f"default-length generate launches {got} != {want}")
+    same = {dt: (toks[dt, "kernel"] == toks[dt, "plain"]).all(1).tolist()
+            for dt in ("bf16", "fp32")}
+    print(f"[model] {arch} generate at the default cache length {tokens.shape[1]} "
+          f"(row 0 past the last slot for all {DECODE_STEPS} steps): tokens of the kernel "
+          f"path equal the plain path's, per row, fp32={same['fp32']} bf16={same['bf16']} "
+          f"(bf16 not held); fp32 kernel-path tokens {toks['fp32', 'kernel'].tolist()}")
+    require(bool(torch.equal(toks["fp32", "kernel"], toks["fp32", "plain"])),
+            "default-length generate: fp32 kernel-path tokens equal the plain path's")
 
 
 def phase_serving(arch: str):
@@ -1788,6 +1986,19 @@ def main() -> int:
             flash_case("dbrx-132b", 48, 8, 0, 0.0, d=128)]),
         ("decode_attention", "dbrx-132b", ""): merge([
             decode_case("dbrx-132b", 48, 8, 4736, 0, 0.0, ring=False, d=128)]),
+        # the encoder-decoder: not causal, no lengths; Sq != Skv on the
+        # cross-attention, and K2 without slot positions
+        ("flash_attention", "whisper-tiny", "encoder self-attention, 1500 x 1500"): merge([
+            flash_cross_case("whisper-tiny encoder", 4, 6, 1500, 1500, 64)]),
+        ("flash_attention", "whisper-tiny", "cross-attention in prefill, 432 x 1500"): merge([
+            flash_cross_case("whisper-tiny cross-attention", 4, 6, 432, 1500, 64)]),
+        ("decode_attention", "whisper-tiny", "cross-attention in decode, T = 1500"): merge([
+            decode_cross_case("whisper-tiny cross-attention", 8, 6, 1500, 64)]),
+        # the VLM: 7 query heads per kv head, at its prefill lengths
+        ("flash_attention", "llava-next-34b", ""): merge([
+            flash_case("llava-next-34b", 56, 8, 0, 0.0, d=128, prompts=LLAVA_LENGTHS)]),
+        ("decode_attention", "llava-next-34b", ""): merge([
+            decode_case("llava-next-34b", 56, 8, 4736, 0, 0.0, ring=False, d=128)]),
         ("rglru_scan", "recurrentgemma-9b", ""): merge([rglru_case()]),
         ("rglru_scan", "calibration",
          f"bf16 a/b/seq, timed at recurrentgemma-9b's prefill shape B={len(PROMPTS)} "
@@ -1821,6 +2032,10 @@ def main() -> int:
     phase_serving("granite-moe-3b-a800m")
     torch.cuda.empty_cache()
     launches["dbrx-132b"] = phase_model("dbrx-132b")
+    # phases 16-17: the encoder-decoder and VLM families
+    for arch in ("whisper-tiny", "llava-next-34b"):
+        torch.cuda.empty_cache()
+        launches[arch] = phase_model(arch)
     src = "src/repro_torch/kernels/csrc/"
     replaces = {"flash_attention": "src/repro/kernels/flash_attention.py:94",
                 "decode_attention": "src/repro/kernels/decode_attention.py:73",
@@ -1835,7 +2050,7 @@ def main() -> int:
              launches_on=("calibration sweep, all its dtypes together"
                           if arch == "calibration" else
                           f"generate, {MODEL_RUNS[arch]['layers']} layers"
-                          if arch in MODEL_RUNS else "generate"),
+                          if MODEL_RUNS.get(arch, {}).get("layers") else "generate"),
              hook_launches=hook[kernel], plan_hook_launches=plan_hook[kernel], **rec)
         for (kernel, arch, variant), rec in records.items()]}))
     print(json.dumps({"ok": True, "device": {

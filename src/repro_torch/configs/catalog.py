@@ -1,10 +1,9 @@
-"""The architectures the port serves — the dense homogeneous stacks, the MoE
-stacks, the RG-LRU hybrid and the attention-free RWKV6 stack — copied from
-``repro.configs.catalog`` with the same values.
-
-The encoder-decoder and VLM archs of the reference catalog need model code
-the port does not have yet; ``get_config`` names the ROADMAP item that
-brings each.
+"""The 10 architectures of the reference catalog, copied from
+``repro.configs.catalog`` with the same values: the dense homogeneous
+stacks, the MoE stacks, the RG-LRU hybrid, the attention-free RWKV6 stack,
+the encoder-decoder whisper-tiny and the VLM llava-next-34b.  Each also
+exists as its own module (``repro_torch.configs.<arch_id>``) exposing
+``CONFIG``.
 """
 from __future__ import annotations
 
@@ -12,6 +11,13 @@ from typing import Dict
 
 from repro_torch.models.config import (ATTN_GLOBAL, ATTN_LOCAL, RGLRU, RWKV6,
                                        ModelConfig)
+
+# [arXiv:2212.04356] — enc-dec, conv frontend (stub)
+WHISPER_TINY = ModelConfig(
+    name="whisper-tiny", family="audio",
+    num_layers=4, encoder_layers=4, d_model=384, num_heads=6, num_kv_heads=6,
+    head_dim=64, d_ff=1536, vocab_size=51_865,
+    frontend="audio_frames")
 
 # [arXiv:2402.19427] — RG-LRU + local attn, 1 attention per 2 recurrent
 RECURRENTGEMMA_9B = ModelConfig(
@@ -66,22 +72,21 @@ RWKV6_7B = ModelConfig(
     d_ff=14_336, vocab_size=65_536,
     layer_pattern=(RWKV6,), rwkv_head_dim=64)
 
-ARCHS: Dict[str, ModelConfig] = {
-    c.name: c for c in (RECURRENTGEMMA_9B, GRANITE_MOE_3B, DBRX_132B, GEMMA2_2B,
-                        GRANITE_3_2B, GRANITE_8B, YI_9B, RWKV6_7B)}
+# [hf:llava-hf/llava-v1.6] backbone — anyres tiling stub frontend
+LLAVA_NEXT_34B = ModelConfig(
+    name="llava-next-34b", family="vlm",
+    num_layers=60, d_model=7168, num_heads=56, num_kv_heads=8, head_dim=128,
+    d_ff=20_480, vocab_size=64_000,
+    frontend="vision_patches", num_frontend_tokens=2880)
 
-# Architectures of the reference catalog that wait for later slices of the
-# port, with the ROADMAP queue item that brings each.
-PENDING: Dict[str, str] = {
-    "whisper-tiny": "ROADMAP M10 (encoder-decoder)",
-    "llava-next-34b": "ROADMAP M10 (VLM prefix embeddings)",
+ARCHS: Dict[str, ModelConfig] = {
+    c.name: c for c in (
+        WHISPER_TINY, RECURRENTGEMMA_9B, GRANITE_MOE_3B, DBRX_132B, GEMMA2_2B,
+        GRANITE_3_2B, GRANITE_8B, YI_9B, RWKV6_7B, LLAVA_NEXT_34B)
 }
 
 
 def get_config(name: str) -> ModelConfig:
-    if name in PENDING:
-        raise NotImplementedError(
-            f"{name} is not ported yet; it comes with {PENDING[name]}")
     if name not in ARCHS:
         raise KeyError(f"unknown arch {name!r}; have {sorted(ARCHS)}")
     return ARCHS[name]

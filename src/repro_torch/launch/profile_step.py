@@ -5,13 +5,16 @@ full-width model under ``torch.profiler``, on the card.
 
 runs a model of the catalog (gemma2-2b unless ``--arch`` names another) at
 batch 8 with 512-token prompts and 15 decode steps (the module constants
-below), and prints, for the prefill and for the mean decode step: wall time
-(host clock around work that ends in ``torch.cuda.synchronize()``), device
-busy time (the union of the kernel intervals in the trace), the device's
-idle share, the number of kernels launched, the kernels that take the most
-device time, the device time of each of the port's own kernels, and the
-least time a step that reads every weight once could take
-(``weight_read_bound_ms``: the parameter bytes over the card's 3.35 TB/s).
+below; an encoder-decoder, whisper-tiny, gets 1500 stub frames from a seed,
+its encoder's 30 s of audio, and 432-token prompts, so that prompt and steps
+stay within its 448-token decoder context), and prints, for the prefill and
+for the mean decode step: wall time (host clock around work that ends in
+``torch.cuda.synchronize()``), device busy time (the union of the kernel
+intervals in the trace), the device's idle share, the number of kernels
+launched, the kernels that take the most device time, the device time of
+each of the port's own kernels, and the least time a step that reads every
+weight once could take (``weight_read_bound_ms``: the parameter bytes over
+the card's 3.35 TB/s).
 For an MoE arch it also gives the device time of the MoE block's parts
 (``moe_ms``: route, dispatch, the expert products, gather; "other" the
 block's remaining elementwise work) and the expert weights' share of the
@@ -39,6 +42,8 @@ from repro_torch.serving.engine import (greedy_sample, make_decode_fn,
 BATCH = 8
 PROMPT_TOKENS = 512
 DECODE_STEPS = 15
+ENCDEC_FRAMES = 1500
+ENCDEC_PROMPT_TOKENS = 432
 # the MoE block's parts, each a function of models/moe.py the profile wraps
 # in a span of its own; "block" spans the whole of moe_apply
 MOE_SPANS = {"block": "moe_apply", "route": "_route", "dispatch": "_dispatch_indices",
@@ -124,15 +129,19 @@ def main() -> None:
     if cfg.is_moe:
         experts = cfg.num_layers * 3 * cfg.num_experts * cfg.d_model * cfg.d_ff
         bounds["expert_read_bound_ms"] = experts * width / bw * 1e3
-    B, S = BATCH, PROMPT_TOKENS
+    B, S = BATCH, ENCDEC_PROMPT_TOKENS if cfg.is_encdec else PROMPT_TOKENS
     toks = torch.ones((B, S), dtype=torch.int32, device=dev)
     lens = torch.full((B,), S, dtype=torch.int32, device=dev)
+    extra = {}
+    if cfg.is_encdec:
+        extra["frames"] = torch.randn((B, ENCDEC_FRAMES, cfg.d_model), device=dev,
+                                      generator=torch.Generator(device=dev).manual_seed(1))
     prefill = make_prefill_fn(model, S + DECODE_STEPS + 1)
     decode = make_decode_fn(model)
     state = {}
 
     def run_prefill():
-        state["cache"], logits = prefill(params, toks, lens)
+        state["cache"], logits = prefill(params, toks, lens, **extra)
         state["tok"] = greedy_sample(logits)
 
     def run_decode():
@@ -149,6 +158,7 @@ def main() -> None:
             wall, busy, count, top, port, moe_ms = _window(fn, n)
         print(json.dumps({
             "phase": name, "arch": arch, "batch": B, "prompt_tokens": S,
+            **({"frames": ENCDEC_FRAMES} if cfg.is_encdec else {}),
             "wall_ms": wall, "device_busy_ms": busy,
             "device_idle_share": 1.0 - busy / wall, "kernels": count,
             "top_kernels_ms": {k[:80]: v for k, v in top},

@@ -1,22 +1,25 @@
 """Turn the reference's parameter tree into the port's parameters.
 
-The input is ``repro.models.transformer.DecoderLM.init``'s pytree with every
-leaf already turned into a numpy array (``np.asarray`` on the JAX side), so
-this module needs no JAX.  The port keeps the reference's layouts — the
-stacked leading ``layers`` axis, or a hybrid's stacked ``periods`` and
-unstacked ``tail``, ``wq``/``wk``/``wv`` as (D, heads, hd) and ``wo`` as
-(H, hd, D), an MoE block's ``router`` (D, E) and experts ``wi``/``wg``
-(E, D, F) and ``wo`` (E, F, D) — so conversion checks every key and shape
-against ``DecoderLM.param_shapes`` and copies the values; a tree with
-another expert count is refused.
+The input is the pytree of ``repro.models.transformer.DecoderLM.init`` or
+``repro.models.encdec.EncDecLM.init`` with every leaf already turned into a
+numpy array (``np.asarray`` on the JAX side), so this module needs no JAX.
+The port keeps the reference's layouts — the stacked leading ``layers``
+axis, or a hybrid's stacked ``periods`` and unstacked ``tail``, an
+encoder-decoder's stacked ``enc_layers`` and ``dec_layers`` (with ``xattn``),
+``wq``/``wk``/``wv`` as (D, heads, hd) and ``wo`` as (H, hd, D), an MoE
+block's ``router`` (D, E) and experts ``wi``/``wg`` (E, D, F) and ``wo``
+(E, F, D) — so conversion checks every key and shape against the model's
+``param_shapes`` and copies the values; a tree with another expert count,
+or a decoder layer without cross-attention, is refused.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Union
 
 import numpy as np
 import torch
 
+from repro_torch.models.encdec import EncDecLM
 from repro_torch.models.layers import F32_LEAVES
 from repro_torch.models.transformer import DecoderLM
 
@@ -29,7 +32,8 @@ def _tensor(arr: np.ndarray, dtype, device) -> torch.Tensor:
     return t.to(device=device, dtype=dtype)
 
 
-def params_from_reference(tree: Dict[str, Any], model: DecoderLM) -> Dict[str, Any]:
+def params_from_reference(tree: Dict[str, Any],
+                          model: Union[DecoderLM, EncDecLM]) -> Dict[str, Any]:
     """numpy pytree of the reference model → the port's parameter dict, in
     the model's parameter dtype on its device; ``F32_LEAVES`` stay fp32, as
     the reference keeps them."""

@@ -137,6 +137,31 @@ def attention_apply(params: Params, x: torch.Tensor, positions: torch.Tensor,
     return y
 
 
+def cross_attention_kv(params: Params, enc_out: torch.Tensor):
+    """Cross-attention k and v from the encoder output (no RoPE), (B, T, K,
+    hd) each."""
+    return project(enc_out, params["wk"]), project(enc_out, params["wv"])
+
+
+def cross_attention_apply(params: Params, x: torch.Tensor, kv) -> torch.Tensor:
+    """Cross-attention: queries from x (B, S, D) against precomputed ``kv``
+    ((B, T, K, hd) each): no RoPE, not causal, every encoder key valid.  A
+    sequence goes through flash attention (Sq = S, Skv = T); one decode
+    token (S = 1) through decode attention over all T slots (no slot
+    positions: the query may see every t < T)."""
+    k, v = kv
+    B, S = x.shape[:2]
+    q = project(x, params["wq"])
+    if S == 1:
+        full = torch.full((B,), k.shape[1], dtype=torch.int32, device=x.device)
+        out = ops.decode_attention(q[:, 0], k.transpose(1, 2), v.transpose(1, 2),
+                                   full)[:, None]
+    else:
+        out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                  causal=False).transpose(1, 2)
+    return project_out(out, params["wo"])
+
+
 # --------------------------------------------------------------------------
 # gated MLP (SwiGLU)
 # --------------------------------------------------------------------------

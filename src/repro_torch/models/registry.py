@@ -2,7 +2,8 @@
 ``repro.models.registry``.
 
 ``param_shapes`` reads the parameter tree's shapes off the model
-(``DecoderLM.param_shapes``), which allocates nothing; the counting rules are
+(``DecoderLM.param_shapes`` or ``EncDecLM.param_shapes``), which allocates
+nothing; the counting rules are
 the reference's: a leaf under a path key ``embed`` is skipped where
 embeddings are excluded, and MoE expert weights count k/E of themselves
 toward the active parameters.
@@ -10,20 +11,20 @@ toward the active parameters.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Iterator, Tuple
+from typing import Any, Dict, Iterator, Tuple, Union
 
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.encdec import EncDecLM
 from repro_torch.models.transformer import DecoderLM
 
 
-def build_model(cfg: ModelConfig, device=None) -> DecoderLM:
+def build_model(cfg: ModelConfig, device=None) -> Union[DecoderLM, EncDecLM]:
     if cfg.is_encdec:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder models come with ROADMAP M10")
+        return EncDecLM(cfg, device)
     return DecoderLM(cfg, device)
 
 
-def param_shapes(model: DecoderLM) -> Dict[str, Any]:
+def param_shapes(model: Union[DecoderLM, EncDecLM]) -> Dict[str, Any]:
     """The parameter tree with each leaf's shape (no allocation)."""
     return model.param_shapes()
 

@@ -19,7 +19,10 @@ carries per-sequence ``lengths`` so ragged batching works.  An MoE config
 (``cfg.is_moe``) gives every layer's FFN the capacity-based top-k experts of
 ``models/moe.py``; ``forward`` returns their load-balancing loss summed over
 layers, which ``prefill`` and ``decode_step`` discard, as the reference
-does.  Encoder-decoder configs wait for a later slice of the port.
+does.  A VLM (llava-next-34b) hands ``forward`` and ``prefill`` its stub
+frontend's patch embeddings as ``prefix_embeds`` (B, P, D): they go in front
+of the text, unscaled, and positions and ``lengths`` count patches plus text.
+Encoder-decoder configs are ``models/encdec.py``'s ``EncDecLM``.
 """
 from __future__ import annotations
 
@@ -54,10 +57,8 @@ class DecoderLM:
 
     def __init__(self, cfg: ModelConfig, device=None):
         if cfg.is_encdec:
-            raise NotImplementedError(
-                f"{cfg.name}: the port's DecoderLM runs dense and MoE attention "
-                "stacks, the RG-LRU hybrid and RWKV6 stacks; this model comes "
-                "with ROADMAP M10 (encoder-decoder)")
+            raise ValueError(f"{cfg.name}: an encoder-decoder config is "
+                             "models/encdec.py's EncDecLM (build_model chooses)")
         pattern = set(cfg.layer_pattern)
         if RWKV6 in pattern and pattern != {RWKV6}:
             raise ValueError(
@@ -161,12 +162,16 @@ class DecoderLM:
         return L.cast_layer_params(self._at(params, i), self.cfg.activation_dtype)
 
     # ------------------------------------------------------------- embeddings
-    def _embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
+    def _embed(self, params, tokens: torch.Tensor, prefix_embeds=None) -> torch.Tensor:
+        """Scaled token embeddings, after ``prefix_embeds`` (B, P, D) cast to
+        the activation dtype and left unscaled, as in the reference."""
         act = self.cfg.activation_dtype
         x = params["embed"][tokens].to(act)
         # the scale is rounded to the activation dtype first, as in the reference
-        return x * torch.tensor(math.sqrt(self.cfg.d_model), dtype=act,
-                                device=x.device)
+        x = x * torch.tensor(math.sqrt(self.cfg.d_model), dtype=act, device=x.device)
+        if prefix_embeds is not None:
+            x = torch.cat([prefix_embeds.to(device=x.device, dtype=act), x], dim=1)
+        return x
 
     def _logits(self, params, x: torch.Tensor) -> torch.Tensor:
         logits = x.float() @ params["embed"].float().T
@@ -197,14 +202,15 @@ class DecoderLM:
         return torch.arange(S, device=self.device).expand(B, S)
 
     # --------------------------------------------------------------- forward
-    def forward(self, params, tokens, *, lengths=None,
+    def forward(self, params, tokens, *, prefix_embeds=None, lengths=None,
                 return_hidden: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
         """Teacher-forced pass → (logits (B, S, V), aux loss: the MoE blocks'
         load-balancing losses summed over layers, fp32 0.0 without MoE); with
-        ``return_hidden`` the final-norm hidden states instead of logits."""
+        ``return_hidden`` the final-norm hidden states instead of logits.
+        With ``prefix_embeds`` S counts the prefix too."""
         c = self.cfg
-        B, S = tokens.shape
-        x = self._embed(params, tokens)
+        x = self._embed(params, tokens, prefix_embeds)
+        B, S = x.shape[:2]
         positions = self._positions(B, S)
         aux = torch.zeros((), device=x.device)
         for i, kind in enumerate(self.kinds):
@@ -355,11 +361,14 @@ class DecoderLM:
         return x + h[:, None]
 
     # ---------------------------------------------------------------- prefill
-    def prefill(self, params, cache, tokens, lengths) -> Tuple[Dict, torch.Tensor]:
-        """Process prompts (right-padded to S) → (cache, last-token logits)."""
-        B, S = tokens.shape
+    def prefill(self, params, cache, tokens, lengths,
+                prefix_embeds=None) -> Tuple[Dict, torch.Tensor]:
+        """Process prompts (right-padded to S) → (cache, last-token logits);
+        with ``prefix_embeds`` (B, P, D) in front, ``lengths`` count the
+        prefix and the text."""
         lengths = lengths.to(device=self.device, dtype=torch.int32)
-        x = self._embed(params, tokens)
+        x = self._embed(params, tokens, prefix_embeds)
+        B, S = x.shape[:2]
         positions = self._positions(B, S)
         valid = positions < lengths[:, None]
         for i, kind in enumerate(self.kinds):

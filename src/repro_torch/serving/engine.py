@@ -23,10 +23,23 @@ def serving_config(cfg: ModelConfig) -> ModelConfig:
 
 
 def make_prefill_fn(model, max_len: Optional[int] = None) -> Callable:
-    def prefill_step(params, tokens, lengths):
+    """→ ``prefill_step(params, tokens, lengths, frames=None, patches=None)``.
+    The cache holds ``max_len`` slots, or the padded prompt: S, plus P for a
+    VLM's ``patches`` (B, P, D), which go in front of the text.  An
+    encoder-decoder model needs its ``frames`` (B, S_enc, D), as in the
+    reference, whose step reads ``frames.shape[1]``."""
+    cfg = model.cfg
+
+    def prefill_step(params, tokens, lengths, frames=None, patches=None):
         B, S = tokens.shape
-        cache = model.init_cache(B, max_len or S)
-        return model.prefill(params, cache, tokens, lengths)
+        cache_len = max_len or (S + (patches.shape[1] if patches is not None else 0))
+        if cfg.is_encdec:
+            if frames is None:
+                raise ValueError(f"{cfg.name}: an encoder-decoder prefill needs frames")
+            cache = model.init_cache(B, cache_len, enc_len=frames.shape[1])
+            return model.prefill(params, cache, tokens, lengths, frames=frames)
+        return model.prefill(params, model.init_cache(B, cache_len), tokens, lengths,
+                             prefix_embeds=patches)
     return prefill_step
 
 
@@ -45,13 +58,16 @@ def make_generate_fn(model, steps: int, max_len: Optional[int] = None) -> Callab
 
     ``max_len`` sizes the cache.  It defaults to the padded prompt length,
     as in the reference, so a sequence that fills its prompt wraps the ring
-    while decoding; pass prompt + steps to keep every position.
+    while decoding (an encoder-decoder's cache is no ring: past its last
+    slot, a step drops its own k/v, as the reference's scatter does); pass
+    prompt + steps to keep every position.  ``generate``'s keywords
+    (``frames``, ``patches``) go to the prefill.
     """
     prefill = make_prefill_fn(model, max_len)
     decode = make_decode_fn(model)
 
-    def generate(params, tokens, lengths):
-        cache, logits = prefill(params, tokens, lengths)
+    def generate(params, tokens, lengths, **kw):
+        cache, logits = prefill(params, tokens, lengths, **kw)
         out = [greedy_sample(logits)]
         for _ in range(steps):
             cache, logits = decode(params, cache, out[-1])

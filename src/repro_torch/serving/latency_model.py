@@ -17,7 +17,6 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 
 from repro_torch import hw as hw_lib
-from repro_torch.configs.catalog import PENDING
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.registry import (build_model, count_params,
                                          model_flops_per_token, param_shapes)
@@ -248,9 +247,6 @@ class LatencyModel(LatencyOracle):
     speed_mode: Optional[SpeedMode] = None
 
     def __post_init__(self):
-        if self.cfg.name in PENDING:
-            raise NotImplementedError(f"{self.cfg.name} is not ported yet; "
-                                      f"it comes with {PENDING[self.cfg.name]}")
         self.flops_per_token = model_flops_per_token(self.cfg) / 3.0  # fwd
         # count every param (incl. all experts) for weight traffic; the
         # shapes come from a model on the meta device, which allocates

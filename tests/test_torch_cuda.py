@@ -217,6 +217,91 @@ def test_flash_kernel_window_edge_on_a_tile_boundary(cuda, window, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("Sq", [17, 432])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernel_cross_attention_over_more_keys_than_queries(cuda, Sq, d, dtype):
+    """An encoder-decoder's cross-attention: Sq text rows against Skv = 1500
+    encoder keys (whisper-tiny's frames), not causal, no lengths, one query
+    head per kv head, in the model's (B, S, heads, d) layout.  A kernel that
+    read the keys only up to Sq must fail the check."""
+    B, H, Skv = 2, 6, 1500
+    tq, tk, tv = arrays(17, dtype, (B, Sq, H, d), (B, Skv, H, d), (B, Skv, H, d))
+    tq, tk, tv = (t.to(cuda).transpose(1, 2) for t in (tq, tk, tv))
+    n0 = fa.launches
+    got = fa.flash_attention(tq, tk, tv, causal=False)
+    assert fa.launches == n0 + 1
+    want = fa.plain(tq, tk, tv, causal=False)
+    assert_close(got, want, dtype)
+    cut = torch.full((B,), Sq, dtype=torch.int32, device=cuda)
+    with pytest.raises(AssertionError):
+        assert_close(fa.flash_attention(tq, tk, tv, causal=False, lengths=cut), want, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("G", [1, 7])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_kernel_without_slot_positions(cuda, G, d, dtype):
+    """One decode token against all T = 1500 slots with q_pos and slot_pos
+    None (the cross-attention's decode): every slot t < T counts, as with
+    slot t at position t and the query at T − 1; split across blocks."""
+    B, K, T = 3, 2, 1500
+    tq, tk, tv = decode_case(18, dtype, B, G * K, K, T, d, cuda)
+    lengths = torch.full((B,), T, dtype=torch.int32, device=cuda)
+    assert da.plan_splits(B, K, T, d, tk.element_size())[0] > 1
+    got = da.decode_attention(tq, tk, tv, lengths)
+    assert_close(got, da.plain(tq, tk, tv, lengths), dtype)
+    slot_pos = torch.arange(T, dtype=torch.int32, device=cuda).repeat(B, 1)
+    assert torch.equal(got, da.decode_attention(tq, tk, tv, lengths, q_pos=lengths - 1,
+                                                slot_pos=slot_pos))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["whisper-tiny", "llava-next-34b"])
+def test_encdec_and_vlm_on_the_card_match_their_cpu_runs(cuda, name):
+    """Reduced whisper-tiny and llava-next-34b in fp32 on the same weights on
+    the card (K1 and K2) and on the CPU (their plain versions): prefill
+    logits within 1e-3, greedy tokens of the engine at the default cache
+    length (the encoder-decoder's longest row decodes past the last slot)
+    equal."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, reduced
+    from repro_torch.serving.engine import make_generate_fn, make_prefill_fn
+    cfg = reduced(get_config(name), head_dim=64)     # a head size the kernels take
+    cpu, card = build_model(cfg, "cpu"), build_model(cfg, cuda)
+    params = cpu.init(torch.Generator().manual_seed(0))
+    on_card = _to(params, cuda)
+    rng = np.random.default_rng(0)
+    B, S = 2, 40
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32))
+    if cfg.is_encdec:
+        kw = {"frames": torch.from_numpy(rng.standard_normal((B, 24, cfg.d_model),
+                                                              dtype=np.float32))}
+        P = 0
+    else:
+        P = cfg.num_frontend_tokens
+        kw = {"patches": torch.from_numpy(rng.standard_normal((B, P, cfg.d_model),
+                                                               dtype=np.float32))}
+    lengths = torch.tensor([P + S, P + 23], dtype=torch.int32)
+    card_in = (toks.to(cuda), lengths.to(cuda))
+    card_kw = {k: v.to(cuda) for k, v in kw.items()}
+    pre = make_prefill_fn(card)(on_card, *card_in, **card_kw)[1]
+    assert float((pre.cpu() - make_prefill_fn(cpu)(params, toks, lengths, **kw)[1])
+                 .abs().max()) < 1e-3
+    n0 = (fa.launches, da.launches)
+    got = make_generate_fn(card, 5)(on_card, *card_in, **card_kw)
+    assert fa.launches > n0[0] and da.launches > n0[1]
+    want = make_generate_fn(cpu, 5)(params, toks, lengths, **kw)
+    assert torch.equal(got.cpu(), want)
+
+
+def _to(tree, device):
+    return {k: _to(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}
+
+
+@pytest.mark.gpu
 def test_attention_wrappers_refuse_unaligned_rows(cuda):
     """Rows whose stride is not a multiple of 16 bytes cannot be copied 16
     bytes at a time: both wrappers raise ValueError."""

@@ -6,6 +6,7 @@ from a numpy seed, and logits of forward, prefill and decode_step must agree
 within 1e-3 — the tolerance of ``tests/test_models_smoke.py``.
 """
 import dataclasses
+import importlib
 
 import pytest
 
@@ -53,12 +54,15 @@ def close(port, ref):
 
 
 def test_catalog_matches_reference():
-    assert {"recurrentgemma-9b", "rwkv6-7b"} <= set(ARCHS)
+    # all ten archs of the reference catalog, with the same values, each
+    # also as its own configs/<arch>.py module
+    assert sorted(ARCHS) == sorted(REF_ARCHS)
     for name, cfg in ARCHS.items():
         assert dataclasses.asdict(cfg) == dataclasses.asdict(REF_ARCHS[name])
-    for name in set(REF_ARCHS) - set(ARCHS):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_config(name)
+        module = importlib.import_module(f"repro_torch.configs.{name.replace('-', '_')}")
+        assert module.CONFIG is get_config(name)
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("gpt-5")
 
 
 @pytest.mark.parametrize("name", PORTED)

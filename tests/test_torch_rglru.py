@@ -29,7 +29,7 @@ from repro.models import rglru as jrglru  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import rglru_scan as rg  # noqa: E402
-from repro_torch.models import DecoderLM, build_model, reduced  # noqa: E402
+from repro_torch.models import DecoderLM, EncDecLM, build_model, reduced  # noqa: E402
 from repro_torch.models import rglru  # noqa: E402
 from repro_torch.models.config import ATTN_LOCAL, RGLRU, RWKV6  # noqa: E402
 from repro_torch.models.convert import params_from_reference  # noqa: E402
@@ -267,8 +267,24 @@ def test_other_families_name_their_roadmap_item(overrides, item):
         assert ffn == {"router": (L, D, 4), "wi": (L, 4, D, F), "wg": (L, 4, D, F),
                        "wo": (L, 4, F, D)}
         return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+    # ROADMAP M10 (encoder-decoder) is ported: such a config is EncDecLM's,
+    # whose decoder layers carry cross-attention and whose cache the cross
+    # k/v over the encoder's frames; DecoderLM refuses it
+    with pytest.raises(ValueError, match="EncDecLM"):
         DecoderLM(cfg, "cpu")
+    model = build_model(cfg, "cpu")
+    assert isinstance(model, EncDecLM)
+    shapes = model.param_shapes()
+    L, D, H, K, hd = cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    assert set(shapes["dec_layers"]) == {"ln1", "attn", "lnx", "xattn", "ln2", "ffn"}
+    assert set(shapes["enc_layers"]) == {"ln1", "attn", "ln2", "ffn"}
+    assert shapes["enc_layers"]["attn"]["wq"] == (2, D, H, hd)
+    assert shapes["dec_layers"]["xattn"] == {"wq": (L, D, H, hd), "wk": (L, D, K, hd),
+                                             "wv": (L, D, K, hd), "wo": (L, H, hd, D)}
+    cache = model.init_cache(3, 40, enc_len=24)
+    assert cache["cross_k"].shape == cache["cross_v"].shape == (L, 3, 24, K, hd)
+    assert cache["self"]["k"].shape == (L, 3, 40, K, hd)
+    assert cache["self"]["slot_pos"].shape == (L, 3, 40)
 
 
 @pytest.mark.parametrize("pattern", [(RWKV6, ATTN_LOCAL), (RGLRU, RWKV6)])

@@ -33,7 +33,6 @@ from repro_torch import hw  # noqa: E402
 from repro_torch.analysis import memory_model as mm  # noqa: E402
 from repro_torch.configs import ARCHS, get_config  # noqa: E402
 from repro_torch.configs import shapes  # noqa: E402
-from repro_torch.configs.catalog import PENDING  # noqa: E402
 from repro_torch.core import session  # noqa: E402
 from repro_torch.core.spec import load_jobs  # noqa: E402
 from repro_torch.models import registry as reg  # noqa: E402
@@ -151,10 +150,10 @@ def test_latency_model_extras_equal_the_reference():
 
 @pytest.mark.parametrize("name", ["granite-moe-3b-a800m", "dbrx-132b"])
 def test_moe_archs_count_and_time_as_the_reference(name):
-    """The MoE archs left PENDING with ROADMAP M9: all their parameters,
-    their active FLOPs per token (experts at k/E) and the roofline's prefill
-    and decode latencies are the reference's."""
-    assert name not in PENDING
+    """The MoE archs, ported with ROADMAP M9: all their parameters, their
+    active FLOPs per token (experts at k/E) and the roofline's prefill and
+    decode latencies are the reference's."""
+    assert get_config(name) is ARCHS[name]
     tree = reg.param_shapes(reg.build_model(ARCHS[name], "meta"))
     ref_tree = jreg.param_shapes(jreg.build_model(REF_ARCHS[name]))
     assert reg.count_params(tree) == jreg.count_params(ref_tree)
@@ -169,13 +168,26 @@ def test_moe_archs_count_and_time_as_the_reference(name):
                                     rel_tol=RTOL_LAT)
 
 
-@pytest.mark.parametrize("name", sorted(PENDING))
-def test_pending_archs_raise_naming_their_queue_item(name):
-    cfg = dataclasses.replace(ARCHS["gemma2-2b"], name=name)
-    with pytest.raises(NotImplementedError, match="ROADMAP M"):
-        lm.LatencyModel(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP M"):
-        get_config(name)
+@pytest.mark.parametrize("name", ["whisper-tiny", "llava-next-34b"])
+def test_encdec_and_vlm_archs_count_and_time_as_the_reference(name):
+    """The encoder-decoder and VLM archs, ported with ROADMAP M10: every
+    catalog arch now builds, and these two count their parameters (the
+    encoder and the cross-attention included) and FLOPs per token, and get
+    the roofline's prefill and decode latencies, as the reference does."""
+    assert sorted(ARCHS) == sorted(REF_ARCHS)
+    assert get_config(name) is ARCHS[name]
+    tree = reg.param_shapes(reg.build_model(ARCHS[name], "meta"))
+    ref_tree = jreg.param_shapes(jreg.build_model(REF_ARCHS[name]))
+    assert reg.count_params(tree) == jreg.count_params(ref_tree)
+    flops = reg.model_flops_per_token(ARCHS[name])
+    assert flops == jreg.model_flops_per_token(REF_ARCHS[name])
+    assert flops == 6.0 * reg.count_params(tree, exclude_embed=True)
+    for hw_name in HW:
+        port, ref = pair(name, hw_name)
+        for b, s in GRID:
+            for fn in ("prefill_latency", "decode_latency"):
+                assert math.isclose(getattr(port, fn)(b, s), getattr(ref, fn)(b, s),
+                                    rel_tol=RTOL_LAT)
 
 
 def test_pricing_energy_and_memory_copies_equal_the_reference():
