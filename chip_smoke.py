@@ -140,8 +140,28 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 layers (MODEL_RUNS), 2880 patch embeddings from a seed in
                 front of text prompts (512, 300, 100, 17): K1 causal with 7
                 query heads per kv head, d 128, K2 likewise;
+ 18. train    — K1's backward (``flash_attention_bwd.cu``) at each model's
+                training shapes (granite-3-2b, gemma2-2b local and global
+                with softcap 50, recurrentgemma-9b local at 16 query heads
+                per kv head, whisper-tiny's encoder and cross-attention,
+                llava-next-34b with lengths, the ~100M config in fp32)
+                against the plain version's gradient in float64 (see
+                BWD_ATOL_SHARE), the fp32 plain version against the same
+                limit, planted faults (dK without the group sum, the
+                softcap's derivative dropped, the causal mask shifted) and
+                times against SDPA's backward; K1 forward at granite's
+                training shape; one train step of granite-3-2b at 4 layers
+                and gemma2-2b at 2 through the kernels against the plain
+                path and a float64-attention control (TRAIN_DRIFT), launch
+                counts exact; granite-3-2b at full width and depth (fp32
+                masters, 4 x 2048, remat) for 3 steps, step times and peaks;
+                ``launch/train.py`` with examples/train_100m.py's flags (the
+                loss's last tenth a nat below its first), then 50 steps
+                killed at step 30 and restored: the final state bitwise that
+                of a run without the failure;
 then a ``kernels`` JSON line (``hook_launches``: phase 11's,
-``plan_hook_launches``: phase 12's), and last the ``ok`` JSON line.
+``plan_hook_launches``: phase 12's; phase 18's records name the run their
+``launches`` were counted on), and last the ``ok`` JSON line.
 Needs one card; imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
@@ -297,6 +317,7 @@ SERVE = {"gemma2-2b": dict(rate=8.0, duration_s=10.0, prompt_tokens=512),
          "granite-moe-3b-a800m": dict(rate=8.0, duration_s=10.0, prompt_tokens=512)}
 MODEL_KERNELS = ("flash_attention", "decode_attention", "rglru_scan", "wkv6")
 KERNELS = MODEL_KERNELS + ("int8_matmul",)   # K5 runs on the calibration path only
+BUILT = KERNELS + ("flash_attention_bwd",)    # K1's backward: training (phase 18)
 
 
 def require(cond: bool, what: str) -> None:
@@ -435,6 +456,7 @@ def counters():
 def reset_launches():
     for mod in counters().values():
         mod.launches = 0
+    counters()["flash_attention"].launches_bwd = 0
 
 
 def read_launches():
@@ -458,11 +480,11 @@ def phase_device():
 def phase_build():
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
-    secs = _build.build(KERNELS)
+    secs = _build.build(BUILT)
     print(f"[build] {json.dumps({k: round(v, 1) for k, v in secs.items()})} "
           f"wall_s={time.perf_counter() - t0:.1f}")
     spilled = []
-    for name in KERNELS:
+    for name in BUILT:
         fn = spill = ""
         for line in (_build.BUILD_DIR / f"lib{name}.log").read_text().splitlines():
             if "Compiling entry function" in line:
@@ -947,7 +969,7 @@ def merge(cases):
     out["max_abs_err"] = max(c["max_abs_err"] for c in cases)
     out["bound_by"] = cases[0]["bound_by"]
     # K3's plan and its times beside (one case a record)
-    out.update({k: v for k, v in cases[0].items() if k in RGLRU_EXTRA})
+    out.update({k: v for k, v in cases[0].items() if k in RGLRU_EXTRA + ("library",)})
     return out
 
 
@@ -1952,6 +1974,478 @@ def phase_plan():
     return launches
 
 
+# ---- phase 18: training ---------------------------------------------------
+# K1's backward against the plain version's gradient (autograd through
+# ``mha_reference``) computed in float64, per element of dQ, dK and dV:
+# |err| ≤ atol + 2^-7·|want|, the forward's form.  2^-7·|want| is one ulp of
+# a bf16 output (the kernel rounds its fp32 sums once to the input type).
+# atol = BWD_ATOL_SHARE·max|want| of that tensor is the fp32 sums' error
+# where an entry cancels: each gradient sums up to G·Sq ≈ 2^15 terms whose
+# fp32 rounding, on these random inputs, leaves ~2^-18 of the tensor's
+# largest entry (the fp32 plain version, a right fp32 evaluation of the same
+# function, is printed against the same limit as a control and must pass
+# it: 2^-17.4 at worst on the CPU); 2^-14 keeps a 10x margin, and the planted
+# faults move entries by whole ulps.  The softcap shapes draw q at 16x so
+# that the scores reach the cap (s/cap ~ 0.3, where the cap's derivative is
+# 0.9): at unit scale it is 1 − 4e-4, below one ulp, and dropping it would
+# not show.
+BWD_ATOL_SHARE = 2.0 ** -14
+# The train-step check of phase 18 (b): kernel path against the control
+# (the plain path with its attention summed in float64), in the loss, the
+# grad norm and each leaf's gradient relative to that leaf's largest entry:
+# at most max(TRAIN_FLOOR, TRAIN_DRIFT × the plain fp32 path's distance from
+# the control), as MOE_DRIFT sets the MoE limit: bf16 activations round each
+# layer, and the kernel's and the plain version's fp32 sums flip different
+# roundings, so their distances from the control are of one size.
+TRAIN_FLOOR = 2.0 ** -20
+TRAIN_DRIFT = 2.0
+TRAIN_CHECKS = {"granite-3-2b": dict(layers=4, batch=2, seq=2048),
+                "gemma2-2b": dict(layers=2, batch=2, seq=4608)}
+TRAIN_SLICE = dict(arch="granite-3-2b", batch=4, seq=2048, steps=3)
+# examples/train_100m.py's flags
+TRAIN_100M = ["--arch", "granite-3-2b", "--reduce", "--steps", "200", "--batch", "8",
+              "--seq", "256", "--lr", "3e-3", "--ckpt-every", "50"]
+
+
+def per_head_group(fn, q, k, v, dout, lengths=None, **kw):
+    """``fn(q, k, v, dout, **kw)`` → (dq, dk, dv) run one sequence and one
+    kv head (its G query heads) at a time, the results put together: the
+    float64 plain version's memory at llava-next-34b's 56 heads."""
+    import torch
+    B, H = q.shape[:2]
+    K = k.shape[1]
+    G = H // K
+    out = [torch.empty(t.shape, dtype=torch.float64, device=t.device) for t in (q, k, v)]
+    for b in range(B):
+        for h in range(K):
+            hs = slice(h * G, (h + 1) * G)
+            lens = None if lengths is None else lengths[b:b + 1]
+            dq, dk, dv = fn(q[b:b + 1, hs], k[b:b + 1, h:h + 1], v[b:b + 1, h:h + 1],
+                            dout[b:b + 1, hs], lengths=lens, **kw)
+            out[0][b, hs], out[1][b, h], out[2][b, h] = dq[0], dk[0, 0], dv[0, 0]
+    return out
+
+
+def flash_bwd_want(q, k, v, dout, **kw):
+    """K1's backward's plain version in float64, the check of the kernel."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    return per_head_group(lambda *a, **k_: fa.plain_grad(*a, acc=torch.float64, **k_),
+                          q, k, v, dout, **kw)
+
+
+def faulty_grad(fault: str):
+    """A planted fault as the gradient of the plain version in float64 with
+    that fault in it: ``softcap_derivative_dropped`` (the capped scores in
+    the forward, the cap's derivative taken as 1) or
+    ``causal_mask_shifted`` (keys up to q + 1 seen)."""
+    import torch
+
+    def grad(q, k, v, dout, *, causal, window, softcap, lengths):
+        with torch.enable_grad():
+            q, k, v = (t.detach().double().requires_grad_() for t in (q, k, v))
+            B, H, Sq, d = q.shape
+            K, Skv = k.shape[1], k.shape[2]
+            s = torch.einsum("bkgsd,bktd->bkgst", q.reshape(B, K, H // K, Sq, d), k) / d ** 0.5
+            if softcap > 0:
+                capped = softcap * torch.tanh(s / softcap)
+                s = s + (capped - s).detach() if fault == "softcap_derivative_dropped" \
+                    else capped
+            qp, kp = torch.arange(Sq, device=q.device), torch.arange(Skv, device=q.device)
+            shift = 1 if fault == "causal_mask_shifted" else 0
+            mask = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
+            if causal:
+                mask &= kp[None, :] <= qp[:, None] + shift
+            if window > 0:
+                mask &= kp[None, :] > qp[:, None] - window
+            mask = mask.expand(B, Sq, Skv)
+            if lengths is not None:
+                mask = mask & (kp[None, None, :] < lengths[:, None, None])
+            p = torch.softmax(torch.where(mask[:, None, None], s, -1e30), -1)
+            out = torch.einsum("bkgst,bktd->bkgsd", p, v).reshape(B, H, Sq, d)
+            return torch.autograd.grad(out, (q, k, v), dout.double())
+    return grad
+
+
+def held_grads(got, want):
+    """(max |got − want|, worst ratio to BWD_ATOL_SHARE·max|want| +
+    RTOL·|want|, the ratio of dq, dk and dv apart)."""
+    errs, ratios = [], []
+    for g, w in zip(got, want):
+        e = (g.double() - w).abs()
+        errs.append(float(e.max()))
+        ratios.append(float((e / (BWD_ATOL_SHARE * w.abs().max() + RTOL * w.abs())).max()))
+    return max(errs), max(ratios), ratios
+
+
+def sdpa_backward_ms(q, k, v, dout, mask, is_causal):
+    """SDPA's backward alone (``torch.autograd.grad`` of its output, graph
+    kept), with k and v expanded to the query heads beforehand, on the first
+    backend of flash, memory-efficient, cuDNN and math that takes the call
+    → (ms, backend)."""
+    import warnings
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    G = q.shape[1] // k.shape[1]
+    qx, kx, vx = (t.detach().requires_grad_() for t in
+                  (q, k.repeat_interleave(G, 1), v.repeat_interleave(G, 1)))
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel([backend]), warnings.catch_warnings():
+                warnings.simplefilter("ignore")   # the backends that refuse say why
+                out = F.scaled_dot_product_attention(qx, kx, vx, attn_mask=mask,
+                                                     is_causal=is_causal)
+                ms = cuda_ms(lambda: torch.autograd.grad(out, (qx, kx, vx), dout,
+                                                         retain_graph=True), 5)
+            return ms, backend.name
+        except RuntimeError:
+            continue
+    raise RuntimeError("no SDPA backend takes the call")
+
+
+def flash_bwd_case(label: str, B: int, H: int, K: int, Sq: int, Skv: int, d: int, *,
+                   dtype: str = "bfloat16", causal: bool = True, window: int = 0,
+                   softcap: float = 0.0, lengths=None, q_scale: float = 1.0):
+    """K1's backward at a model's training shapes: dQ, dK and dV against the
+    float64 plain version, the fp32 plain version against the same limit
+    (the control), the planted faults that apply, and the times."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    # the model's layout: (B, S, heads, d), handed over as transposed views
+    q, k, v, dout = (torch.randn((B, n, h, d), generator=g, device="cuda")
+                     .mul(q_scale if i == 0 else 1.0).to(dt).transpose(1, 2)
+                     for i, (n, h) in enumerate(((Sq, H), (Skv, K), (Skv, K), (Sq, H))))
+    lens = None
+    if lengths is not None:
+        lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+        for b, n in enumerate(lengths):   # padding rows carry no loss
+            dout[b, :, n:] = 0
+    kw = dict(causal=causal, window=window, softcap=softcap, lengths=lens)
+    got = fa.flash_attention_bwd(q, k, v, dout, **kw)
+    torch.cuda.synchronize()
+    want = flash_bwd_want(q, k, v, dout, **kw)
+    err, ratio, parts = held_grads(got, want)
+    require(all(bool(torch.isfinite(t).all()) and t.dtype == dt for t in got),
+            "flash_attention_bwd outputs finite, in the input dtype")
+    require(ratio <= 1.0, f"flash_attention_bwd {label} max|err| {err}, {ratio}x the limit "
+            f"(dq, dk, dv {parts})")
+    plain32 = per_head_group(fa.plain_grad, q, k, v, dout, **kw)
+    control = held_grads(plain32, want)[1]
+    require(control <= 1.0, f"the fp32 plain version within the limit at {label} ({control})")
+    faults = {}
+    G = H // K
+    if G > 1:   # dK of the first head of each group only
+        one = fa.flash_attention_bwd(q[:, ::G], k, v, dout[:, ::G], **kw)[1]
+        faults["dk_without_the_group_sum"] = (got[0], one, got[2])
+    if softcap:
+        faults["softcap_derivative_dropped"] = per_head_group(
+            faulty_grad("softcap_derivative_dropped"), q, k, v, dout, **kw)
+    if causal:
+        faults["causal_mask_shifted"] = per_head_group(
+            faulty_grad("causal_mask_shifted"), q, k, v, dout, **kw)
+    fault_ratio = {name: held_grads(out, want)[1] for name, out in faults.items()}
+    require(all(r > 4.0 for r in fault_ratio.values()),
+            f"flash_attention_bwd check rejects planted faults by far {fault_ratio}")
+    del want, plain32, faults
+    # work these inputs need: 5 products over the live (query, key) pairs
+    qp, kp = torch.arange(Sq, device="cuda"), torch.arange(Skv, device="cuda")
+    mask = torch.ones((Sq, Skv), dtype=torch.bool, device="cuda")
+    if causal:
+        mask &= kp[None, :] <= qp[:, None]
+    if window:
+        mask &= kp[None, :] > qp[:, None] - window
+    mask = mask.expand(B, Sq, Skv)
+    if lens is not None:
+        mask = mask & (kp[None, None, :] < lens[:, None, None])
+    pairs = float(mask.sum()) * H
+    flops = 5 * 2.0 * d * pairs
+    nbytes = dt.itemsize * d * (3 * B * H * Sq + 4 * B * K * Skv)   # q, dO, dq; k, v, dk, dv
+    ms_bound, by = bound(flops, nbytes, PEAK_BF16_FLOPS if dtype == "bfloat16"
+                         else PEAK_FP32_FLOPS)
+    plain_ms = 0.0
+    for b in range(B):   # the fp32 plain version one sequence at a time (memory)
+        sl = slice(b, b + 1)
+        plain_ms += cuda_ms(lambda: fa.plain_grad(
+            q[sl], k[sl], v[sl], dout[sl],
+            **dict(kw, lengths=None if lens is None else lens[sl])), 2)
+    plain_mask = None if (not window and lens is None) else mask[:, None]
+    library_ms, backend = sdpa_backward_ms(q, k, v, dout, plain_mask,
+                                           causal and plain_mask is None)
+    res = dict(max_abs_err=err, limit_ratio=ratio, limit_ratio_dq_dk_dv=parts,
+               plain_fp32_limit_ratio=control, fault_ratio=fault_ratio,
+               ms=cuda_ms(lambda: fa.flash_attention_bwd(q, k, v, dout, **kw), 3),
+               plain_ms=plain_ms, library_ms=library_ms,
+               library=f"SDPA backward ({backend}{', no softcap' if softcap else ''}"
+                       f"{', masked' if plain_mask is not None else ''})",
+               bound_ms=ms_bound, bound_by=by)
+    print(f"[kernel flash_attention_bwd] {label} B={B} H={H} K={K} d={d} Sq={Sq} "
+          f"Skv={Skv} {dtype} causal={causal} window={window} softcap={softcap} "
+          f"lengths={lengths} q_scale={q_scale} " + json.dumps(res))
+    return res
+
+
+def train_setup(arch: str, layers: int = 0):
+    """Full-width ``arch`` (its first ``layers`` when given) for training:
+    fp32 masters, the reference's train config, random weights from seed 0
+    through ``launch/train.py``'s init."""
+    from repro_torch.launch import train
+    from repro_torch.models import build_model
+    cfg = train.model_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    model = build_model(cfg)
+    return cfg, model, train.make_init_state_fn(model)()
+
+
+def rel(a, b) -> float:
+    """max |a − b| / max |b| (|a − b| for scalars, relative)."""
+    a, b = a.double(), b.double()
+    return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+
+
+def train_check(arch: str, run: dict):
+    """Phase 18 (b): one train step's loss, grad norm and gradients through
+    the kernels, through the plain path and through the control (the plain
+    path with float64 attention), on the same weights and batch."""
+    import functools
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.training.data import DataConfig, host_batch
+    from repro_torch.training.optimizer import global_norm
+    from repro_torch.training.step import make_grad_fn
+    from repro_torch.training.tree import flatten
+    cfg, model, state = train_setup(arch, run["layers"])
+    params = state["params"]
+    del state
+    batch = host_batch(DataConfig(global_batch=run["batch"], seq_len=run["seq"]), cfg, 0)
+    grad_fn = make_grad_fn(model, remat=False)
+    plain_calls = []
+    counted = fa.plain
+
+    def counting(*args, **kw):
+        plain_calls.append(1)
+        return counted(*args, **kw)
+    runs = {}
+    for name, swap in (("kernel", {}), ("plain", {"flash_attention": fa.plain}),
+                       ("control", {"flash_attention": functools.partial(
+                           fa.plain, acc=torch.float64)})):
+        reset_launches()
+        fa.plain, plain_calls[:] = (counting if name == "kernel" else counted), []
+        try:
+            with swapped(swap):
+                grads, aux = grad_fn(params, batch)
+                torch.cuda.synchronize()
+        finally:
+            fa.plain = counted
+        launched = (fa.launches, fa.launches_bwd)
+        if name == "kernel":
+            require(launched == (run["layers"], run["layers"]) and not plain_calls,
+                    f"{arch} train step: K1 forward and backward {launched}, want "
+                    f"{run['layers']} each, and no plain attention ({len(plain_calls)})")
+        else:
+            require(launched == (0, 0), f"{arch} {name} train step launched no K1")
+        runs[name] = (aux["ce"], global_norm(grads), dict(flatten(grads)))
+        del grads
+    ctl = runs["control"]
+    worst, report = 0.0, {}
+    for what, pick in (("loss", lambda r: r[0]), ("grad_norm", lambda r: r[1])) + tuple(
+            ("/".join(p), (lambda r, p=p: r[2][p])) for p in ctl[2]):
+        kernel, plain = rel(pick(runs["kernel"]), pick(ctl)), rel(pick(runs["plain"]), pick(ctl))
+        limit = max(TRAIN_FLOOR, TRAIN_DRIFT * plain)
+        report[what] = dict(kernel=kernel, plain=plain, ratio=kernel / limit)
+        worst = max(worst, kernel / limit)
+        require(kernel <= limit, f"{arch} train step {what}: the kernel path {kernel} from "
+                f"the control, the plain path {plain} (limit {limit})")
+    require(all(bool(torch.isfinite(t).all()) for t in runs["kernel"][:2]),
+            f"{arch} loss and grad norm finite")
+    print(f"[train] {arch} {run['layers']} layers, batch {run['batch']} x {run['seq']}: loss "
+          f"{float(runs['kernel'][0])} (plain {float(runs['plain'][0])}, control "
+          f"{float(ctl[0])}), grad norm {float(runs['kernel'][1])}; launches K1 "
+          f"{run['layers']} forward and {run['layers']} backward, no plain attention; "
+          f"worst ratio to max({TRAIN_FLOOR}, {TRAIN_DRIFT} x plain) {worst}; "
+          + json.dumps(report))
+    return worst
+
+
+def train_slice():
+    """Phase 18 (c): granite-3-2b at full width and depth, TRAIN_SLICE's
+    steps through ``launch/train.py``'s config, init and step pieces (the
+    gradient, then the update, apart so that each one's peak shows)."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.registry import count_params, param_shapes
+    from repro_torch.training.data import DataConfig, host_batch
+    from repro_torch.training.optimizer import OptimizerConfig, adamw_update
+    from repro_torch.training.step import make_grad_fn
+    from repro_torch.training.tree import flatten
+    arch, steps = TRAIN_SLICE["arch"], TRAIN_SLICE["steps"]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg, model, state = train_setup(arch)
+    torch.cuda.synchronize()
+    init_s, init_gb = time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 1e9
+    n = count_params(param_shapes(model))
+    require(cfg.num_layers == 40 and cfg.d_model == 2048 and cfg.param_dtype == "float32",
+            f"{arch} at full width and depth with fp32 masters")
+    params, opt = state["params"], state["opt"]
+    first = {p: t[(0,) * (t.dim() - 1)].clone() for p, t in flatten(params)}
+    opt_cfg = OptimizerConfig(learning_rate=3e-4, warmup_steps=max(steps // 10, 1),
+                              total_steps=steps)
+    data = DataConfig(global_batch=TRAIN_SLICE["batch"], seq_len=TRAIN_SLICE["seq"])
+    grad_fn = make_grad_fn(model, remat=True)
+    times, peaks, metrics = [], [], []
+    # the main path: counts at 0 just before, read just after
+    reset_launches()
+    for step in range(steps):
+        batch = host_batch(data, cfg, step)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        grads, aux = grad_fn(params, batch)
+        torch.cuda.synchronize()
+        t2, step_gb = time.perf_counter(), torch.cuda.max_memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        params, opt, m = adamw_update(opt_cfg, grads, opt, params)
+        torch.cuda.synchronize()
+        t3, update_gb = time.perf_counter(), torch.cuda.max_memory_allocated() / 1e9
+        del grads
+        times.append((t2 - t1, t3 - t2))
+        peaks.append((step_gb, update_gb))
+        metrics.append((float(aux["ce"]), float(m["grad_norm"])))
+    launches = {"flash_attention": fa.launches, "flash_attention_bwd": fa.launches_bwd}
+    moved = sum(not torch.equal(t[(0,) * (t.dim() - 1)], first[p]) for p, t in flatten(params))
+    require(all(np.isfinite(x) for m_ in metrics for x in m_),
+            f"{arch} loss and grad norm finite {metrics}")
+    require(moved == len(first), f"{arch}: {moved} of {len(first)} leaves moved")
+    require(launches == {"flash_attention": 2 * 40 * steps, "flash_attention_bwd": 40 * steps},
+            f"{arch} launches {launches}: K1 twice a layer a step (remat), its backward once")
+    print(f"[train] {arch} full width and depth ({n} parameters, fp32 masters), batch "
+          f"{data.global_batch} x {data.seq_len}, remat: init {init_s:.3f} s, peak "
+          f"{init_gb:.2f} GB; per step (gradient s, update s) {times}, peaks (GB) "
+          f"{peaks}; (loss, grad norm) {metrics}; launches {launches}; {moved} of "
+          f"{len(first)} leaves moved")
+    return launches, times
+
+
+def train_learns(tmp: str):
+    """Phase 18 (d): ``launch/train.py``'s main with examples/train_100m.py's
+    flags, the loss's last tenth at least 1 nat below its first; then 50
+    steps killed at step 30 and restored from the step-20 checkpoint give
+    the parameters and optimizer state of 50 steps without a failure."""
+    import contextlib
+    import io
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import train
+    from repro_torch.models import build_model
+    from repro_torch.training import checkpoint as ckpt
+    from repro_torch.training.data import DataConfig
+    from repro_torch.training.ft import RunnerConfig, TrainingRunner
+    from repro_torch.training.optimizer import OptimizerConfig
+    from repro_torch.training.tree import flatten
+    out = io.StringIO()
+    reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        train.main(TRAIN_100M + ["--ckpt-dir", f"{tmp}/100m", "--device", "cuda"])
+    learn_s = time.perf_counter() - t0
+    lines = out.getvalue().splitlines()
+    for line in lines:
+        print(f"[train] 100M {line}")
+    first, last = map(float, re.search(r"first10=(\S+) last10=(\S+)", lines[-1]).groups())
+    launches = (fa.launches, fa.launches_bwd)
+    require(last <= first - 1.0, f"the 100M run learns: last tenth {last}, first {first}")
+    require(launches == (2 * 4 * 200, 4 * 200), f"100M launches {launches}")
+    cfg = train.model_config("granite-3-2b", reduce=True)
+    model = build_model(cfg)
+    opt_cfg = OptimizerConfig(learning_rate=3e-3, warmup_steps=5, total_steps=50)
+    step_fn = train.make_step_fn(model, opt_cfg, DataConfig(global_batch=8, seq_len=256))
+    results = {}
+    for name, fail in (("killed", 30), ("whole", None)):
+        runner = TrainingRunner(RunnerConfig(ckpt_dir=f"{tmp}/{name}", ckpt_every=20,
+                                             max_steps=50, fail_at_step=fail),
+                                step_fn, train.make_init_state_fn(model), device="cuda")
+        res = runner.run()
+        require(res["final_step"] == 50 and res["restarts"] == (fail is not None),
+                f"{name} run: {res['final_step']} steps, {res['restarts']} restarts")
+        results[name] = ckpt.restore(f"{tmp}/{name}")[1]
+    pairs = list(zip(flatten(results["killed"]), flatten(results["whole"])))
+    same = all(pa == pb and torch.equal(a, b) for (pa, a), (pb, b) in pairs)
+    require(same, "the restarted run's final state bitwise the uninterrupted run's")
+    print(f"[train] 100M: 200 steps in {learn_s:.1f} s, loss first tenth {first}, last "
+          f"tenth {last}; launches K1 {launches[0]}, its backward {launches[1]}; 50 steps "
+          f"killed at 30 and restored from step 20: final params, m, v and step bitwise "
+          f"those of the uninterrupted run ({len(pairs)} leaves)")
+    return launches
+
+
+def train_launches(kernel: str, arch: str, slice_launches: dict, launches_100m) -> dict:
+    """A phase-18 record's launches and the run they were counted on."""
+    if arch == TRAIN_SLICE["arch"]:
+        return dict(launches=slice_launches[kernel],
+                    launches_on=f"train, 40 layers x {TRAIN_SLICE['steps']} steps with remat")
+    if arch.endswith("100M"):
+        return dict(launches=launches_100m[1], launches_on="train, 4 layers x 200 steps "
+                    "(launch/train.py --reduce), with remat")
+    if arch in TRAIN_CHECKS:
+        n = TRAIN_CHECKS[arch]["layers"]
+        return dict(launches=n, launches_on=f"one train step's check, {n} layers, no remat")
+    return dict(launches=0, launches_on="none: a check at the model's training shapes "
+                "(this script trains no such model on the card)")
+
+
+def phase_train():
+    """Phase 18: K1's backward at each model's training shapes, train-step
+    checks of granite-3-2b (4 layers) and gemma2-2b (2 layers), the slice
+    (granite-3-2b whole, 3 steps) and the 100M run."""
+    import tempfile
+    import torch
+    t_phase = time.perf_counter()
+    records = {
+        ("flash_attention_bwd", "granite-3-2b", "B 4, 32/8 heads of 64, S 2048, causal"):
+            merge([flash_bwd_case("granite-3-2b", 4, 32, 8, 2048, 2048, 64)]),
+        ("flash_attention_bwd", "gemma2-2b", "B 2, 8/4 heads of 256, S 4700, softcap 50, "
+         "q at 16x; window 4096 and global"): merge([
+            flash_bwd_case("gemma2-2b local", 2, 8, 4, 4700, 4700, 256, window=4096,
+                           softcap=50.0, q_scale=16.0),
+            flash_bwd_case("gemma2-2b global", 2, 8, 4, 4700, 4700, 256, softcap=50.0,
+                           q_scale=16.0)]),
+        ("flash_attention_bwd", "recurrentgemma-9b", "B 2, 16/1 heads of 256, S 4096, "
+         "window 2048"): merge([
+            flash_bwd_case("recurrentgemma-9b local", 2, 16, 1, 4096, 4096, 256,
+                           window=2048)]),
+        ("flash_attention_bwd", "whisper-tiny", "encoder, B 4, 6/6 heads of 64, 1500 x 1500, "
+         "not causal"): merge([
+            flash_bwd_case("whisper-tiny encoder", 4, 6, 6, 1500, 1500, 64, causal=False)]),
+        ("flash_attention_bwd", "whisper-tiny", "cross-attention, 432 x 1500"): merge([
+            flash_bwd_case("whisper-tiny cross-attention", 4, 6, 6, 432, 1500, 64,
+                           causal=False)]),
+        ("flash_attention_bwd", "llava-next-34b", "56/8 heads of 128, lengths "
+         f"{LLAVA_LENGTHS}"): merge([
+            flash_bwd_case("llava-next-34b", 4, 56, 8, max(LLAVA_LENGTHS), max(LLAVA_LENGTHS),
+                           128, lengths=LLAVA_LENGTHS)]),
+        ("flash_attention_bwd", "granite-3-2b 100M", "fp32, B 8, 8/4 heads of 64, S 256"):
+            merge([flash_bwd_case("granite-3-2b 100M (fp32)", 8, 8, 4, 256, 256, 64,
+                                  dtype="float32")]),
+        ("flash_attention", "granite-3-2b", "training shape, B 4 x 2048, no lengths"):
+            merge([flash_case("granite-3-2b", 32, 8, 0, 0.0, d=64, prompts=(2048,) * 4)]),
+    }
+    torch.cuda.empty_cache()
+    for arch, run in TRAIN_CHECKS.items():
+        train_check(arch, run)
+        torch.cuda.empty_cache()
+    launches, _ = train_slice()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        launches_100m = train_learns(tmp)
+    print(f"[train] phase 18 s={time.perf_counter() - t_phase:.1f}")
+    return records, launches, launches_100m
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2036,6 +2530,9 @@ def main() -> int:
     for arch in ("whisper-tiny", "llava-next-34b"):
         torch.cuda.empty_cache()
         launches[arch] = phase_model(arch)
+    # phase 18: training
+    torch.cuda.empty_cache()
+    train_records, slice_launches, launches_100m = phase_train()
     src = "src/repro_torch/kernels/csrc/"
     replaces = {"flash_attention": "src/repro/kernels/flash_attention.py:94",
                 "decode_attention": "src/repro/kernels/decode_attention.py:73",
@@ -2052,7 +2549,16 @@ def main() -> int:
                           f"generate, {MODEL_RUNS[arch]['layers']} layers"
                           if MODEL_RUNS.get(arch, {}).get("layers") else "generate"),
              hook_launches=hook[kernel], plan_hook_launches=plan_hook[kernel], **rec)
-        for (kernel, arch, variant), rec in records.items()]}))
+        for (kernel, arch, variant), rec in records.items()] + [
+        dict(name=kernel, model=arch, variant=variant, route="cuda",
+             source=f"{src}{kernel}.cu",
+             replaces=replaces.get(kernel, "none: the reference takes the attention gradient "
+                                   "from XLA's autodiff of attend "
+                                   "(src/repro/models/layers.py:133-148)"),
+             **train_launches(kernel, arch, slice_launches, launches_100m),
+             hook_launches=hook.get(kernel, 0), plan_hook_launches=plan_hook.get(kernel, 0),
+             **rec)
+        for (kernel, arch, variant), rec in train_records.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

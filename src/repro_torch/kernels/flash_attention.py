@@ -1,9 +1,15 @@
-"""Flash attention (prefill): the CUDA kernel's wrapper and its plain version.
+"""Flash attention (prefill): the CUDA kernels' wrappers and their plain
+versions.
 
-The kernel (``csrc/flash_attention.cu``) replaces the Pallas TPU kernel
-``repro.kernels.flash_attention.flash_attention``; its source says what
-bounds it on the H100 and how its design answers that.  ``launches`` counts
-the kernel's launches, so a run can show that its main path went through it.
+The forward kernel (``csrc/flash_attention.cu``) replaces the Pallas TPU
+kernel ``repro.kernels.flash_attention.flash_attention``; the backward
+kernel (``csrc/flash_attention_bwd.cu``) computes dQ, dK and dV of the same
+function and replaces no TPU kernel (the reference takes the gradient from
+XLA's autodiff).  Each source says what bounds it on the H100 and how its
+design answers that.  ``launches`` and ``launches_bwd`` count the launches
+(the backward's three passes once), so a run can show that its main path
+went through them.  :class:`FlashAttention` ties the two together for
+autograd; :func:`plain_grad` is the backward's plain version.
 """
 from __future__ import annotations
 
@@ -24,6 +30,7 @@ KV_TILE = {**{(torch.float32, d): 32 for d in HEAD_DIMS},
            **{(torch.bfloat16, d): 32 if d == 256 else 64 for d in HEAD_DIMS}}
 
 launches = 0
+launches_bwd = 0
 
 # The plain PyTorch version of the kernel: the CPU path, and the card-side
 # check of the kernel.
@@ -40,6 +47,16 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+@functools.cache
+def _lib_bwd() -> ctypes.CDLL:
+    lib = _build.library("flash_attention_bwd")
+    fn = lib.flash_attention_bwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 9
+                   + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
+    return lib
+
+
 def _check_operand(name: str, t: torch.Tensor, dtype) -> None:
     if not t.is_cuda or t.dtype != dtype:
         raise ValueError(f"{name}: want a CUDA {dtype} tensor, got "
@@ -50,15 +67,7 @@ def _check_operand(name: str, t: torch.Tensor, dtype) -> None:
                          "rows 16-byte aligned")
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0,
-                    softcap: float = 0.0,
-                    lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Launch the kernel.  q: (B, H, Sq, d); k/v: (B, K, Skv, d) on the card,
-    float32 or bfloat16, H % K == 0, d in {64, 128, 256}; ``lengths`` (B,)
-    int32 masks keys ≥ lengths[b]; ``window`` 0 = global.  Any strides with a
-    contiguous head dimension.  → (B, H, Sq, d), strided like q."""
-    global launches
+def _check_call(q, k, v, lengths):
     B, H, Sq, d = q.shape
     K, Skv = k.shape[1], k.shape[2]
     if d not in HEAD_DIMS:
@@ -74,6 +83,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         if lengths.shape != (B,) or lengths.dtype != torch.int32 or not lengths.is_cuda:
             raise ValueError("flash_attention: lengths must be a CUDA (B,) int32")
         lengths = lengths.contiguous()
+    return lengths
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    softcap: float = 0.0,
+                    lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch the kernel.  q: (B, H, Sq, d); k/v: (B, K, Skv, d) on the card,
+    float32 or bfloat16, H % K == 0, d in {64, 128, 256}; ``lengths`` (B,)
+    int32 masks keys ≥ lengths[b]; ``window`` 0 = global.  Any strides with a
+    contiguous head dimension.  → (B, H, Sq, d), strided like q."""
+    global launches
+    B, H, Sq, d = q.shape
+    K, Skv = k.shape[1], k.shape[2]
+    lengths = _check_call(q, k, v, lengths)
     out = torch.empty_like(q)
     strides = (ctypes.c_longlong * 12)(*(q.stride()[:3] + k.stride()[:3]
                                          + v.stride()[:3] + out.stride()[:3]))
@@ -87,3 +111,62 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _build.check(err, "flash_attention")
     launches += 1
     return out
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        dout: torch.Tensor, *, causal: bool = True, window: int = 0,
+                        softcap: float = 0.0, lengths: Optional[torch.Tensor] = None):
+    """Launch the backward kernel: the gradients (dq, dk, dv) of
+    :func:`flash_attention`'s output, given ``dout`` of its shape, each in
+    the inputs' dtype and strided like its input.  Operands as for the
+    forward; ``dout`` with any strides and a contiguous head dimension."""
+    global launches_bwd
+    B, H, Sq, d = q.shape
+    K, Skv = k.shape[1], k.shape[2]
+    lengths = _check_call(q, k, v, lengths)
+    if dout.shape != q.shape:
+        raise ValueError(f"flash_attention_bwd: dout {tuple(dout.shape)}, want {tuple(q.shape)}")
+    if dout.stride(-1) != 1 or any(s * dout.element_size() % 16 for s in dout.stride()[:-1]) \
+            or dout.data_ptr() % 16:
+        dout = dout.contiguous()
+    _check_operand("dout", dout, q.dtype)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    stats = torch.empty((2, B, H, Sq), dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_longlong * 21)(*(s for t in (q, k, v, dout, dq, dk, dv)
+                                         for s in t.stride()[:3]))
+    err = _lib_bwd().flash_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(),
+        lengths.data_ptr() if lengths is not None else None, strides,
+        B, H, K, Sq, Skv, d, DTYPES[q.dtype], int(causal), int(window),
+        float(softcap), 1.0 / math.sqrt(d), torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "flash_attention_bwd")
+    launches_bwd += 1
+    return dq, dk, dv
+
+
+def plain_grad(q, k, v, dout, *, acc: torch.dtype = torch.float32, **kw):
+    """The backward's plain version: ``torch.autograd.grad`` through
+    :func:`mha_reference` on q, k and v cast to ``acc`` (float64 where the
+    kernel is checked) → (dq, dk, dv) in ``acc``."""
+    with torch.enable_grad():
+        q, k, v = (t.detach().to(acc).requires_grad_() for t in (q, k, v))
+        out = mha_reference(q, k, v, acc=acc, **kw)
+        return torch.autograd.grad(out, (q, k, v), dout.to(acc))
+
+
+class FlashAttention(torch.autograd.Function):
+    """The forward kernel, differentiated by the backward kernel: what
+    ``ops.flash_attention`` runs on the card when a gradient is wanted."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap, lengths):
+        ctx.save_for_backward(q, k, v)
+        ctx.opts = dict(causal=causal, window=window, softcap=softcap, lengths=lengths)
+        return flash_attention(q, k, v, **ctx.opts)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        return (*flash_attention_bwd(q, k, v, dout, **ctx.opts), None, None, None, None)
+

@@ -3,6 +3,11 @@
 A tensor on the card goes to the hand-written CUDA kernel, which launches or
 raises; a tensor on the CPU goes to the kernel's plain PyTorch version.
 There is no fallback from one to the other.
+
+Gradients: on the CPU autograd differentiates the plain versions.  On the
+card flash attention runs through ``FlashAttention``, whose backward is a
+kernel too; the other kernels have no backward kernel yet, so they raise
+when a gradient is wanted through them rather than cut it off silently.
 """
 from __future__ import annotations
 
@@ -18,19 +23,37 @@ from repro_torch.kernels import rglru_scan as _rg
 from repro_torch.kernels import wkv6 as _wkv
 
 
+def _wants_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def _no_backward(name: str, *tensors) -> None:
+    """Raise if a gradient is wanted through kernel ``name`` on the card."""
+    if tensors[0].is_cuda and _wants_grad(*tensors):
+        raise NotImplementedError(
+            f"{name} has no backward kernel on the card yet (ROADMAP.md, Queue 1): "
+            "its inputs require a gradient; run this on the CPU, or without grad")
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     softcap: float = 0.0,
                     lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q: (B, H, Sq, d); k/v: (B, K, Skv, d) → (B, H, Sq, d)."""
-    fn = _fa.flash_attention if q.is_cuda else _fa.plain
-    return fn(q, k, v, causal=causal, window=window, softcap=softcap,
-              lengths=lengths)
+    if not q.is_cuda:
+        return _fa.plain(q, k, v, causal=causal, window=window, softcap=softcap,
+                         lengths=lengths)
+    if _wants_grad(q, k, v):
+        return _fa.FlashAttention.apply(q, k, v, causal, window, softcap, lengths)
+    return _fa.flash_attention(q, k, v, causal=causal, window=window, softcap=softcap,
+                               lengths=lengths)
 
 
 def decode_attention(q, k, v, lengths, *, softcap: float = 0.0,
                      window: int = 0, q_pos: Optional[torch.Tensor] = None,
                      slot_pos: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q: (B, H, d); k/v: (B, K, T, d); lengths: (B,) → (B, H, d)."""
+    _no_backward("decode_attention", q, k, v)
     fn = _dec.decode_attention if q.is_cuda else _dec.plain
     return fn(q, k, v, lengths, softcap=softcap, window=window, q_pos=q_pos,
               slot_pos=slot_pos)
@@ -39,6 +62,7 @@ def decode_attention(q, k, v, lengths, *, softcap: float = 0.0,
 def rglru_scan(a, b, s0) -> Tuple[torch.Tensor, torch.Tensor]:
     """s_t = a_t s_{t-1} + b_t.  a/b: (B, S, R) fp32 or bf16; s0: (B, R)
     fp32 → (seq (B, S, R) in a's dtype, last (B, R) fp32)."""
+    _no_backward("rglru_scan", a, b, s0)
     fn = _rg.rglru_scan if a.is_cuda else _rg.plain
     return fn(a, b, s0)
 
@@ -47,6 +71,7 @@ def wkv6(r, k, v, logw, u, state0) -> Tuple[torch.Tensor, torch.Tensor]:
     """RWKV6 WKV.  r/k/v: (B, S, H, N); logw: (B, S, H, N) fp32; u: (H, N)
     fp32; state0: (B, H, N, N) fp32 → (out (B, S, H, N) in r's dtype, final
     state (B, H, N, N) fp32)."""
+    _no_backward("wkv6", r, k, v, logw, u, state0)
     fn = _wkv.wkv6 if r.is_cuda else _wkv.plain
     return fn(r, k, v, logw, u, state0)
 
@@ -54,6 +79,7 @@ def wkv6(r, k, v, logw, u, state0) -> Tuple[torch.Tensor, torch.Tensor]:
 def int8_matmul(x_q, w_q, sx, sw) -> torch.Tensor:
     """x_q: (M, K) int8; w_q: (K, N) int8; sx: (M,); sw: (N,) fp32 →
     (M, N) fp32, the int32 product scaled by sx[:, None] and sw[None, :]."""
+    _no_backward("int8_matmul", x_q, w_q, sx, sw)
     fn = _i8.int8_matmul if x_q.is_cuda else _i8.plain
     return fn(x_q, w_q, sx, sw)
 

@@ -1,0 +1,129 @@
+"""End-to-end trainer, ported from ``repro.launch.train``.
+
+Trains an assigned architecture (optionally depth/width-reduced to a
+~100M-param config) with the training stack: AdamW, remat, the data
+pipeline, async checkpoints, restart recovery and straggler monitoring, on
+one device — the card unless ``--device cpu`` (no mesh and no shardings;
+``--model-parallel`` above 1 waits for the port's distribution layer,
+ROADMAP M12).  Same flags and printed lines as the reference, plus
+``--device``.
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch granite-3-2b \\
+      --reduce --steps 200 --batch 8 --seq 128
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+import tempfile
+import time
+from typing import Callable, Dict
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs import get_config
+from repro_torch.models import build_model, reduced
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.registry import count_params, param_shapes
+from repro_torch.training.data import DataConfig, host_batch
+from repro_torch.training.ft import RunnerConfig, TrainingRunner
+from repro_torch.training.optimizer import OptimizerConfig
+from repro_torch.training.step import init_train_state, make_train_step
+
+
+def train_100m_config(cfg: ModelConfig) -> ModelConfig:
+    """~100M-param same-family config (CPU-trainable)."""
+    return dataclasses.replace(
+        reduced(cfg),
+        num_layers=max(4, 2 * len(cfg.layer_pattern)),
+        d_model=512, d_ff=1536,
+        num_heads=8, num_kv_heads=min(cfg.num_kv_heads, 4), head_dim=64,
+        vocab_size=32_768, rglru_d_rnn=512 if cfg.family == "hybrid" else 0,
+        dtype="float32", param_dtype="float32")
+
+
+def model_config(arch: str, *, reduce: bool = False, smoke: bool = False) -> ModelConfig:
+    """The config the flags ask for: ``--smoke`` the tiny one, ``--reduce``
+    the ~100M one, else the published one."""
+    base = get_config(arch)
+    if smoke:
+        return reduced(base)
+    return train_100m_config(base) if reduce else base
+
+
+def make_init_state_fn(model, seed: int = 0) -> Callable[[], Dict]:
+    def init_state_fn():
+        params, opt = init_train_state(model, torch.Generator(model.device).manual_seed(seed))
+        return {"params": params, "opt": opt}
+    return init_state_fn
+
+
+def make_step_fn(model, opt_cfg: OptimizerConfig, data_cfg: DataConfig, *,
+                 grad_accum: int = 1, remat: bool = True) -> Callable:
+    """→ step_fn(state, step) = (state, metrics as floats): step ``step``'s
+    batch from the data pipeline through one train step."""
+    train_step = make_train_step(model, opt_cfg, grad_accum=grad_accum, remat=remat)
+
+    def step_fn(state, step):
+        batch = host_batch(data_cfg, model.cfg, step)
+        params, opt, metrics = train_step(state["params"], state["opt"], batch)
+        return {"params": params, "opt": opt}, {k: float(v) for k, v in metrics.items()}
+
+    return step_fn
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="granite-3-2b")
+    ap.add_argument("--reduce", action="store_true",
+                    help="reduce to a ~100M-param config")
+    ap.add_argument("--smoke", action="store_true",
+                    help="tiny smoke config (fastest)")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--ckpt-dir", default=os.path.join(tempfile.gettempdir(),
+                                                       "repro_train_ckpt"))
+    ap.add_argument("--model-parallel", type=int, default=1)
+    ap.add_argument("--grad-accum", type=int, default=1)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    args = ap.parse_args(argv)
+    if args.model_parallel != 1:
+        raise NotImplementedError("--model-parallel above 1 needs the port's distribution "
+                                  "layer (ROADMAP M12); the port trains on one device")
+
+    device = resolve_device(args.device)
+    cfg = model_config(args.arch, reduce=args.reduce, smoke=args.smoke)
+    model = build_model(cfg, device)
+    opt_cfg = OptimizerConfig(learning_rate=args.lr,
+                              warmup_steps=max(args.steps // 10, 1),
+                              total_steps=args.steps)
+    data_cfg = DataConfig(global_batch=args.batch, seq_len=args.seq)
+    step_fn = make_step_fn(model, opt_cfg, data_cfg, grad_accum=args.grad_accum)
+
+    n_params = count_params(param_shapes(model))
+    print(f"arch={cfg.name} params={n_params/1e6:.1f}M "
+          f"devices=1 mesh={{'data': 1, 'model': 1}}")
+
+    runner = TrainingRunner(
+        RunnerConfig(ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
+                     max_steps=args.steps),
+        step_fn, make_init_state_fn(model), device=device)
+    t0 = time.time()
+    result = runner.run()
+    dt = time.time() - t0
+    losses = [m["loss"] for m in result["metrics"] if "loss" in m]
+    print(f"done: {result['final_step']} steps in {dt:.1f}s "
+          f"({dt / max(len(losses), 1):.3f}s/step)")
+    if losses:
+        k = max(len(losses) // 10, 1)
+        print(f"loss: first10={sum(losses[:k])/k:.4f} "
+              f"last10={sum(losses[-k:])/k:.4f}")
+
+
+if __name__ == "__main__":
+    main()

@@ -17,20 +17,25 @@ encoder and the cross-attention over a sequence through flash attention
 (not causal), decoding through decode attention.  Rounding follows the
 reference: prefill attends with k, v and the cross k/v in the activation
 dtype and stores them rounded to the cache dtype; decode reads the stored
-copies back in the activation dtype.
+copies back in the activation dtype.  With ``remat`` each decoder layer of
+``forward`` runs under ``torch.utils.checkpoint``, as the reference's
+``jax.checkpoint`` of its decoder scan body (the encoder is not
+rematerialised there either).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import _index
+from repro_torch.models.transformer import _index, _split
 
 
 class EncDecLM:
@@ -99,8 +104,8 @@ class EncDecLM:
         c = self.cfg
         x = frames.to(device=self.device, dtype=c.activation_dtype)
         positions = self._positions(*x.shape[:2])
-        for i in range(c.encoder_layers):
-            p = self._layer(params, "enc_layers", i)
+        for p in _split(params["enc_layers"]):
+            p = L.cast_layer_params(p, c.activation_dtype)
             h = L.rmsnorm(p["ln1"], x, c.norm_eps)
             x = x + L.attention_apply(p["attn"], h, positions, rope_theta=c.rope_theta,
                                       causal=False)
@@ -127,22 +132,30 @@ class EncDecLM:
         return x + L.mlp_apply(p["ffn"], h)
 
     # --------------------------------------------------------------- forward
-    def forward(self, params, tokens, *, frames, lengths=None,
+    def _dec_layer(self, positions, lengths, enc_out, x, p):
+        """One decoder layer over the full sequence, its weights ``p`` cast
+        here."""
+        c = self.cfg
+        p = L.cast_layer_params(p, c.activation_dtype)
+        h = L.rmsnorm(p["ln1"], x, c.norm_eps)
+        x = x + L.attention_apply(p["attn"], h, positions, rope_theta=c.rope_theta,
+                                  causal=True, lengths=lengths)
+        return self._cross_ffn(p, x, L.cross_attention_kv(p["xattn"], enc_out))
+
+    def forward(self, params, tokens, *, frames, lengths=None, remat: bool = False,
                 return_hidden: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
         """Teacher-forced pass: (frames, tokens) → (logits (B, S, V), fp32
-        0.0); with ``return_hidden`` the final-norm hidden states instead."""
+        0.0); with ``return_hidden`` the final-norm hidden states instead;
+        with ``remat`` each decoder layer is recomputed in the backward."""
         c = self.cfg
         if lengths is not None:
             lengths = lengths.to(device=self.device, dtype=torch.int32)
         enc_out = self.encode(params, frames)
         x = self._embed(params, tokens)
-        positions = self._positions(*x.shape[:2])
-        for i in range(c.num_layers):
-            p = self._layer(params, "dec_layers", i)
-            h = L.rmsnorm(p["ln1"], x, c.norm_eps)
-            x = x + L.attention_apply(p["attn"], h, positions, rope_theta=c.rope_theta,
-                                      causal=True, lengths=lengths)
-            x = self._cross_ffn(p, x, L.cross_attention_kv(p["xattn"], enc_out))
+        body = functools.partial(self._dec_layer, self._positions(*x.shape[:2]), lengths,
+                                 enc_out)
+        for p in _split(params["dec_layers"]):
+            x = checkpoint(body, x, p, use_reentrant=False) if remat else body(x, p)
         x = L.rmsnorm(params["final_norm"], x, c.norm_eps)
         aux = torch.zeros((), device=x.device)
         return (x if return_hidden else self._logits(params, x)), aux

@@ -10,7 +10,8 @@ hybrid (RecurrentGemma's (rec, rec, local-attn) pattern) under ``periods``
 reference scans the stacked axes; here a Python loop walks every layer.
 Entry points, as in the reference:
 
-  forward(params, tokens, lengths=None)    teacher-forced full-sequence pass
+  forward(params, tokens, lengths=None, remat=False)
+                                           teacher-forced full-sequence pass
   prefill(params, cache, tokens, lengths)  fill the KV cache from prompts
   decode_step(params, cache, tokens)       one token per sequence
 
@@ -22,14 +23,19 @@ layers, which ``prefill`` and ``decode_step`` discard, as the reference
 does.  A VLM (llava-next-34b) hands ``forward`` and ``prefill`` its stub
 frontend's patch embeddings as ``prefix_embeds`` (B, P, D): they go in front
 of the text, unscaled, and positions and ``lengths`` count patches plus text.
+With ``remat`` each layer of ``forward`` runs under
+``torch.utils.checkpoint``: its activations are recomputed in the backward
+instead of kept, as the reference's ``jax.checkpoint`` of its scan body.
 Encoder-decoder configs are ``models/encdec.py``'s ``EncDecLM``.
 """
 from __future__ import annotations
 
+import functools
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, List, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.kernels import ops
@@ -42,6 +48,17 @@ from repro_torch.models.config import (ATTN_GLOBAL, ATTN_LOCAL, RGLRU, RWKV6,
 def _index(node: Dict[str, Any], j: int) -> Dict[str, Any]:
     """Entry j of every stacked leaf of ``node`` (views of the leaves)."""
     return {k: _index(v, j) if isinstance(v, dict) else v[j] for k, v in node.items()}
+
+
+def _split(node: Dict[str, Any]) -> List[Dict[str, Any]]:
+    """``node``'s stacked leaves taken apart along the leading axis, once:
+    one subtree per entry (views).  Under autograd the backward of each
+    ``unbind`` stacks that leaf's gradient once, where indexing entry by
+    entry backs every entry up into a zero-filled tensor the size of the
+    whole leaf."""
+    parts = {k: _split(v) if isinstance(v, dict) else v.unbind(0) for k, v in node.items()}
+    n = len(next(iter(parts.values())))
+    return [{k: part[j] for k, part in parts.items()} for j in range(n)]
 
 
 def _write(dst: Dict[str, Any], src: Dict[str, Any]) -> None:
@@ -157,6 +174,15 @@ class DecoderLM:
                 "final_norm": {"scale": torch.ones((c.d_model,), dtype=dt, device=dev)},
                 **self._stacked(layer)}
 
+    def _layer_params(self, params) -> List[Dict[str, Any]]:
+        """Every layer's subtree of ``params``, in order, each stacked leaf
+        taken apart once (``_split``): the full-sequence pass's view."""
+        if self.homogeneous:
+            return _split(params["layers"])
+        periods = [_split(params["periods"][f"l{j}"]) for j in range(self.period_len)]
+        return [periods[j][p] for p in range(self.n_periods) for j in range(self.period_len)] \
+            + [params["tail"][f"t{i}"] for i in range(len(self.tail_kinds))]
+
     def _layer(self, params, i: int) -> Dict[str, Dict[str, torch.Tensor]]:
         """Layer i's parameters in the activation dtype (fp32 leaves kept)."""
         return L.cast_layer_params(self._at(params, i), self.cfg.activation_dtype)
@@ -202,32 +228,42 @@ class DecoderLM:
         return torch.arange(S, device=self.device).expand(B, S)
 
     # --------------------------------------------------------------- forward
+    def _layer_seq(self, kind: str, window: int, positions, lengths, x, p):
+        """One layer over the full sequence from zero recurrent state, its
+        weights ``p`` cast here → (x, the MoE block's aux loss or None)."""
+        c = self.cfg
+        p = L.cast_layer_params(p, c.activation_dtype)
+        B = x.shape[0]
+        # as in the reference: each recurrent layer starts from a zero state
+        # and the recurrence does not mask padding
+        if kind == RWKV6:
+            state = rwkv6.init_state(B, c.d_model, c.rwkv_head_dim, x.dtype, x.device)
+            return self._rwkv_seq(p, x, state)[0], None
+        if kind == RGLRU:
+            h = L.rmsnorm(p["ln1"], x, c.norm_eps)
+            state = rglru.init_state(B, c.rglru_d_rnn, x.dtype, x.device)
+            x = x + rglru.rglru_block_seq(p["rec"], h, state)[0]
+        else:
+            x = self._attn_block(p, x, positions, window, lengths)
+        return self._ffn_block(p, x, aux=True)
+
     def forward(self, params, tokens, *, prefix_embeds=None, lengths=None,
+                remat: bool = False,
                 return_hidden: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
         """Teacher-forced pass → (logits (B, S, V), aux loss: the MoE blocks'
         load-balancing losses summed over layers, fp32 0.0 without MoE); with
         ``return_hidden`` the final-norm hidden states instead of logits.
-        With ``prefix_embeds`` S counts the prefix too."""
+        With ``prefix_embeds`` S counts the prefix too; with ``remat`` each
+        layer is recomputed in the backward."""
         c = self.cfg
         x = self._embed(params, tokens, prefix_embeds)
         B, S = x.shape[:2]
         positions = self._positions(B, S)
         aux = torch.zeros((), device=x.device)
-        for i, kind in enumerate(self.kinds):
-            p = self._layer(params, i)
-            # as in the reference: each recurrent layer starts from a zero
-            # state and the recurrence does not mask padding
-            if kind == RWKV6:
-                state = rwkv6.init_state(B, c.d_model, c.rwkv_head_dim, x.dtype, x.device)
-                x = self._rwkv_seq(p, x, state)[0]
-                continue
-            if kind == RGLRU:
-                h = L.rmsnorm(p["ln1"], x, c.norm_eps)
-                state = rglru.init_state(B, c.rglru_d_rnn, x.dtype, x.device)
-                x = x + rglru.rglru_block_seq(p["rec"], h, state)[0]
-            else:
-                x = self._attn_block(p, x, positions, self.windows[i], lengths)
-            x, a = self._ffn_block(p, x, aux=True)
+        for i, p in enumerate(self._layer_params(params)):
+            body = functools.partial(self._layer_seq, self.kinds[i], self.windows[i],
+                                     positions, lengths)
+            x, a = checkpoint(body, x, p, use_reentrant=False) if remat else body(x, p)
             if a is not None:
                 aux = aux + a
         x = L.rmsnorm(params["final_norm"], x, c.norm_eps)

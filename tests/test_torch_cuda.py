@@ -13,7 +13,11 @@ against the plain version in fp32 and, across the chunked kernel's segment
 and chunk boundaries, in float64.  The int8 matmul is held bitwise to its
 exact plain version, with w row-major (transposed into scratch) and
 column-major (read in place); its plain version is held to the Pallas kernel
-by ``tests/test_torch_int8.py``.
+by ``tests/test_torch_int8.py``.  K1's backward kernel is held to the
+plain version's gradient (``fa.plain_grad``, autograd through
+``mha_reference``) in float64 within 2^-14·max|want| + one ulp of its type,
+the form and limit of ``chip_smoke.py`` phase 18; the other kernels, which
+have no backward kernel yet, must raise when a gradient is wanted.
 """
 import numpy as np
 import pytest
@@ -721,3 +725,117 @@ def test_generated_job_on_the_card_stays_ieee_fp32_where_tf32_is_allowed(family,
         want = cpu_model.double()(x.double())
     assert got.shape == want.shape == (4, spec.num_classes)
     assert bool(((got.double() - want).abs() <= 1e-5 + 1e-4 * want.abs()).all())
+
+
+BWD_ATOL_SHARE = 2.0 ** -14    # chip_smoke.py's limit on K1's backward
+
+
+def held_grads(got, want):
+    """Worst ratio of |got − want| to 2^-14·max|want| + 2^-7·|want| over
+    (dq, dk, dv)."""
+    return max(float(((g.double() - w).abs()
+                       / (BWD_ATOL_SHARE * w.abs().max() + 2.0 ** -7 * w.abs())).max())
+               for g, w in zip(got, want))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("opts", [dict(causal=True, window=48, softcap=50.0, scale=8.0),
+                                  dict(causal=True, lengths=(200, 131, 5)),
+                                  dict(causal=False, Sq=75)])
+def test_flash_backward_matches_plain_grad(cuda, d, dtype, opts):
+    """dQ, dK and dV of the kernel against autograd through the plain
+    version in float64, with 4 query heads per kv head, ragged tiles, and a
+    planted fault the check must reject: dK of the first head of each group
+    only (the sum over the group dropped)."""
+    opts = dict(opts)
+    scale, Sq, lens = opts.pop("scale", 1.0), opts.pop("Sq", 200), opts.pop("lengths", None)
+    B, H, K, S = 3, 8, 2, 200
+    tq, tk, tv, do = arrays(7, dtype, (B, H, Sq, d), (B, K, S, d), (B, K, S, d), (B, H, Sq, d))
+    tq, tk, tv, do = (t.to(cuda) for t in (tq * scale, tk, tv, do))
+    if lens is not None:
+        opts["lengths"] = torch.tensor(lens, dtype=torch.int32, device=cuda)
+        for b, n in enumerate(lens):   # rows past a length carry no loss
+            do[b, :, n:] = 0
+    n0 = fa.launches_bwd
+    got = fa.flash_attention_bwd(tq, tk, tv, do, **opts)
+    torch.cuda.synchronize()
+    assert fa.launches_bwd == n0 + 1
+    want = fa.plain_grad(tq, tk, tv, do, acc=torch.float64, **opts)
+    assert all(g.dtype == TORCH_DT[dtype] and g.shape == w.shape for g, w in zip(got, want))
+    assert held_grads(got, want) <= 1.0
+    one_head = fa.flash_attention_bwd(tq[:, ::H // K].contiguous(), tk, tv,
+                                      do[:, ::H // K].contiguous(), **opts)[1]
+    assert held_grads((got[0], one_head, got[2]), want) > 10.0
+
+
+@pytest.mark.gpu
+def test_flash_attention_autograd_runs_both_kernels(cuda):
+    """``ops.flash_attention`` on CUDA tensors that require a gradient: K1
+    forward once, its backward kernel once, and the gradients the backward
+    wrapper gives."""
+    B, H, K, S, d = 2, 4, 2, 96, 64
+    tq, tk, tv, do = (t.to(cuda).requires_grad_() for t in
+                      arrays(8, "bfloat16", (B, H, S, d), (B, K, S, d), (B, K, S, d),
+                             (B, H, S, d)))
+    n0, m0 = fa.launches, fa.launches_bwd
+    out = ops.flash_attention(tq, tk, tv, causal=True, softcap=30.0)
+    grads = torch.autograd.grad(out, (tq, tk, tv), do.detach())
+    assert (fa.launches, fa.launches_bwd) == (n0 + 1, m0 + 1)
+    want = fa.flash_attention_bwd(tq.detach(), tk.detach(), tv.detach(), do.detach(),
+                                  causal=True, softcap=30.0)
+    assert all(torch.equal(g, w) for g, w in zip(grads, want))
+
+
+@pytest.mark.gpu
+def test_kernels_without_a_backward_raise_on_a_gradient(cuda):
+    """K2-K5 on CUDA inputs that require a gradient raise, naming the
+    missing backward; without grad mode they run."""
+    q = torch.randn((2, 4, 64), device=cuda, requires_grad=True)
+    kv = torch.randn((2, 2, 32, 64), device=cuda)
+    lengths = torch.full((2,), 32, dtype=torch.int32, device=cuda)
+    a = torch.rand((2, 16, 32), device=cuda, requires_grad=True)
+    s0 = torch.zeros((2, 32), device=cuda)
+    r = torch.randn((1, 32, 1, 32), device=cuda, requires_grad=True)
+    u = torch.zeros((1, 32), device=cuda)
+    st = torch.zeros((1, 1, 32, 32), device=cuda)
+    x_q = torch.ones((16, 64), dtype=torch.int8, device=cuda)
+    sx = torch.ones(16, device=cuda, requires_grad=True)
+    calls = {"decode_attention": lambda: ops.decode_attention(q, kv, kv, lengths),
+             "rglru_scan": lambda: ops.rglru_scan(a, a, s0),
+             "wkv6": lambda: ops.wkv6(r, r, r, -torch.ones_like(r), u, st),
+             "int8_matmul": lambda: ops.int8_matmul(x_q, x_q.T.contiguous(), sx,
+                                                    torch.ones(16, device=cuda))}
+    for name, call in calls.items():
+        with pytest.raises(NotImplementedError, match=f"{name} has no backward kernel"):
+            call()
+        with torch.no_grad():
+            call()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,K,Sq,Skv,causal", [(4, 32, 8, 2048, 2048, True),
+                                                 (4, 6, 6, 432, 1500, False)],
+                         ids=["granite-3-2b", "whisper-tiny-cross-attention"])
+def test_flash_backward_at_training_shapes(cuda, B, H, K, Sq, Skv, causal):
+    """Two of ``chip_smoke.py`` phase 18's shapes (bf16, d 64), held one
+    sequence at a time, with a planted fault of the kernel's own: the group
+    sum dropped (granite) or keys read only up to Sq (whisper)."""
+    d = 64
+    tq, tk, tv, do = (t.to(cuda) for t in arrays(9, "bfloat16", (B, H, Sq, d), (B, K, Skv, d),
+                                                 (B, K, Skv, d), (B, H, Sq, d)))
+    got = fa.flash_attention_bwd(tq, tk, tv, do, causal=causal)
+    if H > K:
+        G = H // K
+        fault = (got[0], fa.flash_attention_bwd(tq[:, ::G].contiguous(), tk, tv,
+                                                do[:, ::G].contiguous(), causal=causal)[1],
+                 got[2])
+    else:
+        cut = torch.full((B,), Sq, dtype=torch.int32, device=cuda)
+        fault = fa.flash_attention_bwd(tq, tk, tv, do, causal=causal, lengths=cut)
+    for b in range(B):
+        want = fa.plain_grad(tq[b:b + 1], tk[b:b + 1], tv[b:b + 1], do[b:b + 1],
+                             acc=torch.float64, causal=causal)
+        assert held_grads([t[b:b + 1] for t in got], want) <= 1.0
+        assert held_grads([t[b:b + 1] for t in fault], want) > 10.0
