@@ -7,9 +7,10 @@ Phases, each printed on its own lines; any failure exits non-zero:
   1. device   — nvidia-smi name and power limit, torch's device name and
                 capability (must be 9.0);
   2. build    — the five CUDA kernels from ``src/repro_torch/kernels/csrc``
-                with nvcc for sm_90a, in parallel, with ptxas's resource
-                report (no instantiation may spill, K3's bf16 and K4's
-                N = 32 ones included);
+                and the backward kernels of K1, K3 and K4 with nvcc for
+                sm_90a, in parallel, with ptxas's resource report (no
+                instantiation may spill, K3's bf16 and K4's N = 32 ones
+                included);
   3. kernels  — each kernel against its plain PyTorch version, element by
                 element, with planted faults that the check must reject, and
                 kernel, plain and library times (CUDA events) beside the
@@ -159,9 +160,34 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 loss's last tenth a nat below its first), then 50 steps
                 killed at step 30 and restored: the final state bitwise that
                 of a run without the failure;
+ 19. train    — the hybrid and RWKV6 families: K3's backward
+                (``rglru_scan_bwd.cu``) at recurrentgemma-9b's training shape
+                (B 4 × 2048, R 4096) in fp32 and bf16, and K4's
+                (``wkv6_bwd.cu``) at rwkv6-7b's (B 4 × 2048, 64 heads of 64,
+                bf16), at N 32 and at S 300 (a partial last chunk), with a
+                nonzero state0 and a gradient on the final state, against
+                float64 autograd through the plain forwards (K4's through
+                its float64 formulas, held to autograd on a slice) within
+                limits derived from their arithmetic (see BWD_CASE), the
+                fp32 plain versions against the same limits, planted faults
+                failing by ≥ 10x (K3′: g_last dropped, s_{t-1} shifted by
+                one; K4′: the gradient not carried across a chunk boundary,
+                u dropped from dk, dlogw without its state term; also at
+                the ~100M config's heads of 16, run padded to 32); one train
+                step of recurrentgemma-9b (3 layers) and rwkv6-7b (2 layers)
+                through the kernels, every kernel call of it, forward and
+                backward, held to float64 on its own operands, launch counts
+                exact, no plain call (its leaves against the plain path and
+                a float64 control reported, not held: see train_check);
+                recurrentgemma-9b at full width and 6
+                layers and rwkv6-7b at full width and 8 (fp32 masters,
+                4 × 2048, remat) for 3 steps each, step times and peaks;
+                both families' ~100M configs through ``launch/train.py``
+                for 200 steps (a nat down at least), and rwkv6-7b's killed
+                at step 30 and restored bitwise;
 then a ``kernels`` JSON line (``hook_launches``: phase 11's,
-``plan_hook_launches``: phase 12's; phase 18's records name the run their
-``launches`` were counted on), and last the ``ok`` JSON line.
+``plan_hook_launches``: phase 12's; phase 18's and 19's records name the run
+their ``launches`` were counted on), and last the ``ok`` JSON line.
 Needs one card; imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
@@ -317,7 +343,10 @@ SERVE = {"gemma2-2b": dict(rate=8.0, duration_s=10.0, prompt_tokens=512),
          "granite-moe-3b-a800m": dict(rate=8.0, duration_s=10.0, prompt_tokens=512)}
 MODEL_KERNELS = ("flash_attention", "decode_attention", "rglru_scan", "wkv6")
 KERNELS = MODEL_KERNELS + ("int8_matmul",)   # K5 runs on the calibration path only
-BUILT = KERNELS + ("flash_attention_bwd",)    # K1's backward: training (phase 18)
+# the backward kernels: K1's (training, phase 18), K3's and K4's (phase 19)
+BACKWARD = {"flash_attention_bwd": "flash_attention", "rglru_scan_bwd": "rglru_scan",
+            "wkv6_bwd": "wkv6"}
+BUILT = KERNELS + tuple(BACKWARD)
 
 
 def require(cond: bool, what: str) -> None:
@@ -456,7 +485,21 @@ def counters():
 def reset_launches():
     for mod in counters().values():
         mod.launches = 0
-    counters()["flash_attention"].launches_bwd = 0
+    for kernel in BACKWARD.values():
+        counters()[kernel].launches_bwd = 0
+
+
+def train_launches_read(kernels) -> dict:
+    """(forward, backward) launches of each of ``kernels`` (those with a
+    backward kernel)."""
+    return {k: (counters()[k].launches, counters()[k].launches_bwd) for k in kernels}
+
+
+def train_kernels(cfg) -> dict:
+    """The kernels a train step of ``cfg`` runs, each with its layers."""
+    n_attn, n_rec, n_rwkv = layer_counts(cfg)
+    return {k: n for k, n in (("flash_attention", n_attn), ("rglru_scan", n_rec),
+                              ("wkv6", n_rwkv)) if n}
 
 
 def read_launches():
@@ -2194,9 +2237,7 @@ def train_setup(arch: str, layers: int = 0):
     through ``launch/train.py``'s init."""
     from repro_torch.launch import train
     from repro_torch.models import build_model
-    cfg = train.model_config(arch)
-    if layers:
-        cfg = dataclasses.replace(cfg, num_layers=layers)
+    cfg = train.model_config(arch, layers=layers)
     model = build_model(cfg)
     return cfg, model, train.make_init_state_fn(model)()
 
@@ -2207,105 +2248,369 @@ def rel(a, b) -> float:
     return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
 
 
-def train_check(arch: str, run: dict):
-    """Phase 18 (b): one train step's loss, grad norm and gradients through
-    the kernels, through the plain path and through the control (the plain
-    path with float64 attention), on the same weights and batch."""
+def rglru_plain64(a, b, s0):
+    """K3's plain version with the recurrence in float64, rounded back to
+    the kernel's dtypes: the control's RG-LRU."""
+    from repro_torch.kernels.ref import rglru_reference
+    seq, last = rglru_reference(a.double(), b.double(), s0.double())
+    return seq.to(a.dtype), last.float()
+
+
+def controls() -> dict:
+    """The train-step control's stand-ins in ``ops``: each kernel's plain
+    version with its sums in float64."""
     import functools
     import torch
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.training.data import DataConfig, host_batch
+    from repro_torch.kernels import wkv6 as wk
+    return {"flash_attention": functools.partial(fa.plain, acc=torch.float64),
+            "rglru_scan": rglru_plain64, "wkv6": functools.partial(wk.plain, acc=torch.float64)}
+
+
+def step_run(grad_fn, params, batch, swap: dict):
+    """One gradient step with ``swap``'s functions in ``ops`` → (loss, grad
+    norm, {leaf path: gradient})."""
+    import torch
     from repro_torch.training.optimizer import global_norm
-    from repro_torch.training.step import make_grad_fn
     from repro_torch.training.tree import flatten
+    with swapped(swap):
+        grads, aux = grad_fn(params, batch)
+        torch.cuda.synchronize()
+    run = (aux["ce"], global_norm(grads), dict(flatten(grads)))
+    del grads
+    return run
+
+
+def step_distances(run, ctl) -> dict:
+    """A step's distance from the control in the loss, the grad norm and each
+    leaf (``rel``: relative to the control's largest entry)."""
+    out = {"loss": rel(run[0], ctl[0]), "grad_norm": rel(run[1], ctl[1])}
+    out.update({"/".join(p): rel(run[2][p], ctl[2][p]) for p in ctl[2]})
+    return out
+
+
+def kernel_step(arch: str, grad_fn, params, batch, used: dict, swap=None):
+    """One step through the kernels: each of ``used`` launched forward and
+    backward once a layer, and no plain version called (that would be a
+    fallback)."""
+    mods = {k: counters()[k] for k in used}
+    plains = {k: mod.plain for k, mod in mods.items()}
+    plain_calls = []
+
+    def counting(fn):
+        def call(*args, **kw):
+            plain_calls.append(fn)
+            return fn(*args, **kw)
+        return call
+    reset_launches()
+    for k, mod in mods.items():
+        mod.plain = counting(plains[k])
+    try:
+        run = step_run(grad_fn, params, batch, swap or {})
+    finally:
+        for k, mod in mods.items():
+            mod.plain = plains[k]
+    launched, want = train_launches_read(used), {k: (n, n) for k, n in used.items()}
+    require(launched == want and not plain_calls,
+            f"{arch} train step: launches (forward, backward) {launched}, want "
+            f"{want}, and no plain call ({len(plain_calls)})")
+    return run
+
+
+def plain_step(arch: str, name: str, grad_fn, params, batch, used: dict, swap: dict):
+    """One step with every kernel of ``used`` swapped out: it launches none."""
+    reset_launches()
+    run = step_run(grad_fn, params, batch, swap)
+    launched = train_launches_read(used)
+    require(all(n == (0, 0) for n in launched.values()),
+            f"{arch} {name} train step launched no kernel ({launched})")
+    return run
+
+
+def held_step(arch: str, kernel: dict, plain: dict, what: str) -> float:
+    """Each of ``kernel``'s distances within max(TRAIN_FLOOR, TRAIN_DRIFT x
+    ``plain``'s) → the worst ratio; prints the comparison."""
+    report = {k: dict(kernel=kernel[k], plain=plain[k],
+                      ratio=kernel[k] / max(TRAIN_FLOOR, TRAIN_DRIFT * plain[k]))
+              for k in plain}
+    worst = max(r["ratio"] for r in report.values())
+    print(f"[train] {arch}: {what}: worst ratio to max({TRAIN_FLOOR}, {TRAIN_DRIFT} x "
+          f"plain) {worst}; " + json.dumps(report))
+    over = {k: r for k, r in report.items() if r["ratio"] > 1.0}
+    require(not over, f"{arch} train step, {what}: the kernel path beyond max("
+            f"{TRAIN_FLOOR}, {TRAIN_DRIFT} x the plain path's distance from the control) "
+            f"in {over}")
+    return worst
+
+
+def train_check(arch: str, run: dict):
+    """Phases 18 (b) and 19 (b): one train step's loss, grad norm and
+    gradients through the kernels, through the plain path and through the
+    control (the plain path with attention and the recurrences in float64),
+    on the same weights and batch: the kernel path within max(TRAIN_FLOOR,
+    TRAIN_DRIFT × the plain path's distance from the control), launches
+    exact, no plain call."""
+    import torch
+    from repro_torch.training.data import DataConfig, host_batch
+    from repro_torch.training.step import make_grad_fn
     cfg, model, state = train_setup(arch, run["layers"])
     params = state["params"]
     del state
     batch = host_batch(DataConfig(global_batch=run["batch"], seq_len=run["seq"]), cfg, 0)
     grad_fn = make_grad_fn(model, remat=False)
-    plain_calls = []
-    counted = fa.plain
-
-    def counting(*args, **kw):
-        plain_calls.append(1)
-        return counted(*args, **kw)
-    runs = {}
-    for name, swap in (("kernel", {}), ("plain", {"flash_attention": fa.plain}),
-                       ("control", {"flash_attention": functools.partial(
-                           fa.plain, acc=torch.float64)})):
-        reset_launches()
-        fa.plain, plain_calls[:] = (counting if name == "kernel" else counted), []
-        try:
-            with swapped(swap):
-                grads, aux = grad_fn(params, batch)
-                torch.cuda.synchronize()
-        finally:
-            fa.plain = counted
-        launched = (fa.launches, fa.launches_bwd)
-        if name == "kernel":
-            require(launched == (run["layers"], run["layers"]) and not plain_calls,
-                    f"{arch} train step: K1 forward and backward {launched}, want "
-                    f"{run['layers']} each, and no plain attention ({len(plain_calls)})")
-        else:
-            require(launched == (0, 0), f"{arch} {name} train step launched no K1")
-        runs[name] = (aux["ce"], global_norm(grads), dict(flatten(grads)))
-        del grads
-    ctl = runs["control"]
-    worst, report = 0.0, {}
-    for what, pick in (("loss", lambda r: r[0]), ("grad_norm", lambda r: r[1])) + tuple(
-            ("/".join(p), (lambda r, p=p: r[2][p])) for p in ctl[2]):
-        kernel, plain = rel(pick(runs["kernel"]), pick(ctl)), rel(pick(runs["plain"]), pick(ctl))
-        limit = max(TRAIN_FLOOR, TRAIN_DRIFT * plain)
-        report[what] = dict(kernel=kernel, plain=plain, ratio=kernel / limit)
-        worst = max(worst, kernel / limit)
-        require(kernel <= limit, f"{arch} train step {what}: the kernel path {kernel} from "
-                f"the control, the plain path {plain} (limit {limit})")
-    require(all(bool(torch.isfinite(t).all()) for t in runs["kernel"][:2]),
+    used = train_kernels(cfg)
+    kern = kernel_step(arch, grad_fn, params, batch, used)
+    plain = plain_step(arch, "plain", grad_fn, params, batch, used,
+                       {k: counters()[k].plain for k in used})
+    ctl = plain_step(arch, "control", grad_fn, params, batch, used,
+                     {k: controls()[k] for k in used})
+    require(all(bool(torch.isfinite(t).all()) for t in kern[:2]),
             f"{arch} loss and grad norm finite")
     print(f"[train] {arch} {run['layers']} layers, batch {run['batch']} x {run['seq']}: loss "
-          f"{float(runs['kernel'][0])} (plain {float(runs['plain'][0])}, control "
-          f"{float(ctl[0])}), grad norm {float(runs['kernel'][1])}; launches K1 "
-          f"{run['layers']} forward and {run['layers']} backward, no plain attention; "
-          f"worst ratio to max({TRAIN_FLOOR}, {TRAIN_DRIFT} x plain) {worst}; "
-          + json.dumps(report))
-    return worst
+          f"{float(kern[0])} (plain {float(plain[0])}, control {float(ctl[0])}), grad norm "
+          f"{float(kern[1])}; launches (forward, backward) "
+          f"{ {k: (n, n) for k, n in used.items()} }, no plain call")
+    return held_step(arch, step_distances(kern, ctl), step_distances(plain, ctl),
+                     "one step")
 
 
-def train_slice():
-    """Phase 18 (c): granite-3-2b at full width and depth, TRAIN_SLICE's
-    steps through ``launch/train.py``'s config, init and step pieces (the
-    gradient, then the update, apart so that each one's peak shows)."""
+# Phase 19 (b) for rwkv6-7b.  Its step's gradient is ill-conditioned at the
+# first token: with a zero state the WKV output there is (r·u·k) v, a head's
+# variance across its channels can be ~1e-4 (the group norm's eps is 1e-5),
+# and one bf16 ulp of one WKV output value at t = 0 of layer 0 moves bonus_u's
+# gradient by tens of percent through layer 1's group norm (printed below).
+# So one step's distance from the control is a draw from a heavy-tailed
+# distribution: which of its 4096 values at t = 0 a path's fp32 sums round
+# the other way decides it.  A single-step check (TRAIN_DRIFT x the
+# plain path's distance) then fails for plain fp32 PyTorch as well (PERF.md
+# §6).  The check is therefore held over RWKV_BATCHES batches, each
+# step's distance against three plain fp32 versions of the WKV: the port's
+# sequential one (``wk.plain``), K4's chunked decomposition
+# (``ref.wkv6_chunked_reference``) and the reference's training algorithm
+# (``reference_wkv``).  For the loss, the grad norm and each leaf the
+# median over the batches of the kernel path's distance must be within
+# max(TRAIN_FLOOR, TRAIN_DRIFT × the median of the largest plain distance);
+# each batch's single-step ratio is printed, not held.  A K4 whose outputs
+# carry a relative error of RWKV_FAULT before their bf16 rounding (far
+# inside the per-call limit of one bf16 ulp) must fail it.
+RWKV_BATCHES = 8
+RWKV_FAULT = 2.0 ** -12
+
+
+def reference_wkv(r, k, v, logw, u, state0, chunk: int = 32):
+    """The reference's training WKV (``repro.models.rwkv6.wkv_chunked``) in
+    plain PyTorch, fp32: within a chunk every decay an exponential of a
+    difference of cumulative sums, the chunk states chained in order (the
+    reference combines the same pairs in an associative scan).  S a
+    multiple of ``chunk``; out in r's dtype, the final state fp32."""
     import torch
-    from repro_torch.kernels import flash_attention as fa
+    B, S, H, N = r.shape
+    C = S // chunk
+
+    def chunks(x):
+        return x.float().reshape(B, C, chunk, H, N).permute(0, 1, 3, 2, 4)
+    rc, kc, vc, wc = chunks(r), chunks(k), chunks(v), chunks(logw)
+    lc = torch.cumsum(wc, dim=3)                          # inclusive Σ logw
+    lc_excl = lc - wc
+    decay = torch.exp(lc[:, :, :, -1])                    # the chunks' decays
+    inject = torch.einsum("bchsd,bchse->bchde", kc * torch.exp(lc[:, :, :, -1:] - lc), vc)
+    state, before = state0.float(), []
+    for c in range(C):
+        before.append(state)
+        state = decay[:, c][..., None] * state + inject[:, c]
+    o_inter = torch.einsum("bchtd,bchde->bchte", rc * torch.exp(lc_excl),
+                           torch.stack(before, dim=1))
+    a = torch.einsum("bchtd,bchsd,bchtsd->bchts", rc, kc,
+                     torch.exp(lc_excl[:, :, :, :, None] - lc[:, :, :, None]))
+    below = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool, device=r.device), -1)
+    a = torch.where(below, a, torch.zeros((), device=r.device))
+    bonus = torch.einsum("bchtd,hd,bchtd->bcht", rc, u.float(), kc)
+    out = o_inter + a @ vc + bonus[..., None] * vc
+    return out.permute(0, 1, 3, 2, 4).reshape(B, S, H, N).to(r.dtype), state
+
+
+def chunked_wkv(r, k, v, logw, u, state0):
+    """K4's chunked decomposition in plain PyTorch fp32, cut into segments as
+    the kernel plans the call."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import wkv6 as wk
+    B, S, H, _ = r.shape
+    return ref.wkv6_chunked_reference(r, k, v, logw, u, state0,
+                                      segments=wk.plan_segments(B, H, S)[0])
+
+
+def imprecise_wkv(rel_err: float, seed: int):
+    """K4 and K4′ run on fp32 copies of r, k and v (the same arithmetic), the
+    output given a relative error of up to ``rel_err`` (seeded, uniform)
+    before its bf16 rounding: the planted precision fault of phase 19 (b)."""
+    import torch
+    from repro_torch.kernels import wkv6 as wk
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def fn(r, k, v, logw, u, s0):
+        out, state = wk.WKV6.apply(r.float(), k.float(), v.float(), logw, u, s0)
+        noise = torch.rand(out.shape, generator=gen, device=out.device) * 2 - 1
+        return (out * (1 + rel_err * noise)).to(r.dtype), state
+    return fn
+
+
+def bf16_ulp_away(x):
+    """x (a bf16 scalar) moved one bf16 ulp away from zero."""
+    import torch
+    return (x.view(torch.int16) + 1).view(torch.bfloat16)
+
+
+def first_token_witness(arch, grad_fn, params, batch, used, ctl, ops0, plains) -> None:
+    """Phase 19 (b)'s witness of the step's conditioning, on the first batch,
+    at layer 0's WKV operands: each path's fp32 output error relative to its
+    head's spread (the scale the group norm divides by; the kernel on fp32
+    copies of r, k and v, the same arithmetic), how many of its bf16 outputs
+    at t = 0 round other than the float64 control's, and the control's step
+    with one of those values moved one bf16 ulp away from zero, at positions
+    a seeded generator picks."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import wkv6 as wk
+    from repro_torch.models.rwkv6 import GROUP_NORM_EPS
+    r, k, v, logw, u, s0 = ops0
+    want = ref.wkv6_reference(r.double(), k.double(), v.double(), logw, u, s0,
+                              acc=torch.float64)[0]
+    spread = (want.var(-1, correction=0, keepdim=True) + GROUP_NORM_EPS).sqrt()
+    paths = {"kernel": wk.wkv6, **plains}
+    errors, flips = {}, {}
+    with torch.no_grad():
+        for n, fn in paths.items():
+            e = (fn(r.float(), k.float(), v.float(), logw, u, s0)[0].double() - want) / spread
+            errors[n] = dict(rms=float(e.pow(2).mean().sqrt()), max=float(e.abs().max()))
+            got = fn(r, k, v, logw, u, s0)[0]
+            flips[n] = int((got[:, 0] != want[:, 0].to(got.dtype)).sum())
+    gen = torch.Generator().manual_seed(1)
+    H, N = r.shape[2], r.shape[3]
+    moved = {}
+    for _ in range(3):
+        h, d = (int(torch.randint(n, (1,), generator=gen)) for n in (H, N))
+        layer = [0]
+
+        def bumped(*args, h=h, d=d):
+            out, state = controls()["wkv6"](*args)
+            if layer[0] == 0:
+                o = out.detach().clone()
+                o[0, 0, h, d] = bf16_ulp_away(o[0, 0, h, d])
+                out = out + (o - out.detach())
+            layer[0] += 1
+            return out, state
+        dist = step_distances(plain_step(arch, "control + 1 ulp", grad_fn, params, batch,
+                                         used, {"wkv6": bumped}), ctl)
+        moved[f"h {h}, d {d}"] = {key: dist[key] for key in
+                                  ("loss", "grad_norm", "layers/tm_cm/bonus_u", "embed")}
+    print(f"[train] {arch} batch 0, layer 0's WKV: fp32 output error / the head's spread "
+          f"{json.dumps(errors)}; bf16 outputs at t = 0 rounded other than the control's, "
+          f"of {r.shape[0] * H * N}: {flips}; the control with one of them one bf16 ulp "
+          f"away from zero, distances: {json.dumps(moved)}")
+
+
+def train_check_batches(arch: str, run: dict) -> float:
+    """Phase 19 (b) for rwkv6-7b: the train-step check over RWKV_BATCHES
+    batches (see above) → the kernel path's worst ratio."""
+    import statistics
+    import torch
+    from repro_torch.kernels import wkv6 as wk
+    from repro_torch.training.data import DataConfig, host_batch
+    from repro_torch.training.step import make_grad_fn
+    cfg, model, state = train_setup(arch, run["layers"])
+    params = state["params"]
+    del state
+    grad_fn = make_grad_fn(model, remat=False)
+    used = train_kernels(cfg)
+    plains = {"sequential": wk.plain, "chunked": chunked_wkv, "reference": reference_wkv}
+    kern, worst_plain, fault, ratios = [], [], [], []
+    for b in range(run["batches"]):
+        batch = host_batch(DataConfig(global_batch=run["batch"], seq_len=run["seq"]), cfg, b)
+        ops0 = []
+
+        def control(*args):
+            if not ops0:
+                ops0.extend(t.detach().clone() for t in args)
+            return controls()["wkv6"](*args)
+        ctl = plain_step(arch, "control", grad_fn, params, batch, used, {"wkv6": control})
+        k_run = kernel_step(arch, grad_fn, params, batch, used)
+        require(all(bool(torch.isfinite(t).all()) for t in k_run[:2]),
+                f"{arch} loss and grad norm finite")
+        kern.append(step_distances(k_run, ctl))
+        del k_run
+        wit = {n: step_distances(plain_step(arch, n, grad_fn, params, batch, used,
+                                            {"wkv6": fn}), ctl) for n, fn in plains.items()}
+        worst_plain.append({key: max(w[key] for w in wit.values()) for key in kern[-1]})
+        fault.append(step_distances(step_run(grad_fn, params, batch, {
+            "wkv6": imprecise_wkv(RWKV_FAULT, b)}), ctl))
+        single = {n: max(d[key] / max(TRAIN_FLOOR, TRAIN_DRIFT * wit["sequential"][key])
+                         for key in d)
+                  for n, d in (("kernel", kern[-1]), *wit.items(), ("fault", fault[-1]))}
+        ratios.append(single)
+        print(f"[train] {arch} batch {b}: loss {float(ctl[0])}; single-step worst ratio to "
+              f"max({TRAIN_FLOOR}, {TRAIN_DRIFT} x the sequential plain distance), not held: "
+              f"{json.dumps(single)}; bonus_u distances kernel "
+              f"{kern[-1]['layers/tm_cm/bonus_u']}, "
+              + ", ".join(f"{n} {w['layers/tm_cm/bonus_u']}" for n, w in wit.items()))
+        if b == 0:
+            first_token_witness(arch, grad_fn, params, batch, used, ctl, ops0, plains)
+        del ctl, ops0
+        torch.cuda.empty_cache()
+    over = {n: sum(r[n] > 1.0 for r in ratios) for n in ratios[0]}
+    print(f"[train] {arch}: batches over 1 in the single-step check, of {len(ratios)}: "
+          f"{over}")
+
+    def median(runs):
+        return {key: statistics.median(r[key] for r in runs) for key in runs[0]}
+    yard = median(worst_plain)
+    worst_fault = max(median(fault)[key] / max(TRAIN_FLOOR, TRAIN_DRIFT * yard[key])
+                      for key in yard)
+    print(f"[train] {arch}: planted fault (K4's output {RWKV_FAULT} off before its bf16 "
+          f"rounding): median worst ratio {worst_fault}")
+    require(worst_fault > 1.0, f"{arch}: the planted precision fault fails the check "
+            f"({worst_fault})")
+    return held_step(arch, median(kern), yard, f"medians over {len(kern)} batches, "
+                     "against the largest of three plain fp32 versions' distances")
+
+
+def train_slice(arch: str, layers: int = 0, batch: int = 4, seq: int = 2048, steps: int = 3):
+    """Phases 18 (c) and 19 (c): ``arch`` at full width (its first
+    ``layers`` when given, else full depth), ``steps`` steps through
+    ``launch/train.py``'s config, init and step pieces (the gradient, then
+    the update, apart so that each one's peak shows), with remat."""
+    import torch
+    from repro_torch.launch import train
     from repro_torch.models.registry import count_params, param_shapes
     from repro_torch.training.data import DataConfig, host_batch
     from repro_torch.training.optimizer import OptimizerConfig, adamw_update
     from repro_torch.training.step import make_grad_fn
     from repro_torch.training.tree import flatten
-    arch, steps = TRAIN_SLICE["arch"], TRAIN_SLICE["steps"]
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    cfg, model, state = train_setup(arch)
+    cfg, model, state = train_setup(arch, layers)
     torch.cuda.synchronize()
     init_s, init_gb = time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 1e9
     n = count_params(param_shapes(model))
-    require(cfg.num_layers == 40 and cfg.d_model == 2048 and cfg.param_dtype == "float32",
-            f"{arch} at full width and depth with fp32 masters")
+    full = train.model_config(arch)
+    require(cfg.d_model == full.d_model and cfg.num_layers == (layers or full.num_layers)
+            and cfg.param_dtype == "float32",
+            f"{arch} at full width ({cfg.d_model}), {cfg.num_layers} layers, fp32 masters")
+    used = train_kernels(cfg)
     params, opt = state["params"], state["opt"]
     first = {p: t[(0,) * (t.dim() - 1)].clone() for p, t in flatten(params)}
     opt_cfg = OptimizerConfig(learning_rate=3e-4, warmup_steps=max(steps // 10, 1),
                               total_steps=steps)
-    data = DataConfig(global_batch=TRAIN_SLICE["batch"], seq_len=TRAIN_SLICE["seq"])
+    data = DataConfig(global_batch=batch, seq_len=seq)
     grad_fn = make_grad_fn(model, remat=True)
     times, peaks, metrics = [], [], []
     # the main path: counts at 0 just before, read just after
     reset_launches()
     for step in range(steps):
-        batch = host_batch(data, cfg, step)
+        batch_ = host_batch(data, cfg, step)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t1 = time.perf_counter()
-        grads, aux = grad_fn(params, batch)
+        grads, aux = grad_fn(params, batch_)
         torch.cuda.synchronize()
         t2, step_gb = time.perf_counter(), torch.cuda.max_memory_allocated() / 1e9
         torch.cuda.reset_peak_memory_stats()
@@ -2316,30 +2621,33 @@ def train_slice():
         times.append((t2 - t1, t3 - t2))
         peaks.append((step_gb, update_gb))
         metrics.append((float(aux["ce"]), float(m["grad_norm"])))
-    launches = {"flash_attention": fa.launches, "flash_attention_bwd": fa.launches_bwd}
+    launched = train_launches_read(used)
+    launches = {**{k: f for k, (f, _) in launched.items()},
+                **{k + "_bwd": b for k, (_, b) in launched.items()}}
     moved = sum(not torch.equal(t[(0,) * (t.dim() - 1)], first[p]) for p, t in flatten(params))
     require(all(np.isfinite(x) for m_ in metrics for x in m_),
             f"{arch} loss and grad norm finite {metrics}")
     require(moved == len(first), f"{arch}: {moved} of {len(first)} leaves moved")
-    require(launches == {"flash_attention": 2 * 40 * steps, "flash_attention_bwd": 40 * steps},
-            f"{arch} launches {launches}: K1 twice a layer a step (remat), its backward once")
-    print(f"[train] {arch} full width and depth ({n} parameters, fp32 masters), batch "
-          f"{data.global_batch} x {data.seq_len}, remat: init {init_s:.3f} s, peak "
-          f"{init_gb:.2f} GB; per step (gradient s, update s) {times}, peaks (GB) "
+    want = {k: (2 * n_ * steps, n_ * steps) for k, n_ in used.items()}
+    require(launched == want, f"{arch} launches {launched}: each kernel twice a layer a step "
+            f"(remat), its backward once ({want})")
+    print(f"[train] {arch} full width, {cfg.num_layers} layers ({n} parameters, fp32 "
+          f"masters), batch {data.global_batch} x {data.seq_len}, remat: init {init_s:.3f} s, "
+          f"peak {init_gb:.2f} GB; per step (gradient s, update s) {times}, peaks (GB) "
           f"{peaks}; (loss, grad norm) {metrics}; launches {launches}; {moved} of "
           f"{len(first)} leaves moved")
     return launches, times
 
 
-def train_learns(tmp: str):
-    """Phase 18 (d): ``launch/train.py``'s main with examples/train_100m.py's
-    flags, the loss's last tenth at least 1 nat below its first; then 50
-    steps killed at step 30 and restored from the step-20 checkpoint give
-    the parameters and optimizer state of 50 steps without a failure."""
+def train_learns(tmp: str, arch: str = "granite-3-2b", restart: bool = True):
+    """Phases 18 (d) and 19 (d): ``launch/train.py``'s main on ``arch``'s
+    ~100M config with examples/train_100m.py's other flags, the loss's last
+    tenth at least 1 nat below its first; then (``restart``) 50 steps killed
+    at step 30 and restored from the step-20 checkpoint give the parameters
+    and optimizer state of 50 steps without a failure."""
     import contextlib
     import io
     import torch
-    from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch import train
     from repro_torch.models import build_model
     from repro_torch.training import checkpoint as ckpt
@@ -2347,49 +2655,61 @@ def train_learns(tmp: str):
     from repro_torch.training.ft import RunnerConfig, TrainingRunner
     from repro_torch.training.optimizer import OptimizerConfig
     from repro_torch.training.tree import flatten
+    cfg = train.model_config(arch, reduce=True)
+    used = train_kernels(cfg)
+    flags = ["--arch", arch] + TRAIN_100M[2:]
     out = io.StringIO()
     reset_launches()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(out):
-        train.main(TRAIN_100M + ["--ckpt-dir", f"{tmp}/100m", "--device", "cuda"])
+        train.main(flags + ["--ckpt-dir", f"{tmp}/{arch}-100m", "--device", "cuda"])
     learn_s = time.perf_counter() - t0
     lines = out.getvalue().splitlines()
     for line in lines:
         print(f"[train] 100M {line}")
     first, last = map(float, re.search(r"first10=(\S+) last10=(\S+)", lines[-1]).groups())
-    launches = (fa.launches, fa.launches_bwd)
-    require(last <= first - 1.0, f"the 100M run learns: last tenth {last}, first {first}")
-    require(launches == (2 * 4 * 200, 4 * 200), f"100M launches {launches}")
-    cfg = train.model_config("granite-3-2b", reduce=True)
-    model = build_model(cfg)
-    opt_cfg = OptimizerConfig(learning_rate=3e-3, warmup_steps=5, total_steps=50)
-    step_fn = train.make_step_fn(model, opt_cfg, DataConfig(global_batch=8, seq_len=256))
-    results = {}
-    for name, fail in (("killed", 30), ("whole", None)):
-        runner = TrainingRunner(RunnerConfig(ckpt_dir=f"{tmp}/{name}", ckpt_every=20,
-                                             max_steps=50, fail_at_step=fail),
-                                step_fn, train.make_init_state_fn(model), device="cuda")
-        res = runner.run()
-        require(res["final_step"] == 50 and res["restarts"] == (fail is not None),
-                f"{name} run: {res['final_step']} steps, {res['restarts']} restarts")
-        results[name] = ckpt.restore(f"{tmp}/{name}")[1]
-    pairs = list(zip(flatten(results["killed"]), flatten(results["whole"])))
-    same = all(pa == pb and torch.equal(a, b) for (pa, a), (pb, b) in pairs)
-    require(same, "the restarted run's final state bitwise the uninterrupted run's")
-    print(f"[train] 100M: 200 steps in {learn_s:.1f} s, loss first tenth {first}, last "
-          f"tenth {last}; launches K1 {launches[0]}, its backward {launches[1]}; 50 steps "
-          f"killed at 30 and restored from step 20: final params, m, v and step bitwise "
-          f"those of the uninterrupted run ({len(pairs)} leaves)")
-    return launches
+    launched = train_launches_read(used)
+    require(last <= first - 1.0, f"the {arch} 100M run learns: last tenth {last}, first {first}")
+    want = {k: (2 * n * 200, n * 200) for k, n in used.items()}
+    require(launched == want, f"{arch} 100M launches {launched}, want {want}")
+    note = ""
+    if restart:
+        model = build_model(cfg)
+        opt_cfg = OptimizerConfig(learning_rate=3e-3, warmup_steps=5, total_steps=50)
+        step_fn = train.make_step_fn(model, opt_cfg, DataConfig(global_batch=8, seq_len=256))
+        results = {}
+        for name, fail in (("killed", 30), ("whole", None)):
+            runner = TrainingRunner(RunnerConfig(ckpt_dir=f"{tmp}/{arch}-{name}", ckpt_every=20,
+                                                 max_steps=50, fail_at_step=fail),
+                                    step_fn, train.make_init_state_fn(model), device="cuda")
+            res = runner.run()
+            require(res["final_step"] == 50 and res["restarts"] == (fail is not None),
+                    f"{name} run: {res['final_step']} steps, {res['restarts']} restarts")
+            results[name] = ckpt.restore(f"{tmp}/{arch}-{name}")[1]
+        pairs = list(zip(flatten(results["killed"]), flatten(results["whole"])))
+        same = all(pa == pb and torch.equal(a, b) for (pa, a), (pb, b) in pairs)
+        require(same, f"{arch}: the restarted run's final state bitwise the uninterrupted run's")
+        note = (f"; 50 steps killed at 30 and restored from step 20: final params, m, v and "
+                f"step bitwise those of the uninterrupted run ({len(pairs)} leaves)")
+    print(f"[train] {arch} 100M: 200 steps in {learn_s:.1f} s, loss first tenth {first}, last "
+          f"tenth {last}; launches (forward, backward) {launched}{note}")
+    return launched
 
 
-def train_launches(kernel: str, arch: str, slice_launches: dict, launches_100m) -> dict:
-    """A phase-18 record's launches and the run they were counted on."""
+def train_launches(kernel: str, arch: str, slice_launches: dict, launches_100m,
+                   slices19: dict) -> dict:
+    """A phase-18 record's launches and the run they were counted on (K1′ at
+    recurrentgemma-9b's shapes: on phase 19's slice)."""
+    if kernel in slices19.get(arch, {}):
+        return dict(launches=slices19[arch][kernel],
+                    launches_on=f"train, {arch} at {TRAIN19_SLICE[arch]} layers x "
+                    f"{TRAIN19_STEPS} steps with remat")
     if arch == TRAIN_SLICE["arch"]:
         return dict(launches=slice_launches[kernel],
                     launches_on=f"train, 40 layers x {TRAIN_SLICE['steps']} steps with remat")
     if arch.endswith("100M"):
-        return dict(launches=launches_100m[1], launches_on="train, 4 layers x 200 steps "
+        return dict(launches=launches_100m["flash_attention"][1],
+                    launches_on="train, 4 layers x 200 steps "
                     "(launch/train.py --reduce), with remat")
     if arch in TRAIN_CHECKS:
         n = TRAIN_CHECKS[arch]["layers"]
@@ -2438,12 +2758,400 @@ def phase_train():
     for arch, run in TRAIN_CHECKS.items():
         train_check(arch, run)
         torch.cuda.empty_cache()
-    launches, _ = train_slice()
+    launches, _ = train_slice(TRAIN_SLICE["arch"], batch=TRAIN_SLICE["batch"],
+                              seq=TRAIN_SLICE["seq"], steps=TRAIN_SLICE["steps"])
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         launches_100m = train_learns(tmp)
     print(f"[train] phase 18 s={time.perf_counter() - t_phase:.1f}")
     return records, launches, launches_100m
+
+
+# Phase 19: the hybrid and RWKV6 families train on the card.
+#
+# K3's backward (rglru_scan_bwd.cu) against the float64 gradient, entry by
+# entry, with limits from its own arithmetic (u = UNIT; every step rounded
+# as written, no fused multiply-add).  Its fp32 states are recomputed as the
+# forward computes them, so with A_t the forward recurrence on |a|, |b| and
+# |s0| (A_{-1} = |s0|) their error is F_t ≤ |a_t| F_{t-1} + 2u·A_t (a
+# product, then a sum, each rounded: F_{-1} = 0).  The reversed scan: with
+# M_t = |g_t| + |a_{t+1}| M_{t+1} (M_{S-1} = |g_{S-1}| + |g_last|) bounding
+# |ds_t|, the carry round(a·ds) and the sum round(g + carry) give
+# E_t ≤ |a_{t+1}| E_{t+1} + u·|a_{t+1}| M_{t+1} + 2u·M_t, which contracts
+# with the decays as the state's does.  So db_t is within E_t, da_t =
+# round(ds·s_{t-1}) within E_t·A_{t-1} + M_t·F_{t-1} + u·M_t·A_{t-1}, and ds0
+# = round(a_0·ds_0) within |a_0| E_0 + u·|a_0| M_0; each limit is 2 x that
+# + (bf16 outputs) RTOL·|want| + UNIT·max|want| (``held_bwd``; a floor in
+# the output's own scale, not ATOL: a model's gradients are ~1e-4), the
+# factor 2 as for K4's forward.
+#
+# K4's backward (wkv6_bwd.cu, fp32 FMA on the CUDA cores, T = 32 steps a
+# chunk, N the head size, C chunks) likewise, after ref.wkv6_backward_
+# chunked_reference's decomposition.  Factors: a running product of at most
+# T - 1 factors e^{w} (expf ≤ 2 ulp = 4u, each product rounded) is within
+# 5Tu; a sum of n products within (n + 1)u of the sum of their absolute
+# values.  The carried matrices: the states S_c (errors E_c, absolute
+# recurrence A_c, A_0 = |s0|) and the gradients Go_c of the chunks' ends
+# (errors F_c, absolute recurrence Ga_c from |dS|) are each updated as
+# M' = round(D·M) then T fused multiply-adds of the decayed rows: with I_c
+# the chunk's absolute increment, E' ≤ D·E + (|x| + T + 6)u·D·A + (6T + 2)u·I
+# (x = Σ w of the chunk, its decay D = e^x a double sum rounded once, then
+# expf), and F likewise from the other end.  Each output is then within
+# γ·(its value on absolute inputs, ``wk.plain_grad`` on |r|, |k|, |v|, |u|,
+# |s0|, |do|, |dS|) plus what the carried errors reach it through:
+# - dr: γ = (N + 6T + 6)u, + pd ⊙ (E_c |do|); dk: γ likewise, + sd ⊙ (F_c |v|);
+#   dv: γ likewise, + F_cᵀ (|k| ⊙ sd);
+# - dlogw: γ = (N + 7T + 10)u times W_t, the absolute value of every term of
+#   the reverse-cumsum identity (D·rowsum(Ga⊙A) + Σ_{s<t} |k| sd (Ga|v|) +
+#   Σ_{τ>t} |r|·|dr′| + Σ_{s≥t} |k|·|dk′ intra|, which cancel to leave
+#   dlogw), + what E_c and F_c reach through it (summed over the chunk);
+# - du: γ = (N + T + B·C + 4)u (a chunk's sum, then B·C chunks' in order);
+#   dstate0: the carried error F at the sequence's start.
+# Each limit is 2 x that + (bf16 outputs) RTOL·|want| + UNIT·max|want|, as
+# above.
+# ``wk.plain_grad`` in float64 (the explicit sequential formulas) is the
+# want at the full shape; it is itself held to float64 autograd through the
+# plain forward on a slice (the autograd graph of the whole would take tens
+# of GB), and K3's to autograd at the full shape.
+BWD_CASE = dict(B=4, S=2048)          # the training shape of both families
+RG_WIDTH = 4096                       # recurrentgemma-9b's RG-LRU width
+TRAIN19_CHECKS = {"recurrentgemma-9b": dict(layers=3, batch=2, seq=2048),
+                  "rwkv6-7b": dict(layers=2, batch=1, seq=1024, batches=RWKV_BATCHES)}
+TRAIN19_SLICE = {"recurrentgemma-9b": 6, "rwkv6-7b": 8}   # layers at full width
+TRAIN19_STEPS = 3
+TRAIN19_RESTART = "rwkv6-7b"           # the 100M run killed and restored
+BWD_FAULT_FACTOR = 10.0               # a planted fault fails by this much at least
+
+
+def rglru_bwd_limits(a, b, s0, g, g_last):
+    """K3′'s limits on (da, db, ds0), entry by entry (see above)."""
+    import torch
+    a, b, s0, g, g_last = (t.double().abs() for t in (a, b, s0, g, g_last))
+    S, u = a.shape[1], UNIT
+    A, F = [s0], [torch.zeros_like(s0)]
+    for t in range(S):
+        A.append(a[:, t] * A[-1] + b[:, t])
+        F.append(a[:, t] * F[-1] + 2 * u * A[-1])
+    M, E = [None] * S, [None] * S
+    m, e = g_last, torch.zeros_like(s0)          # |a_{t+1}| M_{t+1}, and its error
+    for t in reversed(range(S)):
+        M[t] = g[:, t] + m
+        E[t] = e + 2 * u * M[t]
+        m, e = a[:, t] * M[t], a[:, t] * E[t] + u * a[:, t] * M[t]
+    if not S:
+        return torch.zeros_like(a), torch.zeros_like(b), 0 * s0
+    M, E, Ap, Fp = (torch.stack(x, dim=1) for x in (M, E, A[:-1], F[:-1]))
+    return 2 * (E * Ap + M * Fp + u * M * Ap), 2 * E, 2 * e
+
+
+def held_bwd(got, want, limits):
+    """(max |got − want|, worst ratio to the derived limit + RTOL·|want|
+    for bf16 outputs + UNIT·max|want| (a floor in the output's own scale:
+    gradients in a model are ~1e-4, where ATOL would hide everything), each
+    output's ratio)."""
+    import torch
+    errs, ratios = [], []
+    for x, w, lim in zip(got, want, limits):
+        e = (x.double() - w).abs()
+        if not e.numel():
+            errs.append(0.0)
+            ratios.append(0.0)
+            continue
+        rtol = RTOL if x.dtype == torch.bfloat16 else 0.0
+        floor = UNIT * float(w.abs().max()) + 1e-300
+        errs.append(float(e.max()))
+        ratios.append(float((e / (lim + rtol * w.abs() + floor)).max()))
+    return max(errs), max(ratios), ratios
+
+
+def rglru_bwd_case(dtype: str):
+    """Phase 19 (a): K3′ at recurrentgemma-9b's training shape, a/b/g in
+    ``dtype`` (the model sends fp32; bf16 is the calibration's dtype), held
+    to float64 autograd through the plain forward; the fp32 plain version
+    against the same limits as a control; faults: g_last dropped, s_{t-1}
+    shifted by one."""
+    import torch
+    from repro_torch.kernels import rglru_scan as rg
+    from repro_torch.kernels.ref import rglru_reference
+    B, S, R = BWD_CASE["B"], BWD_CASE["S"], RG_WIDTH
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    a = (0.5 + 0.499 * torch.rand((B, S, R), generator=gen, device="cuda")).to(dt)
+    b = (0.1 * torch.randn((B, S, R), generator=gen, device="cuda")).to(dt)
+    s0 = torch.randn((B, R), generator=gen, device="cuda")
+    gs = torch.randn((B, S, R), generator=gen, device="cuda").to(dt)
+    g_last = torch.randn((B, R), generator=gen, device="cuda")
+    args = (a, b, s0, gs, g_last)
+    got = rg.rglru_scan_bwd(*args)
+    torch.cuda.synchronize()
+    require([x.dtype for x in got] == [dt, dt, torch.float32], "rglru_scan_bwd dtypes")
+    with torch.enable_grad():
+        xs = [t.double().requires_grad_() for t in (a, b, s0)]
+        seq, last = rglru_reference(*xs)
+        want = torch.autograd.grad((seq * gs.double()).sum() + (last * g_last.double()).sum(),
+                                   xs)
+    states = seq.detach()
+    del seq, last, xs
+    formulas = max(rel(x, w) for x, w in zip(rg.plain_grad(*args, acc=torch.float64), want))
+    require(formulas <= 1e-12, f"K3's plain backward against float64 autograd {formulas}")
+    limits = rglru_bwd_limits(*args)
+    err, ratio, ratios = held_bwd(got, want, limits)
+    require(all(bool(torch.isfinite(x).all()) for x in got), "rglru_scan_bwd finite")
+    require(ratio <= 1.0, f"rglru_scan_bwd {dtype} max|err| {err}, ratios {ratios}")
+    control = [x.to(y.dtype) for x, y in zip(rg.plain_grad(*args), got)]
+    control_ratio = held_bwd(control, want, limits)[1]
+    require(control_ratio <= 1.0, f"rglru_scan_bwd's fp32 plain control {control_ratio}")
+    shifted = (got[1].double() * states, got[1], got[2])   # da_t = ds_t·s_t
+    faults = {"g_last_dropped": held_bwd(rg.rglru_scan_bwd(a, b, s0, gs), want, limits)[1],
+              "state_shifted_by_one": held_bwd(shifted, want, limits)[1]}
+    require(all(f >= BWD_FAULT_FACTOR for f in faults.values()),
+            f"rglru_scan_bwd check rejects planted faults by {BWD_FAULT_FACTOR}x: {faults}")
+    # a, b and g read once, da and db written once (s0, g_last, ds0 beside);
+    # five operations an element: the state (2), then ds, da and the carry
+    size = a.element_size()
+    ms_bound, by = bound(5.0 * B * S * R, size * 5.0 * B * S * R + 4.0 * 3 * B * R,
+                         PEAK_FP32_FLOPS)
+    res = dict(max_abs_err=err, limit_ratio=ratio, ratios=ratios, control_ratio=control_ratio,
+               fault_ratio=faults, formulas_vs_autograd=formulas,
+               ms=cuda_ms(lambda: rg.rglru_scan_bwd(*args), 20),
+               plain_ms=cuda_ms(lambda: rg.plain_grad(*args), 2),
+               library_ms=None,   # no single PyTorch call computes the reversed scan
+               bound_ms=ms_bound, bound_by=by)
+    print(f"[kernel rglru_scan_bwd] recurrentgemma-9b {dtype} B={B} S={S} R={R} "
+          + json.dumps(res))
+    return res
+
+
+def wkv_bwd_limits(r, k, v, logw, u, s0, do, ds):
+    """K4′'s limits on (dr, dk, dv, dlogw, du, dstate0), entry by entry
+    (see above)."""
+    import torch
+    from repro_torch.kernels import wkv6 as wk
+    B, S, H, N = r.shape
+    T, unit = wk.CHUNK, UNIT
+    C = -(-S // T)
+
+    def chunked(x):  # (B, S, H, N) → (C, B, H, T, N) in float64, zeros past S
+        x = torch.nn.functional.pad(x.double(), (0, 0, 0, 0, 0, C * T - S))
+        return x.reshape(B, C, T, H, N).permute(1, 0, 3, 2, 4)
+
+    def unchunk(x):
+        return x.permute(1, 0, 3, 2, 4).reshape(B, C * T, H, N)[:, :S]
+
+    def rcum(x):     # Σ_{τ≥t} along the chunk
+        return x.flip(3).cumsum(3).flip(3)
+    ra, ka, va, oa = (chunked(x.abs()) for x in (r, k, v, do))
+    lw = chunked(logw)
+    e = torch.exp(lw)
+    ones = torch.ones_like(e[:, :, :, :1])
+    pd = torch.cat([ones, e[:, :, :, :-1]], dim=3).cumprod(dim=3)
+    sd = torch.cat([e[:, :, :, 1:], ones], dim=3).flip(3).cumprod(dim=3).flip(3)
+    x = lw.sum(dim=3)
+    D = torch.exp(x)[..., None]
+    kd, rd = ka * sd, ra * pd
+    grow, g_inc = (x.abs()[..., None] + T + 6) * unit * D, (6 * T + 2) * unit
+    A, E = [s0.double().abs()], [torch.zeros_like(s0, dtype=torch.float64)]
+    for c in range(C - 1):
+        inc = torch.einsum("bhtd,bhte->bhde", kd[c], va[c])
+        E.append(D[c] * E[c] + grow[c] * A[c] + g_inc * inc)
+        A.append(D[c] * A[c] + inc)
+    Go, F = [None] * C, [None] * C
+    go, f = ds.double().abs(), torch.zeros_like(A[0])
+    for c in reversed(range(C)):
+        Go[c], F[c] = go, f
+        inc = torch.einsum("bhtd,bhte->bhde", rd[c], oa[c])
+        f = D[c] * f + grow[c] * go + g_inc * inc
+        go = D[c] * go + inc
+    A, E, Go, F = (torch.stack(m) for m in (A, E, Go, F))
+    mag = wk.plain_grad(r.abs(), k.abs(), v.abs(), logw, u.abs(), s0.abs(), do.abs(),
+                        ds.abs(), acc=torch.float64)
+    Mdr, Mdk, Mdv = (chunked(m) for m in mag[:3])
+    ptt = (va * oa).sum(-1, keepdim=True)
+    ua = u.double().abs()[None, None, :, None, :]
+    gv = torch.einsum("cbhde,cbhte->cbhtd", Go, va)
+    se = torch.einsum("cbhde,cbhte->cbhtd", E, oa)
+    fv = torch.einsum("cbhde,cbhte->cbhtd", F, va)
+    g_rkv = (N + 6 * T + 6) * unit
+    ks = kd * gv
+    rr = ra * (Mdr - ua * ka * ptt).clamp(min=0)
+    ki = ka * (Mdk - sd * gv - ua * ra * ptt).clamp(min=0)
+    W = ((D[..., 0] * (Go * A).sum(-1))[:, :, :, None] + (ks.cumsum(3) - ks)
+         + (rcum(rr) - rr) + rcum(ki))
+    carried_w = ((rd * se).sum(3) + D[..., 0] * ((Go * E).sum(-1) + (F * A).sum(-1))
+                 + 2 * (kd * fv).sum(3))[:, :, :, None]
+    return (2 * unchunk(g_rkv * Mdr + pd * se),
+            2 * unchunk(g_rkv * Mdk + sd * fv),
+            2 * unchunk(g_rkv * Mdv + torch.einsum("cbhtd,cbhde->cbhte", kd, F)),
+            2 * unchunk((N + 7 * T + 10) * unit * W + carried_w),
+            2 * (N + T + B * C + 4) * unit * mag[4],
+            2 * f)
+
+
+def wkv6_bwd_faults(args, want):
+    """K4′'s planted faults, each the float64 gradient with the fault in
+    it, composed of ``wk.plain_grad`` calls: the gradient not carried across
+    the boundary into the middle chunk (the steps before it computed as if
+    the sequence ended there); the u term dropped from dk; and in the middle
+    chunk dlogw without its state term (that chunk run from a zero state,
+    with the true gradient of the state it leaves)."""
+    import torch
+    from repro_torch.kernels import wkv6 as wk
+    r, k, v, logw, u, s0, do, ds = args
+    S = r.shape[1]
+    b0 = wk.CHUNK * (-(-S // wk.CHUNK) // 2)
+    b1 = min(b0 + wk.CHUNK, S)
+    f64 = torch.float64
+
+    def part(lo, hi, state, dstate):
+        return wk.plain_grad(*(t[:, lo:hi] for t in (r, k, v, logw)), u, state,
+                             do[:, lo:hi], dstate, acc=f64)
+
+    def state_at(t):
+        return wk.plain(*(x[:, :t] for x in (r, k, v, logw)), u, s0, acc=f64)[1]
+    head, tail = part(0, b0, s0, None), part(b0, S, state_at(b0), ds)
+    carry = tuple(torch.cat([x, y], dim=1) for x, y in zip(head[:4], tail[:4])) + (
+        head[4] + tail[4], head[5])
+    vdo = (v.double() * do.double()).sum(-1, keepdim=True)
+    no_u = (want[0], want[1] - r.double() * u.double() * vdo) + tuple(want[2:])
+    leaving = part(b1, S, state_at(b1), ds)[5]          # the gradient of the state at b1
+    alone = part(b0, b1, torch.zeros_like(s0), leaving)[3]
+    no_state = want[:3] + (torch.cat([want[3][:, :b0], alone, want[3][:, b1:]], dim=1),) \
+        + tuple(want[4:])
+    return {"carry_dropped_at_a_chunk_boundary": carry, "u_dropped_from_dk": no_u,
+            "dlogw_without_its_state_term": no_state}
+
+
+def wkv6_bwd_case(label: str, B: int, S: int, H: int, N: int, dtype: str = "bfloat16"):
+    """Phase 19 (a): K4′ at B x S, H heads of N, r/k/v/do in ``dtype``,
+    logw = −exp(·), u, state0 and the final state's gradient nonzero, held
+    to the float64 sequential formulas (themselves held to float64 autograd
+    on batch 0's first heads) within ``wkv_bwd_limits``; the fp32 plain
+    version as a control; the three planted faults.  A head size outside
+    ``wk.HEAD_SIZES`` runs padded (``wk.pad_heads``): K4 is then held too,
+    within ``wkv_atol``."""
+    import torch
+    from repro_torch.kernels import wkv6 as wk
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    dt = getattr(torch, dtype)
+
+    def normal(shape, scale=1.0):
+        return scale * torch.randn(shape, generator=gen, device="cuda")
+    shape = (B, S, H, N)
+    r, k = normal(shape, 0.5).to(dt), normal(shape, 0.5).to(dt)
+    v, logw = normal(shape).to(dt), -torch.exp(normal(shape))
+    u, s0 = normal((H, N), 0.1), normal((B, H, N, N), 0.1)
+    do, ds = normal(shape).to(dt), normal((B, H, N, N))
+    args = (r, k, v, logw, u, s0, do, ds)
+    got = wk.wkv6_bwd(*args)
+    torch.cuda.synchronize()
+    require([x.dtype for x in got] == [dt] * 3 + [torch.float32] * 3, "wkv6_bwd dtypes")
+    forward_ratio = None
+    if N not in wk.HEAD_SIZES:
+        forward_ratio = held_wkv(wk.wkv6(*args[:6]), wkv_want(*args[:6]), wkv_atol(*args[:6]))[1]
+        require(forward_ratio <= 1.0, f"wkv6 {label}, heads of {N} padded: {forward_ratio}")
+    want = wk.plain_grad(*args, acc=torch.float64)
+    hs = min(H, 8)     # float64 autograd on batch 0's first heads
+    sl = [t[:1, :, :hs] for t in (r, k, v, logw)] + [u[:hs], s0[:1, :hs]]
+    with torch.enable_grad():
+        xs = [t.double().requires_grad_() for t in sl]
+        out, st = wk.plain(*xs, acc=torch.float64)
+        auto = torch.autograd.grad((out * do[:1, :, :hs].double()).sum()
+                                   + (st * ds[:1, :hs]).sum(), xs)
+    del out, st, xs
+    formulas = max(rel(x, w) for x, w in zip(
+        wk.plain_grad(*sl, do[:1, :, :hs], ds[:1, :hs], acc=torch.float64), auto))
+    require(formulas <= 1e-10, f"K4's plain backward against float64 autograd {formulas}")
+    limits = wkv_bwd_limits(*args)
+    err, ratio, ratios = held_bwd(got, want, limits)
+    require(all(bool(torch.isfinite(x.float()).all()) for x in got), "wkv6_bwd finite")
+    require(ratio <= 1.0, f"wkv6_bwd {label} max|err| {err}, ratios {ratios}")
+    control = [x.to(y.dtype) for x, y in zip(wk.plain_grad(*args), got)]
+    control_ratio = held_bwd(control, want, limits)[1]
+    require(control_ratio <= 1.0, f"wkv6_bwd {label}'s fp32 plain control {control_ratio}")
+    faults = {name: held_bwd(f, want, limits)[1]
+              for name, f in wkv6_bwd_faults(args, want).items()}
+    require(all(f >= BWD_FAULT_FACTOR for f in faults.values()),
+            f"wkv6_bwd {label} check rejects planted faults by {BWD_FAULT_FACTOR}x: {faults}")
+    again = wk.wkv6_bwd(*args)
+    require(all(torch.equal(x, y) for x, y in zip(got, again)), f"wkv6_bwd {label} deterministic")
+    # every (b, s, h) step: 14N² + 16N fp32 operations (the state recomputed,
+    # the gradient carried, dr, dk, dv and dlogw each an N x N contraction,
+    # the bonus terms; at the unpadded N); r, k, v, do read and dr, dk, dv
+    # written once in their dtype,
+    # logw read and dlogw written once in fp32, u and du, state0, dS and
+    # dstate0 once
+    flops = (14.0 * N * N + 16.0 * N) * B * S * H
+    nbytes = (r.element_size() * 7.0 * B * S * H * N + 4.0 * 2 * B * S * H * N
+              + 4.0 * 2 * H * N + 4.0 * 3 * B * H * N * N)
+    ms_bound, by = bound(flops, nbytes, PEAK_FP32_FLOPS)
+    res = dict(max_abs_err=err, limit_ratio=ratio, ratios=ratios,
+               control_ratio=control_ratio, fault_ratio=faults, formulas_vs_autograd=formulas,
+               **({} if forward_ratio is None else {"padded_to": wk.kernel_head_size(N),
+                                                     "forward_limit_ratio": forward_ratio}),
+               bytes_ms=nbytes / PEAK_BYTES * 1e3,
+               ms=cuda_ms(lambda: wk.wkv6_bwd(*args), 10),
+               plain_ms=cuda_ms(lambda: wk.plain_grad(*args), 1),
+               library_ms=None,   # no single PyTorch call computes the recurrence's gradient
+               bound_ms=ms_bound, bound_by=by)
+    print(f"[kernel wkv6_bwd] {label} B={B} S={S} H={H} N={N} " + json.dumps(res))
+    return res
+
+
+def phase_recurrent_train():
+    """Phase 19: K3′ and K4′ alone, train-step checks of recurrentgemma-9b
+    (3 layers) and rwkv6-7b (2), the slice (6 and 8 layers at full width,
+    TRAIN19_STEPS steps each) and the ~100M runs (one killed and restored).
+    Each record carries its launches and the run they were counted on."""
+    import tempfile
+    import torch
+    t_phase = time.perf_counter()
+    B, S = BWD_CASE["B"], BWD_CASE["S"]
+    cases = [   # (record key, record, (the run its launches are counted on, model))
+        (("rglru_scan_bwd", "recurrentgemma-9b", f"fp32 a/b/g, B {B} x {S}, R 4096"),
+         merge([rglru_bwd_case("float32")]), ("slice", "recurrentgemma-9b")),
+        (("rglru_scan_bwd", "recurrentgemma-9b", f"bf16 a/b/g (the calibration's dtype), "
+          f"B {B} x {S}, R 4096"), merge([rglru_bwd_case("bfloat16")]), (None, "")),
+        (("wkv6_bwd", "rwkv6-7b", f"bf16, B {B} x {S}, 64 heads of 64"),
+         merge([wkv6_bwd_case("rwkv6-7b", B, S, 64, 64)]), ("slice", "rwkv6-7b")),
+        (("wkv6_bwd", "rwkv6-7b", f"N 32: bf16, B {B} x {S}, 128 heads of 32"),
+         merge([wkv6_bwd_case("N 32", B, S, 128, 32)]), (None, "")),
+        (("wkv6_bwd", "rwkv6-7b", f"S 300 (a partial last chunk), B {B}, 64 heads of 64"),
+         merge([wkv6_bwd_case("partial chunk", B, 300, 64, 64)]), (None, "")),
+        (("wkv6_bwd", "rwkv6-7b 100M", "the ~100M config's shape: fp32, B 8 x 256, 32 heads "
+          "of 16 (padded to 32)"), merge([wkv6_bwd_case("100M", 8, 256, 32, 16, "float32")]),
+         ("100M", "rwkv6-7b")),
+    ]
+    t_a = time.perf_counter() - t_phase
+    for arch, run in TRAIN19_CHECKS.items():
+        torch.cuda.empty_cache()
+        (train_check_batches if "batches" in run else train_check)(arch, run)
+    t_b = time.perf_counter() - t_phase - t_a
+    slices = {}
+    for arch, layers in TRAIN19_SLICE.items():
+        torch.cuda.empty_cache()
+        slices[arch] = train_slice(arch, layers, BWD_CASE["B"], BWD_CASE["S"], TRAIN19_STEPS)[0]
+    t_c = time.perf_counter() - t_phase - t_a - t_b
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        learned = {arch: train_learns(tmp, arch, restart=arch == TRAIN19_RESTART)
+                   for arch in TRAIN19_SLICE}
+    print(f"[train] phase 19 s={time.perf_counter() - t_phase:.1f} (a {t_a:.1f}, b {t_b:.1f}, "
+          f"c {t_c:.1f})")
+    records = {}
+    for (kernel, arch, variant), rec, (on, model) in cases:
+        if on == "slice":
+            launched = dict(launches=slices[model][kernel],
+                            launches_on=f"train, {model} at {TRAIN19_SLICE[model]} layers x "
+                            f"{TRAIN19_STEPS} steps with remat")
+        elif on == "100M":
+            launched = dict(launches=learned[model][BACKWARD[kernel]][1],
+                            launches_on=f"train, {model}'s ~100M config x 200 steps "
+                            "(launch/train.py --reduce), with remat")
+        else:
+            launched = dict(launches=0, launches_on="none: a check at a shape no trained "
+                            "config takes (the kernel's launches are on its other rows)")
+        records[(kernel, arch, variant)] = {**launched, **rec}
+    return records, slices
 
 
 def main() -> int:
@@ -2533,12 +3241,20 @@ def main() -> int:
     # phase 18: training
     torch.cuda.empty_cache()
     train_records, slice_launches, launches_100m = phase_train()
+    # phase 19: the hybrid and RWKV6 families train
+    torch.cuda.empty_cache()
+    train19_records, slices19 = phase_recurrent_train()
     src = "src/repro_torch/kernels/csrc/"
     replaces = {"flash_attention": "src/repro/kernels/flash_attention.py:94",
                 "decode_attention": "src/repro/kernels/decode_attention.py:73",
                 "rglru_scan": "src/repro/kernels/rglru_scan.py:53",
                 "wkv6": "src/repro/kernels/wkv6.py:66",
                 "int8_matmul": "src/repro/kernels/int8_matmul.py:45"}
+    replaces_bwd = {
+        "rglru_scan_bwd": "none: the reference differentiates its RG-LRU's "
+                          "jax.lax.associative_scan with XLA (src/repro/models/rglru.py:73-87)",
+        "wkv6_bwd": "none: the reference differentiates its chunked WKV with XLA "
+                    "(src/repro/models/rwkv6.py:29-91)"}
     print(f"[done] wall_s={time.perf_counter() - t0:.1f}")
     print(json.dumps({"kernels": [
         dict(name=kernel, model=arch, **({"variant": variant} if variant else {}),
@@ -2555,10 +3271,14 @@ def main() -> int:
              replaces=replaces.get(kernel, "none: the reference takes the attention gradient "
                                    "from XLA's autodiff of attend "
                                    "(src/repro/models/layers.py:133-148)"),
-             **train_launches(kernel, arch, slice_launches, launches_100m),
+             **train_launches(kernel, arch, slice_launches, launches_100m, slices19),
              hook_launches=hook.get(kernel, 0), plan_hook_launches=plan_hook.get(kernel, 0),
              **rec)
-        for (kernel, arch, variant), rec in train_records.items()]}))
+        for (kernel, arch, variant), rec in train_records.items()] + [
+        dict(name=kernel, model=arch, variant=variant, route="cuda",
+             source=f"{src}{kernel}.cu", replaces=replaces_bwd[kernel],
+             hook_launches=0, plan_hook_launches=0, **rec)
+        for (kernel, arch, variant), rec in train19_records.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

@@ -5,9 +5,11 @@ raises; a tensor on the CPU goes to the kernel's plain PyTorch version.
 There is no fallback from one to the other.
 
 Gradients: on the CPU autograd differentiates the plain versions.  On the
-card flash attention runs through ``FlashAttention``, whose backward is a
-kernel too; the other kernels have no backward kernel yet, so they raise
-when a gradient is wanted through them rather than cut it off silently.
+card flash attention, the RG-LRU scan and the WKV recurrence run through
+``FlashAttention``, ``RGLRUScan`` and ``WKV6``, whose backwards are kernels
+too; decode attention and the int8 matmul have no backward kernel, so they
+raise when a gradient is wanted through them rather than cut it off
+silently.
 """
 from __future__ import annotations
 
@@ -32,8 +34,8 @@ def _no_backward(name: str, *tensors) -> None:
     """Raise if a gradient is wanted through kernel ``name`` on the card."""
     if tensors[0].is_cuda and _wants_grad(*tensors):
         raise NotImplementedError(
-            f"{name} has no backward kernel on the card yet (ROADMAP.md, Queue 1): "
-            "its inputs require a gradient; run this on the CPU, or without grad")
+            f"{name} has no backward kernel on the card: its inputs require a "
+            "gradient; run this on the CPU, or without grad")
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
@@ -62,18 +64,22 @@ def decode_attention(q, k, v, lengths, *, softcap: float = 0.0,
 def rglru_scan(a, b, s0) -> Tuple[torch.Tensor, torch.Tensor]:
     """s_t = a_t s_{t-1} + b_t.  a/b: (B, S, R) fp32 or bf16; s0: (B, R)
     fp32 → (seq (B, S, R) in a's dtype, last (B, R) fp32)."""
-    _no_backward("rglru_scan", a, b, s0)
-    fn = _rg.rglru_scan if a.is_cuda else _rg.plain
-    return fn(a, b, s0)
+    if not a.is_cuda:
+        return _rg.plain(a, b, s0)
+    if _wants_grad(a, b, s0):
+        return _rg.RGLRUScan.apply(a, b, s0)
+    return _rg.rglru_scan(a, b, s0)
 
 
 def wkv6(r, k, v, logw, u, state0) -> Tuple[torch.Tensor, torch.Tensor]:
     """RWKV6 WKV.  r/k/v: (B, S, H, N); logw: (B, S, H, N) fp32; u: (H, N)
     fp32; state0: (B, H, N, N) fp32 → (out (B, S, H, N) in r's dtype, final
     state (B, H, N, N) fp32)."""
-    _no_backward("wkv6", r, k, v, logw, u, state0)
-    fn = _wkv.wkv6 if r.is_cuda else _wkv.plain
-    return fn(r, k, v, logw, u, state0)
+    if not r.is_cuda:
+        return _wkv.plain(r, k, v, logw, u, state0)
+    if _wants_grad(r, k, v, logw, u, state0):
+        return _wkv.WKV6.apply(r, k, v, logw, u, state0)
+    return _wkv.wkv6(r, k, v, logw, u, state0)
 
 
 def int8_matmul(x_q, w_q, sx, sw) -> torch.Tensor:

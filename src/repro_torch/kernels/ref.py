@@ -112,6 +112,80 @@ def rglru_reference(a, b, s0) -> Tuple[torch.Tensor, torch.Tensor]:
     return torch.stack(seq, dim=1), s
 
 
+def rglru_backward_reference(a, b, s0, g, g_last=None
+                             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradient of :func:`rglru_reference`, as explicit formulas (no
+    autograd): given g_t, the gradient of state t, and ``g_last`` that of
+    the last state (None: zero), the reversed scan
+
+        ds_{S−1} = g_{S−1} + g_last,  ds_t = g_t + a_{t+1}·ds_{t+1},
+        da_t = ds_t·s_{t−1},  db_t = ds_t,  ds0 = a_0·ds_0
+
+    (ds0 = g_last when S = 0).  a/b/g: (B, S, R) and s0/g_last: (B, R), one
+    float dtype, in which it computes (float64 for the checks) → (da, db,
+    ds0) in that dtype.
+    """
+    prev, s = [], s0                                            # s_{t-1}
+    for t in range(a.shape[1]):
+        prev.append(s)
+        s = a[:, t] * s + b[:, t]
+    carry = torch.zeros_like(s0) if g_last is None else g_last
+    da, db = torch.empty_like(a), torch.empty_like(b)
+    for t in reversed(range(a.shape[1])):
+        ds = g[:, t] + carry
+        da[:, t] = ds * prev[t]
+        db[:, t] = ds
+        carry = a[:, t] * ds
+    return da, db, carry
+
+
+def wkv6_backward_reference(r, k, v, logw, u, state0, dout, dstate=None, *,
+                            chunk: int = 32):
+    """The gradient of :func:`wkv6_reference`, as explicit sequential
+    formulas (no autograd).  With G_t the gradient of S_t (G_{S−1} =
+    ``dstate``, None: zero), w_t = e^{logw_t} and do_t = ``dout``[:, t]:
+
+        G_{t−1} = diag(w_t) G_t + r_t do_tᵀ
+        dr_t = S_{t−1} do_t + (u ⊙ k_t)(v_t·do_t)
+        dk_t = G_t v_t + (r_t ⊙ u)(v_t·do_t)
+        dv_t = G_tᵀ k_t + (r_t·(u ⊙ k_t)) do_t
+        du = Σ_t (r_t ⊙ k_t)(v_t·do_t)   (summed over the batch too)
+        dlogw_t = w_t ⊙ rowsum(G_t ⊙ S_{t−1})
+        dstate0 = G_{−1}
+
+    The states S_{t−1} are recomputed from those at every ``chunk``-th step,
+    kept on the way forward, so memory stays at S/chunk states.  Inputs of
+    one float dtype, in which it computes (float64 for the checks) → (dr, dk,
+    dv, dlogw, du, dstate0) in that dtype.
+    """
+    B, S, H, N = r.shape
+    w = torch.exp(logw)
+    starts, state = [], state0
+    for t in range(S):
+        if t % chunk == 0:
+            starts.append(state)
+        state = w[:, t, :, :, None] * state + k[:, t, :, :, None] * v[:, t, :, None, :]
+    G = torch.zeros_like(state0) if dstate is None else dstate
+    dr, dk, dv, dlogw = (torch.empty_like(x) for x in (r, k, v, logw))
+    du = torch.zeros_like(u)
+    for c0 in reversed(range(0, S, chunk)):
+        prevs, state = [], starts[c0 // chunk]
+        for t in range(c0, min(c0 + chunk, S)):
+            prevs.append(state)
+            state = w[:, t, :, :, None] * state + k[:, t, :, :, None] * v[:, t, :, None, :]
+        for t in reversed(range(c0, min(c0 + chunk, S))):
+            rt, kt, vt, dot, sp = r[:, t], k[:, t], v[:, t], dout[:, t], prevs[t - c0]
+            vdo = (vt * dot).sum(-1, keepdim=True)                   # (B, H, 1)
+            dr[:, t] = torch.einsum("bhde,bhe->bhd", sp, dot) + u * kt * vdo
+            dk[:, t] = torch.einsum("bhde,bhe->bhd", G, vt) + rt * u * vdo
+            dv[:, t] = (torch.einsum("bhde,bhd->bhe", G, kt)
+                        + (rt * u * kt).sum(-1, keepdim=True) * dot)
+            du = du + (rt * kt * vdo).sum(0)
+            dlogw[:, t] = w[:, t] * (G * sp).sum(-1)
+            G = w[:, t, :, :, None] * G + rt[..., :, None] * dot[..., None, :]
+    return dr, dk, dv, dlogw, du, G
+
+
 def wkv6_reference(r, k, v, logw, u, state0, *,
                    acc: torch.dtype = torch.float32) -> Tuple[torch.Tensor, torch.Tensor]:
     """Naive sequential WKV recurrence, one step at a time:

@@ -8,6 +8,12 @@ the register body for the shapes bulk copies cannot take and for small
 problems.  :func:`plan`
 chooses one before each launch; ``last_plan`` holds the plan of the latest
 launch and ``launches`` counts the launches.
+
+The backward kernel (``csrc/rglru_scan_bwd.cu``) computes the gradient of
+the same function and replaces no TPU kernel (the reference differentiates
+its scan with XLA); ``launches_bwd`` counts its launches.
+:class:`RGLRUScan` ties the two together for autograd; :func:`plain_grad`
+is the backward's plain version.
 """
 from __future__ import annotations
 
@@ -19,7 +25,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels._build import H100_SMS
-from repro_torch.kernels.ref import rglru_reference
+from repro_torch.kernels.ref import rglru_backward_reference, rglru_reference
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 VARIANTS = {"register": 0, "ring": 1}
@@ -38,6 +44,8 @@ BLOCKS_PER_SM = 32              # resident blocks an SM holds at most
 THREADS_PER_SM = 2048
 
 launches = 0
+launches_bwd = 0
+BWD_CHUNK = 16                  # steps between the states the backward stores (CH)
 
 
 class Plan(NamedTuple):
@@ -163,3 +171,72 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor, s0: torch.Tensor,
     launches += 1
     last_plan = p
     return seq, last
+
+
+@functools.cache
+def _lib_bwd() -> ctypes.CDLL:
+    lib = _build.library("rglru_scan_bwd")
+    fn = lib.rglru_scan_bwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    return lib
+
+
+def rglru_scan_bwd(a: torch.Tensor, b: torch.Tensor, s0: torch.Tensor, g: torch.Tensor,
+                   g_last: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the backward kernel: the gradients (da, db, ds0) of
+    :func:`rglru_scan` given ``g`` (B, S, R), the gradient of its states,
+    and ``g_last`` (B, R) fp32, that of the last one (None: zero).  Operands
+    as for the forward, ``g`` in a's dtype; da and db come back in a's dtype,
+    ds0 in fp32.  The fp32 states are recomputed from a, b and s0."""
+    global launches_bwd
+    if g_last is None:
+        g_last = torch.zeros_like(s0)
+    if a.dim() != 3 or b.shape != a.shape or g.shape != a.shape \
+            or s0.shape != (a.shape[0], a.shape[2]) or g_last.shape != s0.shape:
+        raise ValueError(f"rglru_scan_bwd: bad shapes a{tuple(a.shape)} b{tuple(b.shape)} "
+                         f"s0{tuple(s0.shape)} g{tuple(g.shape)} g_last{tuple(g_last.shape)}")
+    if a.dtype not in DTYPES:
+        raise ValueError(f"rglru_scan_bwd: dtype {a.dtype} not supported")
+    for name, t, dtype in (("a", a, a.dtype), ("b", b, a.dtype), ("g", g, a.dtype),
+                           ("s0", s0, torch.float32), ("g_last", g_last, torch.float32)):
+        if not t.is_cuda or t.dtype != dtype or t.device != a.device:
+            raise ValueError(f"rglru_scan_bwd: {name} must be a {dtype} tensor on the "
+                             f"card of a, got {t.device} {t.dtype}")
+    B, S, R = a.shape
+    a, b, s0, g, g_last = (t.contiguous() for t in (a, b, s0, g, g_last))
+    da, db, ds0 = torch.empty_like(a), torch.empty_like(b), torch.empty_like(s0)
+    starts = torch.empty((B, -(-S // BWD_CHUNK), R), dtype=torch.float32, device=a.device)
+    err = _lib_bwd().rglru_scan_bwd(
+        a.data_ptr(), b.data_ptr(), s0.data_ptr(), g.data_ptr(), g_last.data_ptr(),
+        da.data_ptr(), db.data_ptr(), ds0.data_ptr(), starts.data_ptr(), B, S, R,
+        DTYPES[a.dtype], torch.cuda.current_stream(a.device).cuda_stream)
+    _build.check(err, "rglru_scan_bwd")
+    launches_bwd += 1
+    return da, db, ds0
+
+
+def plain_grad(a, b, s0, g, g_last=None, *, acc: torch.dtype = torch.float32):
+    """The backward's plain version: :func:`rglru_backward_reference` on
+    every operand cast to ``acc`` (float64 where the kernel is checked) →
+    (da, db, ds0) in ``acc``."""
+    return rglru_backward_reference(*(None if t is None else t.to(acc)
+                                      for t in (a, b, s0, g, g_last)))
+
+
+class RGLRUScan(torch.autograd.Function):
+    """The forward kernel, differentiated by the backward kernel: what
+    ``ops.rglru_scan`` runs on the card when a gradient is wanted."""
+
+    @staticmethod
+    def forward(ctx, a, b, s0):
+        ctx.save_for_backward(a, b, s0)
+        return rglru_scan(a, b, s0)
+
+    @staticmethod
+    def backward(ctx, g, g_last):
+        a, b, s0 = ctx.saved_tensors
+        da, db, ds0 = rglru_scan_bwd(a, b, s0, g, g_last)
+        return tuple(x if want else None
+                     for x, want in zip((da, db, ds0), ctx.needs_input_grad))

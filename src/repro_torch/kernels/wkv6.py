@@ -5,24 +5,31 @@ The kernel (``csrc/wkv6.cu``) replaces the Pallas TPU kernel
 how its design answers that.  It cuts each (batch, head) into segments of
 whole 32-step chunks (``plan_segments``) and runs up to three launches a
 call; ``launches`` counts one per call.
+
+The backward kernel (``csrc/wkv6_bwd.cu``) computes the gradient of the same
+function in the chunked form and replaces no TPU kernel (the reference
+differentiates its chunked WKV with XLA); ``launches_bwd`` counts one per
+call (four launches).  :class:`WKV6` ties the two together for autograd;
+:func:`plain_grad` is the backward's plain version.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import wkv6_reference
+from repro_torch.kernels.ref import wkv6_backward_reference, wkv6_reference
 
-HEAD_SIZES = (32, 64)
+HEAD_SIZES = (32, 64)   # the kernels' head sizes; a smaller head runs padded (pad_heads)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 CHUNK = 32             # steps of a chunk, the kernel's T
 TARGET_BLOCKS = 2048   # blocks of the output pass the planner aims at (~8 waves)
 
 launches = 0
+launches_bwd = 0
 
 # The plain PyTorch version of the kernel: the CPU path, and the card-side
 # check of the kernel.
@@ -50,31 +57,65 @@ def plan_segments(B: int, H: int, S: int) -> Tuple[int, int]:
     return -(-chunks // Lc), Lc
 
 
+def kernel_head_size(N: int) -> int:
+    """The head size the kernels run a head of N at: the least of
+    ``HEAD_SIZES`` that holds it."""
+    for size in HEAD_SIZES:
+        if 1 <= N <= size:
+            return size
+    raise ValueError(f"wkv6: head size {N} is not in 1..{HEAD_SIZES[-1]}")
+
+
+def pad_heads(size: int, r, k, v, logw, u, state0, dout=None, dstate=None):
+    """The operands with their head dimension zero-padded to ``size``: r,
+    k, v, logw, u and ``dout`` along N, the states ``state0`` and
+    ``dstate`` to size × size (None stays None).  With r, k, v and logw
+    zero there (e^0 = 1 keeps a zero state zero), the first N channels of
+    every output and every gradient are those of the unpadded call."""
+    def row(t):
+        return None if t is None else torch.nn.functional.pad(t, (0, size - t.shape[-1]))
+
+    def square(t):
+        return None if t is None else torch.nn.functional.pad(
+            t, (0, size - t.shape[-1], 0, size - t.shape[-2]))
+    return (row(r), row(k), row(v), row(logw), row(u), square(state0), row(dout),
+            square(dstate))
+
+
+def _check_call(name: str, r, k, v, logw, u, state0) -> None:
+    if r.dim() != 4 or not 1 <= r.shape[-1] <= HEAD_SIZES[-1]:
+        raise ValueError(f"{name}: head size {tuple(r.shape)[-1:]} is not in "
+                         f"1..{HEAD_SIZES[-1]}")
+    B, S, H, N = r.shape
+    if (k.shape != r.shape or v.shape != r.shape or logw.shape != r.shape
+            or u.shape != (H, N) or state0.shape != (B, H, N, N)):
+        raise ValueError(f"{name}: bad shapes r{tuple(r.shape)} k{tuple(k.shape)} "
+                         f"v{tuple(v.shape)} logw{tuple(logw.shape)} "
+                         f"u{tuple(u.shape)} state0{tuple(state0.shape)}")
+    if r.dtype not in DTYPES:
+        raise ValueError(f"{name}: dtype {r.dtype} not supported")
+    for arg, t, dtype in (("r", r, r.dtype), ("k", k, r.dtype), ("v", v, r.dtype),
+                          ("logw", logw, torch.float32), ("u", u, torch.float32),
+                          ("state0", state0, torch.float32)):
+        if not t.is_cuda or t.dtype != dtype or t.device != r.device:
+            raise ValueError(f"{name}: {arg} must be a {dtype} tensor on the card "
+                             f"of r, got {t.device} {t.dtype}")
+
+
 def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.Tensor,
          u: torch.Tensor, state0: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the kernel.  r/k/v: (B, S, H, N) float32 or bfloat16, one
-    dtype, N in ``HEAD_SIZES``; logw: (B, S, H, N), u: (H, N) and state0:
+    dtype, N in ``HEAD_SIZES`` (any other N ≤ 64 runs padded to the next,
+    ``pad_heads``); logw: (B, S, H, N), u: (H, N) and state0:
     (B, H, N, N), all float32; every tensor on the card of r; any B ≤ 65535,
     S and H.  → (out (B, S, H, N) in r's dtype, final state (B, H, N, N)
     float32)."""
     global launches
-    if r.dim() != 4 or r.shape[-1] not in HEAD_SIZES:
-        raise ValueError(f"wkv6: head size {tuple(r.shape)[-1:]} is not one of "
-                         f"{HEAD_SIZES}")
+    _check_call("wkv6", r, k, v, logw, u, state0)
     B, S, H, N = r.shape
-    if (k.shape != r.shape or v.shape != r.shape or logw.shape != r.shape
-            or u.shape != (H, N) or state0.shape != (B, H, N, N)):
-        raise ValueError(f"wkv6: bad shapes r{tuple(r.shape)} k{tuple(k.shape)} "
-                         f"v{tuple(v.shape)} logw{tuple(logw.shape)} "
-                         f"u{tuple(u.shape)} state0{tuple(state0.shape)}")
-    if r.dtype not in DTYPES:
-        raise ValueError(f"wkv6: dtype {r.dtype} not supported")
-    for name, t, dtype in (("r", r, r.dtype), ("k", k, r.dtype), ("v", v, r.dtype),
-                           ("logw", logw, torch.float32), ("u", u, torch.float32),
-                           ("state0", state0, torch.float32)):
-        if not t.is_cuda or t.dtype != dtype or t.device != r.device:
-            raise ValueError(f"wkv6: {name} must be a {dtype} tensor on the card "
-                             f"of r, got {t.device} {t.dtype}")
+    if N not in HEAD_SIZES:
+        out, state = wkv6(*pad_heads(kernel_head_size(N), r, k, v, logw, u, state0)[:6])
+        return out[..., :N].contiguous(), state[..., :N, :N].contiguous()
     # the kernel loads 16 bytes at a time: a view that starts off that
     # alignment is copied
     r, k, v, logw, state0 = (t if t.is_contiguous() and t.data_ptr() % 16 == 0
@@ -95,3 +136,78 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.Tensor,
     _build.check(err, "wkv6")
     launches += 1
     return out, state
+
+
+@functools.cache
+def _lib_bwd() -> ctypes.CDLL:
+    lib = _build.library("wkv6_bwd")
+    fn = lib.wkv6_bwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    return lib
+
+
+def wkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.Tensor,
+             u: torch.Tensor, state0: torch.Tensor, dout: torch.Tensor,
+             dstate: Optional[torch.Tensor] = None):
+    """Launch the backward kernel: the gradients (dr, dk, dv, dlogw, du,
+    dstate0) of :func:`wkv6` given ``dout`` (B, S, H, N) in r's dtype, the
+    gradient of its output, and ``dstate`` (B, H, N, N) fp32, that of its
+    final state (None: zero).  Operands as for the forward; dr, dk and dv
+    come back in r's dtype, the others in fp32.  The states at the chunks'
+    starts are recomputed from state0 (scratch of B·H·ceil(S/32)·N² fp32
+    twice, with the gradients at the chunks' ends)."""
+    global launches_bwd
+    _check_call("wkv6_bwd", r, k, v, logw, u, state0)
+    B, S, H, N = r.shape
+    if dstate is None:
+        dstate = torch.zeros_like(state0)
+    if N not in HEAD_SIZES:
+        grads = wkv6_bwd(*pad_heads(kernel_head_size(N), r, k, v, logw, u, state0, dout, dstate))
+        return (*(g[..., :N].contiguous() for g in grads[:5]),
+                grads[5][..., :N, :N].contiguous())
+    if dout.shape != r.shape or dout.dtype != r.dtype or dout.device != r.device \
+            or dstate.shape != state0.shape or dstate.dtype != torch.float32 \
+            or dstate.device != r.device:
+        raise ValueError(f"wkv6_bwd: dout {tuple(dout.shape)} {dout.dtype} and dstate "
+                         f"{tuple(dstate.shape)} {dstate.dtype} do not match r and state0")
+    r, k, v, logw, u, state0, dout, dstate = (
+        t.contiguous() for t in (r, k, v, logw, u, state0, dout, dstate))
+    C = -(-S // CHUNK)
+    dr, dk, dv = torch.empty_like(r), torch.empty_like(k), torch.empty_like(v)
+    dlogw, du, dstate0 = torch.empty_like(logw), torch.empty_like(u), torch.empty_like(state0)
+    states = torch.empty((B, H, C, N, N), dtype=torch.float32, device=r.device)
+    gouts = torch.empty_like(states)
+    du_part = torch.empty((B, H, C, N), dtype=torch.float32, device=r.device)
+    err = _lib_bwd().wkv6_bwd(
+        *(t.data_ptr() for t in (r, k, v, logw, u, state0, dout, dstate, dr, dk, dv, dlogw,
+                                 du, dstate0, states, gouts, du_part)),
+        B, S, H, N, DTYPES[r.dtype], torch.cuda.current_stream(r.device).cuda_stream)
+    _build.check(err, "wkv6_bwd")
+    launches_bwd += 1
+    return dr, dk, dv, dlogw, du, dstate0
+
+
+def plain_grad(r, k, v, logw, u, state0, dout, dstate=None, *,
+               acc: torch.dtype = torch.float32):
+    """The backward's plain version: :func:`wkv6_backward_reference` on
+    every operand cast to ``acc`` (float64 where the kernel is checked) →
+    (dr, dk, dv, dlogw, du, dstate0) in ``acc``."""
+    return wkv6_backward_reference(*(None if t is None else t.to(acc)
+                                     for t in (r, k, v, logw, u, state0, dout, dstate)),
+                                   chunk=CHUNK)
+
+
+class WKV6(torch.autograd.Function):
+    """The forward kernel, differentiated by the backward kernel: what
+    ``ops.wkv6`` runs on the card when a gradient is wanted."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, logw, u, state0):
+        ctx.save_for_backward(r, k, v, logw, u, state0)
+        return wkv6(r, k, v, logw, u, state0)
+
+    @staticmethod
+    def backward(ctx, dout, dstate):
+        grads = wkv6_bwd(*ctx.saved_tensors, dout, dstate)
+        return tuple(x if want else None for x, want in zip(grads, ctx.needs_input_grad))

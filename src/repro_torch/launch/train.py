@@ -6,7 +6,9 @@ pipeline, async checkpoints, restart recovery and straggler monitoring, on
 one device — the card unless ``--device cpu`` (no mesh and no shardings;
 ``--model-parallel`` above 1 waits for the port's distribution layer,
 ROADMAP M12).  Same flags and printed lines as the reference, plus
-``--device``.
+``--device`` and ``--layers`` (a depth cut at full width, for archs whose
+whole state does not fit one card: recurrentgemma-9b at 6 layers, rwkv6-7b
+at 8).
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch granite-3-2b \\
       --reduce --steps 200 --batch 8 --seq 128
@@ -44,13 +46,14 @@ def train_100m_config(cfg: ModelConfig) -> ModelConfig:
         dtype="float32", param_dtype="float32")
 
 
-def model_config(arch: str, *, reduce: bool = False, smoke: bool = False) -> ModelConfig:
+def model_config(arch: str, *, reduce: bool = False, smoke: bool = False,
+                 layers: int = 0) -> ModelConfig:
     """The config the flags ask for: ``--smoke`` the tiny one, ``--reduce``
-    the ~100M one, else the published one."""
+    the ~100M one, else the published one; ``layers`` (``--layers``) above
+    0 keeps its first that many layers at its width."""
     base = get_config(arch)
-    if smoke:
-        return reduced(base)
-    return train_100m_config(base) if reduce else base
+    cfg = reduced(base) if smoke else train_100m_config(base) if reduce else base
+    return dataclasses.replace(cfg, num_layers=layers) if layers else cfg
 
 
 def make_init_state_fn(model, seed: int = 0) -> Callable[[], Dict]:
@@ -91,13 +94,15 @@ def main(argv=None) -> None:
     ap.add_argument("--grad-accum", type=int, default=1)
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--layers", type=int, default=0,
+                    help="keep the config's first N layers, at its width (0: all)")
     args = ap.parse_args(argv)
     if args.model_parallel != 1:
         raise NotImplementedError("--model-parallel above 1 needs the port's distribution "
                                   "layer (ROADMAP M12); the port trains on one device")
 
     device = resolve_device(args.device)
-    cfg = model_config(args.arch, reduce=args.reduce, smoke=args.smoke)
+    cfg = model_config(args.arch, reduce=args.reduce, smoke=args.smoke, layers=args.layers)
     model = build_model(cfg, device)
     opt_cfg = OptimizerConfig(learning_rate=args.lr,
                               warmup_steps=max(args.steps // 10, 1),

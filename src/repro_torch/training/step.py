@@ -3,9 +3,10 @@ the update, ported from ``repro.training.step``.
 
 Gradients come from ``torch.autograd.grad`` with respect to detached
 aliases of the parameter leaves, so the caller's tensors never start
-requiring a gradient.  On the card attention's gradient is K1's backward
-kernel (``kernels.ops``); a layer whose kernel has no backward kernel yet
-raises there.  Microbatches run one after another and their gradients sum
+requiring a gradient.  On the card the gradients of attention, the RG-LRU
+scan and the WKV recurrence are the backward kernels of K1, K3 and K4
+(``kernels.ops``); a layer whose kernel has no backward kernel raises there.
+Microbatches run one after another and their gradients sum
 in fp32 (the reference's ``lax.scan``).
 """
 from __future__ import annotations

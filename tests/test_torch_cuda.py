@@ -16,8 +16,11 @@ column-major (read in place); its plain version is held to the Pallas kernel
 by ``tests/test_torch_int8.py``.  K1's backward kernel is held to the
 plain version's gradient (``fa.plain_grad``, autograd through
 ``mha_reference``) in float64 within 2^-14·max|want| + one ulp of its type,
-the form and limit of ``chip_smoke.py`` phase 18; the other kernels, which
-have no backward kernel yet, must raise when a gradient is wanted.
+the form and limit of ``chip_smoke.py`` phase 18; the backward kernels of
+K3 and K4 likewise, to ``rg.plain_grad`` and ``wk.plain_grad`` (the explicit
+formulas of ``ref``) in float64, within 2^-14·max|want| plus one ulp of each
+output's type, with planted faults that must fail by 10x.  K2 and K5, which
+have no backward kernel, must raise when a gradient is wanted.
 """
 import numpy as np
 import pytest
@@ -643,8 +646,10 @@ def test_new_kernel_wrappers_reject_what_they_do_not_take(cuda):
         wk.wkv6(*(t.cpu() for t in args))
     with pytest.raises(ValueError, match="not supported"):
         wk.wkv6(*(t.half() for t in args[:3]), *args[3:])
+    wide = torch.zeros((1, 4, 2, 96), device=cuda)   # above the largest head size, 64
     with pytest.raises(ValueError, match="head size"):
-        wk.wkv6(*(t[..., :16] for t in args[:4]), args[4][:, :16], args[5][..., :16, :16])
+        wk.wkv6(wide, wide, wide, wide, torch.zeros((2, 96), device=cuda),
+                torch.zeros((1, 2, 96, 96), device=cuda))
 
 
 @pytest.mark.gpu
@@ -790,21 +795,15 @@ def test_flash_attention_autograd_runs_both_kernels(cuda):
 
 @pytest.mark.gpu
 def test_kernels_without_a_backward_raise_on_a_gradient(cuda):
-    """K2-K5 on CUDA inputs that require a gradient raise, naming the
-    missing backward; without grad mode they run."""
+    """K2 and K5 on CUDA inputs that require a gradient raise, naming the
+    missing backward; without grad mode they run.  (K3 and K4 have backward
+    kernels: see test_recurrent_autograd_runs_both_kernels.)"""
     q = torch.randn((2, 4, 64), device=cuda, requires_grad=True)
     kv = torch.randn((2, 2, 32, 64), device=cuda)
     lengths = torch.full((2,), 32, dtype=torch.int32, device=cuda)
-    a = torch.rand((2, 16, 32), device=cuda, requires_grad=True)
-    s0 = torch.zeros((2, 32), device=cuda)
-    r = torch.randn((1, 32, 1, 32), device=cuda, requires_grad=True)
-    u = torch.zeros((1, 32), device=cuda)
-    st = torch.zeros((1, 1, 32, 32), device=cuda)
     x_q = torch.ones((16, 64), dtype=torch.int8, device=cuda)
     sx = torch.ones(16, device=cuda, requires_grad=True)
     calls = {"decode_attention": lambda: ops.decode_attention(q, kv, kv, lengths),
-             "rglru_scan": lambda: ops.rglru_scan(a, a, s0),
-             "wkv6": lambda: ops.wkv6(r, r, r, -torch.ones_like(r), u, st),
              "int8_matmul": lambda: ops.int8_matmul(x_q, x_q.T.contiguous(), sx,
                                                     torch.ones(16, device=cuda))}
     for name, call in calls.items():
@@ -839,3 +838,135 @@ def test_flash_backward_at_training_shapes(cuda, B, H, K, Sq, Skv, causal):
                              acc=torch.float64, causal=causal)
         assert held_grads([t[b:b + 1] for t in got], want) <= 1.0
         assert held_grads([t[b:b + 1] for t in fault], want) > 10.0
+
+
+def held_bwd(got, want):
+    """Worst ratio of |got − want| to 2^-14·max|want| + one ulp of got's
+    type (2^-7 bf16, 2^-23 fp32)·|want| over a backward's outputs."""
+    worst = 0.0
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        if w.numel():
+            ulp = 2.0 ** -7 if g.dtype == torch.bfloat16 else 2.0 ** -23
+            limit = BWD_ATOL_SHARE * w.abs().max() + ulp * w.abs() + 1e-30
+            worst = max(worst, float(((g.double() - w).abs() / limit).max()))
+    return worst
+
+
+def rglru_grad_inputs(seed, B, S, R, dtype, cuda):
+    """a in (0.5, 0.999), b, s0, g and g_last normal: a/b/g in ``dtype``."""
+    rng = np.random.default_rng(seed)
+    a = rng.uniform(0.5, 0.999, (B, S, R)).astype(np.float32)
+    b = (0.1 * rng.standard_normal((B, S, R))).astype(np.float32)
+    g = rng.standard_normal((B, S, R)).astype(np.float32)
+    s0, g_last = (rng.standard_normal((B, R)).astype(np.float32) for _ in range(2))
+    dt = TORCH_DT[dtype]
+    return (torch.from_numpy(a).to(cuda, dt), torch.from_numpy(b).to(cuda, dt),
+            torch.from_numpy(s0).to(cuda), torch.from_numpy(g).to(cuda, dt),
+            torch.from_numpy(g_last).to(cuda))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,R", [(4, 2048, 4096), (3, 77, 100), (2, 1, 8), (2, 0, 8)])
+def test_rglru_backward_kernel_matches_float64(cuda, dtype, B, S, R):
+    """K3's backward against the plain version in float64, at
+    recurrentgemma-9b's training shape and at ragged ones (a partial last
+    chunk of 32 steps, one step, none), with a planted fault: g_last dropped."""
+    a, b, s0, g, g_last = rglru_grad_inputs(11, B, S, R, dtype, cuda)
+    n0 = rg.launches_bwd
+    got = rg.rglru_scan_bwd(a, b, s0, g, g_last)
+    torch.cuda.synchronize()
+    assert rg.launches_bwd == n0 + 1
+    assert [x.dtype for x in got] == [a.dtype, a.dtype, torch.float32]
+    want = rg.plain_grad(a, b, s0, g, g_last, acc=torch.float64)
+    assert held_bwd(got, want) <= 1.0
+    if S:
+        assert held_bwd(rg.rglru_scan_bwd(a, b, s0, g), want) > 10.0
+
+
+def wkv_grad_inputs(seed, B, S, H, N, dtype, cuda):
+    """r, k at 0.5 and v, dout at 1 normal in ``dtype``; logw = −exp(normal),
+    u and state0 at 0.1 and dstate at 1 normal in fp32."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+
+    def normal(shape, scale=1.0):
+        return scale * torch.randn(shape, generator=g, device=cuda)
+    shape, dt = (B, S, H, N), TORCH_DT[dtype]
+    r, k = normal(shape, 0.5).to(dt), normal(shape, 0.5).to(dt)
+    v, logw = normal(shape).to(dt), -torch.exp(normal(shape))
+    u, s0 = normal((H, N), 0.1), normal((B, H, N, N), 0.1)
+    return r, k, v, logw, u, s0, normal(shape).to(dt), normal((B, H, N, N))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,B,S,H,N", [("bfloat16", 4, 2048, 64, 64),
+                                           ("float32", 2, 300, 4, 32),
+                                           ("bfloat16", 2, 300, 3, 64),
+                                           ("float32", 1, 5, 2, 64),
+                                           ("bfloat16", 2, 0, 2, 32)])
+def test_wkv6_backward_kernel_matches_float64(cuda, dtype, B, S, H, N):
+    """K4's backward against the plain version in float64, with a nonzero
+    state0 and a gradient on the final state, at rwkv6-7b's training shape
+    and at partial last chunks; deterministic (a second call bitwise equal);
+    a planted fault of its own must fail: u zeroed."""
+    args = wkv_grad_inputs(12, B, S, H, N, dtype, cuda)
+    n0 = wk.launches_bwd
+    got = wk.wkv6_bwd(*args)
+    torch.cuda.synchronize()
+    assert wk.launches_bwd == n0 + 1
+    assert [x.dtype for x in got] == [TORCH_DT[dtype]] * 3 + [torch.float32] * 3
+    want = wk.plain_grad(*args, acc=torch.float64)
+    assert held_bwd(got, want) <= 1.0
+    assert all(torch.equal(x, y) for x, y in zip(got, wk.wkv6_bwd(*args)))
+    if S:
+        r, k, v, logw, u, s0, do, ds = args
+        fault = wk.wkv6_bwd(r, k, v, logw, torch.zeros_like(u), s0, do, ds)
+        assert held_bwd(fault, want) > 10.0
+
+
+@pytest.mark.gpu
+def test_recurrent_autograd_runs_both_kernels(cuda):
+    """``ops.rglru_scan`` and ``ops.wkv6`` on CUDA tensors that require a
+    gradient: the forward kernel once, the backward kernel once, and the
+    gradients the backward wrappers give."""
+    a, b, s0, g, g_last = (t.requires_grad_() for t in
+                           rglru_grad_inputs(13, 2, 100, 64, "float32", cuda))
+    n0 = (rg.launches, rg.launches_bwd)
+    seq, last = ops.rglru_scan(a, b, s0)
+    grads = torch.autograd.grad((seq, last), (a, b, s0), (g.detach(), g_last.detach()))
+    assert (rg.launches, rg.launches_bwd) == (n0[0] + 1, n0[1] + 1)
+    want = rg.rglru_scan_bwd(a.detach(), b.detach(), s0.detach(), g.detach(), g_last.detach())
+    assert all(torch.equal(x, w) for x, w in zip(grads, want))
+    r, k, v, logw, u, st, do, ds = wkv_grad_inputs(14, 2, 100, 2, 64, "bfloat16", cuda)
+    xs = [t.requires_grad_() for t in (r, k, v, logw, u, st)]
+    n0 = (wk.launches, wk.launches_bwd)
+    out, state = ops.wkv6(*xs)
+    grads = torch.autograd.grad((out, state), xs, (do, ds))
+    assert (wk.launches, wk.launches_bwd) == (n0[0] + 1, n0[1] + 1)
+    want = wk.wkv6_bwd(*(t.detach() for t in xs), do, ds)
+    assert all(torch.equal(x, w) for x, w in zip(grads, want))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N", [16, 8, 48])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_wkv6_kernels_run_small_heads_padded(cuda, dtype, N):
+    """A head of N outside ``HEAD_SIZES`` (rwkv6-7b's ~100M config has heads
+    of 16) runs zero-padded to the next size: K4 within the tolerances of
+    test_wkv6_kernel_matches_plain and K4′ within held_bwd's of their plain
+    versions on the unpadded operands, one launch each."""
+    B, S, H = 2, 300, 4
+    args = wkv_grad_inputs(15, B, S, H, N, dtype, cuda)
+    r, k, v, logw, u, s0, do, ds = args
+    n0 = (wk.launches, wk.launches_bwd)
+    out, state = wk.wkv6(r, k, v, logw, u, s0)
+    got = wk.wkv6_bwd(*args)
+    torch.cuda.synchronize()
+    assert (wk.launches, wk.launches_bwd) == (n0[0] + 1, n0[1] + 1)
+    assert out.shape == r.shape and state.shape == s0.shape
+    want_out, want_state = wk.plain(r, k, v, logw, u, s0)
+    rtol = 2.0 ** -7 if dtype == "bfloat16" else 1e-3
+    torch.testing.assert_close(out.float(), want_out.float(), atol=2e-4, rtol=rtol)
+    torch.testing.assert_close(state, want_state, atol=2e-4, rtol=1e-3)
+    assert held_bwd(got, wk.plain_grad(*args, acc=torch.float64)) <= 1.0
