@@ -149,8 +149,9 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 against the plain version's gradient in float64 (see
                 BWD_ATOL_SHARE), the fp32 plain version against the same
                 limit, planted faults (dK without the group sum, the
-                softcap's derivative dropped, the causal mask shifted) and
-                times against SDPA's backward; K1 forward at granite's
+                softcap's derivative dropped, the causal mask shifted), two
+                calls bitwise equal, and times against SDPA's backward with
+                the first version's (FLASH_BWD_FIRST_MS) beside; K1 forward at granite's
                 training shape; one train step of granite-3-2b at 4 layers
                 and gemma2-2b at 2 through the kernels against the plain
                 path and a float64-attention control (TRAIN_DRIFT), launch
@@ -2148,14 +2149,13 @@ def sdpa_backward_ms(q, k, v, dout, mask, is_causal):
     raise RuntimeError("no SDPA backend takes the call")
 
 
-def flash_bwd_case(label: str, B: int, H: int, K: int, Sq: int, Skv: int, d: int, *,
-                   dtype: str = "bfloat16", causal: bool = True, window: int = 0,
-                   softcap: float = 0.0, lengths=None, q_scale: float = 1.0):
-    """K1's backward at a model's training shapes: dQ, dK and dV against the
-    float64 plain version, the fp32 plain version against the same limit
-    (the control), the planted faults that apply, and the times."""
+def flash_bwd_inputs(B: int, H: int, K: int, Sq: int, Skv: int, d: int, *,
+                     dtype: str = "bfloat16", causal: bool = True, window: int = 0,
+                     softcap: float = 0.0, lengths=None, q_scale: float = 1.0):
+    """q, k, v and dout of a K1′ case, from a seed (q scaled by
+    ``q_scale``; dout zero on the padding rows past ``lengths``, which carry
+    no loss), and the kernel's options."""
     import torch
-    from repro_torch.kernels import flash_attention as fa
     dt = getattr(torch, dtype)
     g = torch.Generator(device="cuda").manual_seed(5)
     # the model's layout: (B, S, heads, d), handed over as transposed views
@@ -2165,9 +2165,63 @@ def flash_bwd_case(label: str, B: int, H: int, K: int, Sq: int, Skv: int, d: int
     lens = None
     if lengths is not None:
         lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
-        for b, n in enumerate(lengths):   # padding rows carry no loss
+        for b, n in enumerate(lengths):
             dout[b, :, n:] = 0
-    kw = dict(causal=causal, window=window, softcap=softcap, lengths=lens)
+    return q, k, v, dout, dict(causal=causal, window=window, softcap=softcap, lengths=lens)
+
+
+# Phase 18's K1′ cases: (model, record variant) → [(label, the case's
+# shape and options)], one record a model, merged over its cases.
+FLASH_BWD_CASES = {
+    ("granite-3-2b", "B 4, 32/8 heads of 64, S 2048, causal"): [
+        ("granite-3-2b", dict(B=4, H=32, K=8, Sq=2048, Skv=2048, d=64))],
+    ("gemma2-2b", "B 2, 8/4 heads of 256, S 4700, softcap 50, q at 16x; window 4096 and "
+     "global"): [
+        ("gemma2-2b local", dict(B=2, H=8, K=4, Sq=4700, Skv=4700, d=256, window=4096,
+                                 softcap=50.0, q_scale=16.0)),
+        ("gemma2-2b global", dict(B=2, H=8, K=4, Sq=4700, Skv=4700, d=256, softcap=50.0,
+                                  q_scale=16.0))],
+    ("recurrentgemma-9b", "B 2, 16/1 heads of 256, S 4096, window 2048"): [
+        ("recurrentgemma-9b local", dict(B=2, H=16, K=1, Sq=4096, Skv=4096, d=256,
+                                         window=2048))],
+    ("whisper-tiny", "encoder, B 4, 6/6 heads of 64, 1500 x 1500, not causal"): [
+        ("whisper-tiny encoder", dict(B=4, H=6, K=6, Sq=1500, Skv=1500, d=64, causal=False))],
+    ("whisper-tiny", "cross-attention, 432 x 1500"): [
+        ("whisper-tiny cross-attention", dict(B=4, H=6, K=6, Sq=432, Skv=1500, d=64,
+                                              causal=False))],
+    ("llava-next-34b", f"56/8 heads of 128, lengths {LLAVA_LENGTHS}"): [
+        ("llava-next-34b", dict(B=4, H=56, K=8, Sq=max(LLAVA_LENGTHS), Skv=max(LLAVA_LENGTHS),
+                                d=128, lengths=LLAVA_LENGTHS))],
+    ("granite-3-2b 100M", "fp32, B 8, 8/4 heads of 64, S 256"): [
+        ("granite-3-2b 100M (fp32)", dict(B=8, H=8, K=4, Sq=256, Skv=256, d=64,
+                                          dtype="float32"))],
+}
+# K1′'s times as first written, three passes of fp32 FMA in both types
+# (PERF.md's kernel table, "NVIDIA H100 80GB HBM3, 700.00 W"), printed beside
+# this run's
+FLASH_BWD_FIRST_MS = {"granite-3-2b": 14.724533081054688, "gemma2-2b local": 64.32095845540364,
+                     "gemma2-2b global": 67.88464864095052,
+                     "recurrentgemma-9b local": 81.30113220214844,
+                     "whisper-tiny encoder": 3.122015953063965,
+                     "whisper-tiny cross-attention": 1.1615359783172607,
+                     "llava-next-34b": 137.73812866210938,
+                     "granite-3-2b 100M (fp32)": 0.27717334032058716}
+
+
+def flash_bwd_case(label: str, B: int, H: int, K: int, Sq: int, Skv: int, d: int, *,
+                   dtype: str = "bfloat16", causal: bool = True, window: int = 0,
+                   softcap: float = 0.0, lengths=None, q_scale: float = 1.0):
+    """K1's backward at a model's training shapes: dQ, dK and dV against the
+    float64 plain version, the fp32 plain version against the same limit
+    (the control), the planted faults that apply, and the times, the first
+    version's beside."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    dt = getattr(torch, dtype)
+    q, k, v, dout, kw = flash_bwd_inputs(B, H, K, Sq, Skv, d, dtype=dtype, causal=causal,
+                                         window=window, softcap=softcap, lengths=lengths,
+                                         q_scale=q_scale)
+    lens = kw["lengths"]
     got = fa.flash_attention_bwd(q, k, v, dout, **kw)
     torch.cuda.synchronize()
     want = flash_bwd_want(q, k, v, dout, **kw)
@@ -2218,9 +2272,14 @@ def flash_bwd_case(label: str, B: int, H: int, K: int, Sq: int, Skv: int, d: int
     plain_mask = None if (not window and lens is None) else mask[:, None]
     library_ms, backend = sdpa_backward_ms(q, k, v, dout, plain_mask,
                                            causal and plain_mask is None)
+    again = fa.flash_attention_bwd(q, k, v, dout, **kw)
+    require(all(torch.equal(a, b) for a, b in zip(got, again)),
+            f"flash_attention_bwd {label}: two calls give the same bits")
+    del again
     res = dict(max_abs_err=err, limit_ratio=ratio, limit_ratio_dq_dk_dv=parts,
-               plain_fp32_limit_ratio=control, fault_ratio=fault_ratio,
+               plain_fp32_limit_ratio=control, fault_ratio=fault_ratio, bitwise_twice=True,
                ms=cuda_ms(lambda: fa.flash_attention_bwd(q, k, v, dout, **kw), 3),
+               ms_first_version=FLASH_BWD_FIRST_MS[label],
                plain_ms=plain_ms, library_ms=library_ms,
                library=f"SDPA backward ({backend}{', no softcap' if softcap else ''}"
                        f"{', masked' if plain_mask is not None else ''})",
@@ -2725,35 +2784,12 @@ def phase_train():
     import tempfile
     import torch
     t_phase = time.perf_counter()
-    records = {
-        ("flash_attention_bwd", "granite-3-2b", "B 4, 32/8 heads of 64, S 2048, causal"):
-            merge([flash_bwd_case("granite-3-2b", 4, 32, 8, 2048, 2048, 64)]),
-        ("flash_attention_bwd", "gemma2-2b", "B 2, 8/4 heads of 256, S 4700, softcap 50, "
-         "q at 16x; window 4096 and global"): merge([
-            flash_bwd_case("gemma2-2b local", 2, 8, 4, 4700, 4700, 256, window=4096,
-                           softcap=50.0, q_scale=16.0),
-            flash_bwd_case("gemma2-2b global", 2, 8, 4, 4700, 4700, 256, softcap=50.0,
-                           q_scale=16.0)]),
-        ("flash_attention_bwd", "recurrentgemma-9b", "B 2, 16/1 heads of 256, S 4096, "
-         "window 2048"): merge([
-            flash_bwd_case("recurrentgemma-9b local", 2, 16, 1, 4096, 4096, 256,
-                           window=2048)]),
-        ("flash_attention_bwd", "whisper-tiny", "encoder, B 4, 6/6 heads of 64, 1500 x 1500, "
-         "not causal"): merge([
-            flash_bwd_case("whisper-tiny encoder", 4, 6, 6, 1500, 1500, 64, causal=False)]),
-        ("flash_attention_bwd", "whisper-tiny", "cross-attention, 432 x 1500"): merge([
-            flash_bwd_case("whisper-tiny cross-attention", 4, 6, 6, 432, 1500, 64,
-                           causal=False)]),
-        ("flash_attention_bwd", "llava-next-34b", "56/8 heads of 128, lengths "
-         f"{LLAVA_LENGTHS}"): merge([
-            flash_bwd_case("llava-next-34b", 4, 56, 8, max(LLAVA_LENGTHS), max(LLAVA_LENGTHS),
-                           128, lengths=LLAVA_LENGTHS)]),
-        ("flash_attention_bwd", "granite-3-2b 100M", "fp32, B 8, 8/4 heads of 64, S 256"):
-            merge([flash_bwd_case("granite-3-2b 100M (fp32)", 8, 8, 4, 256, 256, 64,
-                                  dtype="float32")]),
+    records = {("flash_attention_bwd", model, variant):
+               merge([flash_bwd_case(label, **case) for label, case in cases])
+               for (model, variant), cases in FLASH_BWD_CASES.items()}
+    records.update({
         ("flash_attention", "granite-3-2b", "training shape, B 4 x 2048, no lengths"):
-            merge([flash_case("granite-3-2b", 32, 8, 0, 0.0, d=64, prompts=(2048,) * 4)]),
-    }
+            merge([flash_case("granite-3-2b", 32, 8, 0, 0.0, d=64, prompts=(2048,) * 4)])})
     torch.cuda.empty_cache()
     for arch, run in TRAIN_CHECKS.items():
         train_check(arch, run)

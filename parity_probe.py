@@ -1,8 +1,23 @@
 #!/usr/bin/env python3
 """Which parity measures the kernels need, on one H100.
 
-    python3 parity_probe.py [--kernel attention|wkv6]
+    python3 parity_probe.py [--kernel attention|wkv6|flash_bwd]
                             [NAME:SWITCH=VALUE,SWITCH=VALUE ...]
+
+``--kernel flash_bwd`` builds K1's backward once per variant of its bf16
+parity switches (with no arguments: the shipped build and ``BWD_VARIANTS``:
+P and dS in 1, 2 and 3 bf16 parts, ``PARITY_BWD_PARTS``, each with the
+gradient products' k16 steps summed from zero or chained,
+``PARITY_BWD_FRESH``) and prints, per variant, ptxas's report and, on each
+of ``chip_smoke.py`` phase 18's K1′ cases, the limit ratio of dq, dk and dv
+against the float64 plain version (the float64 gradients computed once a
+case), whether two calls give the same bits, the time, taken twice (in the
+variants' order, then in reverse), and each pass's device time
+(``torch.profiler``); K1's forward is built beside it with the same
+switches, and its time on the case's inputs is printed with whether its
+output has the first variant's bits.  A variant ``NAME:SRC=DIR`` builds
+DIR's copy of the sources instead, with no switches set (a parent commit's,
+to time the two in turns in one call and to show K1's output unchanged).
 
 ``--kernel wkv6`` builds K4 once per variant of its tf32 passes (with no
 arguments: the shipped 3 and the variants ``WKV_UNDONE``: 1 and 2 passes
@@ -56,11 +71,19 @@ UNDONE = {"pv_chained": {"PARITY_PV_FRESH": 0},
 # product, or on those that give the outputs alone
 WKV_UNDONE = {"one_pass": {"WKV_TF32_PASSES": 1}, "two_passes": {"WKV_TF32_PASSES": 2},
               "one_pass_output": {"WKV_OUT_TF32_PASSES": 1}}
+# K1's backward with P and dS in 1, 2 or 3 bf16 parts, summed from zero at
+# each k16 step or chained (the shipped build is one of them)
+BWD_VARIANTS = {f"parts{n}_{'fresh' if fresh else 'chained'}":
+                {"PARITY_BWD_PARTS": n, "PARITY_BWD_FRESH": fresh}
+                for n in (1, 2, 3) for fresh in (1, 0)}
 # per mode: the kernels built, the models whose activations hold them, the
 # default variants besides the shipped build
 MODES = {"attention": (("flash_attention", "decode_attention"),
                        ("gemma2-2b", "recurrentgemma-9b"), UNDONE),
-         "wkv6": (("wkv6",), ("rwkv6-7b",), WKV_UNDONE)}
+         "wkv6": (("wkv6",), ("rwkv6-7b",), WKV_UNDONE),
+         "flash_bwd": (("flash_attention_bwd", "flash_attention"), (), BWD_VARIANTS)}
+# the cached loader of each kernel's library: (module, function)
+LOADERS = {"flash_attention_bwd": ("flash_attention", "_lib_bwd")}
 MODE = "attention"
 KERNELS, ARCHS = MODES[MODE][:2]
 
@@ -87,9 +110,11 @@ def build(variants) -> dict:
     for name, sets in variants.items():
         out = variant_dir(name)
         out.mkdir(parents=True, exist_ok=True)
+        src = Path(sets["SRC"]) if "SRC" in sets else _build.CSRC
         for kernel in KERNELS:
-            cmd = [nvcc, *_build.NVCC_FLAGS, *(f"-D{s}={v}" for s, v in sets.items()),
-                   "-o", str(out / f"lib{kernel}.so"), str(_build.CSRC / f"{kernel}.cu")]
+            cmd = [nvcc, *_build.NVCC_FLAGS,
+                   *(f"-D{s}={v}" for s, v in sets.items() if s != "SRC"),
+                   "-o", str(out / f"lib{kernel}.so"), str(src / f"{kernel}.cu")]
             log = out / f"lib{kernel}.log"
             with open(log, "w") as f:
                 procs.append((log, subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT)))
@@ -105,8 +130,10 @@ def build(variants) -> dict:
                 if "Compiling entry function" in line:
                     k1 = re.search(r"flash_bf16_kernelILi(\d+)E", line)
                     k2 = re.search(r"decode_kernelI13__nv_bfloat16Li(\d+)ELi(\d+)E", line)
+                    k1b = re.search(r"\d(bwd_\w+?_kernel)I(f?)Li(\d+)E", line)
                     other = re.search(r"\d+(\w+_kernel)(I\w*?E)?", line)
                     fn = (f"K1 d={k1[1]}" if k1 else f"K2 d={k2[1]} NG={k2[2]}" if k2
+                          else f"{k1b[1]} {'fp32' if k1b[2] else 'bf16'} d={k1b[3]}" if k1b
                           else "".join(g for g in other.groups() if g)
                           if other and KERNELS[0] != "flash_attention" else None)
                 elif fn and "spill stores" in line:
@@ -118,16 +145,17 @@ def build(variants) -> dict:
 
 
 def use(name: str) -> None:
-    """Point the K1 and K2 wrappers at variant ``name``'s libraries: their
-    cached loaders are filled from the variant's directory."""
+    """Point the probed kernels' wrappers at variant ``name``'s libraries:
+    their cached loaders are filled from the variant's directory."""
     from repro_torch.kernels import _build
     shipped = _build.library
     _build.library = lambda kernel: ctypes.CDLL(str(variant_dir(name) / f"lib{kernel}.so"))
     try:
         for kernel in KERNELS:
-            mod = cs.counters()[kernel]
-            mod._lib.cache_clear()
-            mod._lib()
+            module, loader = LOADERS.get(kernel, (kernel, "_lib"))
+            fn = getattr(cs.counters()[module], loader)
+            fn.cache_clear()
+            fn()
     finally:
         _build.library = shipped
 
@@ -192,6 +220,65 @@ def kernel_cases(variants) -> dict:
     return out
 
 
+def passes_ms(fn, reps: int = 3) -> dict:
+    """Device milliseconds a call of each kernel that ``fn`` launches
+    (``torch.profiler`` over ``reps`` calls after a warm-up one)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key[:60]: e.device_time_total / 1e3 / reps for e in prof.key_averages()
+            if e.device_time_total > 0}
+
+
+def bwd_cases(variants) -> dict:
+    """Per variant, on each of phase 18's K1′ cases: the limit ratio of dq,
+    dk and dv against the float64 plain version, whether two calls give the
+    same bits, the time (the variants in order, then in reverse) and each
+    pass's; K1's forward on the same inputs, its time and whether it has
+    the first variant's bits."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    out = {name: {} for name in variants}
+    for cases in cs.FLASH_BWD_CASES.values():
+        for label, case in cases:
+            q, k, v, dout, kw = cs.flash_bwd_inputs(**case)
+            want = cs.flash_bwd_want(q, k, v, dout, **kw)
+            first = None   # K1's output from the first variant's build
+            for name in variants:
+                use(name)
+                got = fa.flash_attention_bwd(q, k, v, dout, **kw)
+                again = fa.flash_attention_bwd(q, k, v, dout, **kw)
+                _, ratio, parts = cs.held_grads(got, want)
+                fwd = fa.flash_attention(q, k, v, **kw)
+                first = fwd if first is None else first
+                out[name][label] = dict(
+                    limit_ratio=ratio, limit_ratio_dq_dk_dv=parts,
+                    bitwise_twice=all(torch.equal(a, b) for a, b in zip(got, again)),
+                    k1_bitwise_first=torch.equal(fwd, first),
+                    k1_ms=cs.cuda_ms(lambda: fa.flash_attention(q, k, v, **kw), 3))
+                del got, again, fwd
+            del want, first
+            for order in (list(variants), list(variants)[::-1]):
+                for name in order:
+                    use(name)
+                    out[name][label].setdefault("ms", []).append(
+                        cs.cuda_ms(lambda: fa.flash_attention_bwd(q, k, v, dout, **kw), 3))
+            for name in variants:
+                use(name)
+                out[name][label]["passes_ms"] = passes_ms(
+                    lambda: fa.flash_attention_bwd(q, k, v, dout, **kw))
+                print(f"[case] {label} {name} {json.dumps(out[name][label])}", flush=True)
+            torch.cuda.empty_cache()
+    for name in variants:
+        out[name]["worst_limit_ratio"] = max(c["limit_ratio"] for c in out[name].values())
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -213,7 +300,8 @@ def main() -> int:
     for arch in ARCHS:
         for name, rec in model_checks(arch, variants).items():
             result[name][arch] = rec
-    for name, rec in kernel_cases(variants).items():
+    cases = bwd_cases if MODE == "flash_bwd" else kernel_cases
+    for name, rec in cases(variants).items():
         result[name]["cases"] = rec
     print(json.dumps(result))
     return 0

@@ -180,12 +180,13 @@ __device__ __forceinline__ void pipeline(int ntiles, Issue&& issue, Compute&& co
   cp_async_wait<0>();
 }
 
-// ---- parity switches of the bf16 tensor-core paths (K1 and K2) ----
+// ---- parity switches of the bf16 tensor-core paths (K1, K1's backward, K2) ----
 // The bf16 kernels are held to one bf16 ulp of the float64 plain version on
-// the models' own activations (chip_smoke.py phases 3 and 4).  These
-// build-time switches name the measures that bear on that check.  Each
-// kernel sets them before including this file (flash_attention.cu and
-// decode_attention.cu say why); a -D on nvcc's command line overrides
+// the models' own activations (chip_smoke.py phases 3 and 4; K1's backward
+// to phase 18's limit).  These build-time switches name the measures that
+// bear on that check.  Each kernel sets them before including this file
+// (flash_attention.cu, flash_attention_bwd.cu and decode_attention.cu say
+// why); a -D on nvcc's command line overrides
 // them, which is how parity_probe.py builds variants.  The defaults below
 // are the most exact settings.
 // - PARITY_QK_CHAIN: k16 steps of Q·Kᵀ summed in one mma accumulator
@@ -199,6 +200,11 @@ __device__ __forceinline__ void pipeline(int ntiles, Issue&& issue, Compute&& co
 // - PARITY_IEEE_EXP: 1 takes the softcap's tanh and the softmax's
 //   exponentials from tanhf/expf, as the plain version computes them; 0 from
 //   the fast MUFU forms (__expf, and the softcap as cap - 2cap/(e^(2x/cap) + 1)).
+// - PARITY_BWD_PARTS: bf16 parts of P and dS in K1's backward's gradient
+//   products dV += Pᵀ·dO, dK += dSᵀ·Q and dQ += dS·K, 1 (rounded once), 2
+//   or 3.
+// - PARITY_BWD_FRESH: 1 sums each k16 step of those products from zero and
+//   adds it to the accumulator in IEEE fp32; 0 chains every step into it.
 #ifndef PARITY_QK_CHAIN
 #define PARITY_QK_CHAIN 1
 #endif
@@ -211,7 +217,14 @@ __device__ __forceinline__ void pipeline(int ntiles, Issue&& issue, Compute&& co
 #ifndef PARITY_IEEE_EXP
 #define PARITY_IEEE_EXP 1
 #endif
+#ifndef PARITY_BWD_PARTS
+#define PARITY_BWD_PARTS 3
+#endif
+#ifndef PARITY_BWD_FRESH
+#define PARITY_BWD_FRESH 1
+#endif
 static_assert(PARITY_P_PARTS == 2 || PARITY_P_PARTS == 3, "P in 2 or 3 bf16 parts");
+static_assert(PARITY_BWD_PARTS >= 1 && PARITY_BWD_PARTS <= 3, "P and dS in 1 to 3 parts");
 
 __device__ __forceinline__ float exp_tc(float x) {
 #if PARITY_IEEE_EXP
@@ -250,21 +263,23 @@ __device__ __forceinline__ void qk_mma(float (&s)[4], float (&u)[4], int step,
   }
 }
 
-// acc += (P in PARITY_P_PARTS parts, smallest first) · B for one k16 step
-// of P·V, from zero and added in IEEE fp32 (PARITY_PV_FRESH) or chained.
-template <typename PartA, typename PartB>
+// acc += (P in NP bf16 parts, smallest first) · B for one k16 step of
+// P·V, from zero and added in IEEE fp32 (FRESH) or chained.  K1 takes
+// PARITY_P_PARTS and PARITY_PV_FRESH; K1's backward its own switches.
+template <int NP = PARITY_P_PARTS, bool FRESH = PARITY_PV_FRESH, typename PartA,
+          typename PartB>
 __device__ __forceinline__ void pv_mma(float (&acc)[4], PartA&& a, PartB&& b) {
-#if PARITY_PV_FRESH
-  float t[4];
-  mma_bf16_fresh(t, a(0), b(0, 0), b(0, 1));
+  if constexpr (FRESH) {
+    float t[4];
+    mma_bf16_fresh(t, a(0), b(0, 0), b(0, 1));
 #pragma unroll
-  for (int i = 1; i < PARITY_P_PARTS; ++i) mma_bf16(t, a(i), b(i, 0), b(i, 1));
+    for (int i = 1; i < NP; ++i) mma_bf16(t, a(i), b(i, 0), b(i, 1));
 #pragma unroll
-  for (int e = 0; e < 4; ++e) acc[e] += t[e];
-#else
+    for (int e = 0; e < 4; ++e) acc[e] += t[e];
+  } else {
 #pragma unroll
-  for (int i = 0; i < PARITY_P_PARTS; ++i) mma_bf16(acc, a(i), b(i, 0), b(i, 1));
-#endif
+    for (int i = 0; i < NP; ++i) mma_bf16(acc, a(i), b(i, 0), b(i, 1));
+  }
 }
 
 // Hide x's value from the compiler where the step helpers below use it:
@@ -338,14 +353,14 @@ __device__ __forceinline__ void softmax_step(float (&s)[NT][4], float (&m)[2], f
 
 // acc += P · V for one warp: P the exp'd scores s (16 rows x NT·8 keys, in
 // registers: the accumulator fragments of two key tiles are the A fragment
-// of one k16 step), in PARITY_P_PARTS bf16 parts (split_bf16); V the NT·8
-// rows from key0 of a swizzled bf16 tile, read transposed by ldmatrix
-// (pv_mma sums the parts).
-template <int NT, int NO>
+// of one k16 step), in NP bf16 parts (split_bf16); V the NT·8 rows from key0
+// of a swizzled bf16 tile, read transposed by ldmatrix (pv_mma sums the
+// parts, FRESH as it says).  K1's backward runs its gradient products
+// through it too: dV += Pᵀ·dO, dK += dSᵀ·Q and dQ += dS·K.
+template <int NT, int NO, int NP = PARITY_P_PARTS, bool FRESH = PARITY_PV_FRESH>
 __device__ __forceinline__ void pv_step(const float (&s)[NT][4], float (&acc)[NO][4],
                                         const __nv_bfloat16* v, int key0, int lane) {
   constexpr int CPR = NO;  // D / 8 chunks per row
-  constexpr int NP = PARITY_P_PARTS;
   opaque(lane);
 #pragma unroll
   for (int ks = 0; ks < NT / 2; ++ks) {
@@ -364,8 +379,9 @@ __device__ __forceinline__ void pv_step(const float (&s)[NT][4], float (&acc)[NO
       ldmatrix_x4_trans(vb, v + swz<CPR, 8>(key, 2 * j + (lane >> 4)));
 #pragma unroll
       for (int h = 0; h < 2; ++h)
-        pv_mma(acc[2 * j + h], [&](int i) -> const uint32_t(&)[4] { return pa[i]; },
-               [&](int, int e) { return vb[2 * h + e]; });
+        pv_mma<NP, FRESH>(acc[2 * j + h],
+                          [&](int i) -> const uint32_t(&)[4] { return pa[i]; },
+                          [&](int, int e) { return vb[2 * h + e]; });
     }
   }
 }

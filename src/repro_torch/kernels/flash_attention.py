@@ -6,9 +6,11 @@ kernel ``repro.kernels.flash_attention.flash_attention``; the backward
 kernel (``csrc/flash_attention_bwd.cu``) computes dQ, dK and dV of the same
 function and replaces no TPU kernel (the reference takes the gradient from
 XLA's autodiff).  Each source says what bounds it on the H100 and how its
-design answers that.  ``launches`` and ``launches_bwd`` count the launches
-(the backward's three passes once), so a run can show that its main path
-went through them.  :class:`FlashAttention` ties the two together for
+design answers that: in bf16 both run their products on the tensor cores
+(``mma.sync``), the backward in two passes with P and dS fed to them in
+bf16 parts; in fp32 on the CUDA cores.  ``launches`` and ``launches_bwd``
+count the calls (the backward's passes once), so a run can show that its
+main path went through them.  :class:`FlashAttention` ties the two together for
 autograd; :func:`plain_grad` is the backward's plain version.
 """
 from __future__ import annotations
@@ -28,6 +30,9 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # keys per kv tile of each instantiation (BK and kv_tile<D> in the source)
 KV_TILE = {**{(torch.float32, d): 32 for d in HEAD_DIMS},
            **{(torch.bfloat16, d): 32 if d == 256 else 64 for d in HEAD_DIMS}}
+# rows of the backward's lse and D scratch are padded to a multiple of this
+# (kStatsRows in flash_attention_bwd.cu)
+STATS_ROWS = 64
 
 launches = 0
 launches_bwd = 0
@@ -131,7 +136,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         dout = dout.contiguous()
     _check_operand("dout", dout, q.dtype)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    stats = torch.empty((2, B, H, Sq), dtype=torch.float32, device=q.device)
+    pitch = -(-Sq // STATS_ROWS) * STATS_ROWS
+    stats = torch.empty((2, B, H, pitch), dtype=torch.float32, device=q.device)
     strides = (ctypes.c_longlong * 21)(*(s for t in (q, k, v, dout, dq, dk, dv)
                                          for s in t.stride()[:3]))
     err = _lib_bwd().flash_attention_bwd(

@@ -16,7 +16,9 @@ column-major (read in place); its plain version is held to the Pallas kernel
 by ``tests/test_torch_int8.py``.  K1's backward kernel is held to the
 plain version's gradient (``fa.plain_grad``, autograd through
 ``mha_reference``) in float64 within 2^-14·max|want| + one ulp of its type,
-the form and limit of ``chip_smoke.py`` phase 18; the backward kernels of
+the form and limit of ``chip_smoke.py`` phase 18, including d = 256 with a
+window on a tile edge and ragged lengths, and must give the same bits on two
+calls; the backward kernels of
 K3 and K4 likewise, to ``rg.plain_grad`` and ``wk.plain_grad`` (the explicit
 formulas of ``ref``) in float64, within 2^-14·max|want| plus one ulp of each
 output's type, with planted faults that must fail by 10x.  K2 and K5, which
@@ -839,6 +841,45 @@ def test_flash_backward_at_training_shapes(cuda, B, H, K, Sq, Skv, causal):
         assert held_grads([t[b:b + 1] for t in got], want) <= 1.0
         assert held_grads([t[b:b + 1] for t in fault], want) > 10.0
 
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_backward_is_bitwise_deterministic(cuda, d, dtype):
+    """Two calls on the same inputs give the same bits in dq, dk and dv (no
+    atomics: a bitwise restart of training needs this), with 4 query heads
+    per kv head, a window and ragged lengths."""
+    B, H, K, S = 2, 8, 2, 300
+    tq, tk, tv, do = (t.to(cuda) for t in arrays(12, dtype, (B, H, S, d), (B, K, S, d),
+                                                 (B, K, S, d), (B, H, S, d)))
+    opts = dict(causal=True, window=100, softcap=30.0,
+                lengths=torch.tensor([300, 171], dtype=torch.int32, device=cuda))
+    first = fa.flash_attention_bwd(tq, tk, tv, do, **opts)
+    second = fa.flash_attention_bwd(tq, tk, tv, do, **opts)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [32, 64, 0])
+def test_flash_backward_d256_window_on_tile_edges(cuda, window):
+    """d = 256 in bf16 (the instantiation whose dK/dV pass splits a warp
+    pair into a dV and a dK warp), 16 query heads on one kv head, a window
+    on a tile boundary of both passes (32 and 64 keys) and ragged lengths,
+    held to the float64 plain version at chip_smoke.py phase 18's limit."""
+    B, H, K, S, d = 3, 16, 1, 260, 256
+    tq, tk, tv, do = (t.to(cuda) for t in arrays(13, "bfloat16", (B, H, S, d), (B, K, S, d),
+                                                 (B, K, S, d), (B, H, S, d)))
+    lens = (260, 97, 32)
+    for b, n in enumerate(lens):   # rows past a length carry no loss
+        do[b, :, n:] = 0
+    opts = dict(causal=True, window=window,
+                lengths=torch.tensor(lens, dtype=torch.int32, device=cuda))
+    got = fa.flash_attention_bwd(tq, tk, tv, do, **opts)
+    want = fa.plain_grad(tq, tk, tv, do, acc=torch.float64, **opts)
+    assert held_grads(got, want) <= 1.0
+    assert all(float(g[b, :, n:].abs().max()) == 0.0
+               for g in got[1:] for b, n in enumerate(lens) if n < S)
 
 def held_bwd(got, want):
     """Worst ratio of |got − want| to 2^-14·max|want| + one ulp of got's
