@@ -163,10 +163,13 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 of a run without the failure;
  19. train    — the hybrid and RWKV6 families: K3's backward
                 (``rglru_scan_bwd.cu``) at recurrentgemma-9b's training shape
-                (B 4 × 2048, R 4096) in fp32 and bf16, and K4's
-                (``wkv6_bwd.cu``) at rwkv6-7b's (B 4 × 2048, 64 heads of 64,
-                bf16), at N 32 and at S 300 (a partial last chunk), with a
-                nonzero state0 and a gradient on the final state, against
+                (B 4 × 2048, R 4096) in fp32 and bf16, on the ring of bulk
+                copies its plan chooses there and bitwise equal to its
+                register kernel, and K4's (``wkv6_bwd.cu``, tf32 mma.sync
+                in the forward's segments) at rwkv6-7b's (B 4 × 2048, 64
+                heads of 64, bf16), at N 32 and at S 300 (a partial last
+                chunk), with a nonzero state0 and a gradient on the final
+                state, two calls bitwise equal, against
                 float64 autograd through the plain forwards (K4's through
                 its float64 formulas, held to autograd on a slice) within
                 limits derived from their arithmetic (see BWD_CASE), the
@@ -774,13 +777,11 @@ def decode_cross_case(label: str, B: int, H: int, T: int, d: int):
     return res
 
 
-def rglru_case(dtype: str = "float32"):
-    """K3 at recurrentgemma-9b's prefill shapes: the B=4 ragged prompts padded
-    to the longest, R=4096, pad steps a=1, b=0 as the model gives them; a and
-    b in ``dtype`` (the model sends fp32; the calibration also bf16).  Held
-    bitwise; the register variant and a batch of one are timed beside."""
+def rglru_inputs(dtype: str = "float32"):
+    """K3's operands (a, b, s0) at recurrentgemma-9b's prefill shapes from a
+    seed: the B=4 ragged prompts padded to the longest, R=4096, pad steps
+    a=1, b=0; a and b in ``dtype``."""
     import torch
-    from repro_torch.kernels import rglru_scan as rg
     B, S, R = len(PROMPTS), max(PROMPTS), 4096
     dt = getattr(torch, dtype)
     g = torch.Generator(device="cuda").manual_seed(3)
@@ -791,6 +792,19 @@ def rglru_case(dtype: str = "float32"):
     b = torch.where(valid, 0.1 * torch.randn((B, S, R), generator=g, device="cuda"),
                     0.0).to(dt)
     s0 = torch.randn((B, R), generator=g, device="cuda")
+    return a, b, s0
+
+
+def rglru_case(dtype: str = "float32"):
+    """K3 at recurrentgemma-9b's prefill shapes: the B=4 ragged prompts padded
+    to the longest, R=4096, pad steps a=1, b=0 as the model gives them; a and
+    b in ``dtype`` (the model sends fp32; the calibration also bf16).  Held
+    bitwise; the register variant and a batch of one are timed beside."""
+    import torch
+    from repro_torch.kernels import rglru_scan as rg
+    B, S, R = len(PROMPTS), max(PROMPTS), 4096
+    dt = getattr(torch, dtype)
+    a, b, s0 = rglru_inputs(dtype)
     got = rg.rglru_scan(a, b, s0)
     plan = rg.last_plan
     want = rg.plain(a, b, s0)
@@ -838,13 +852,12 @@ def rglru_case(dtype: str = "float32"):
     return res
 
 
-def wkv6_case(label: str, B: int, S: int, H: int, N: int, prompts, fault_step: int):
-    """K4 at B ragged prompts of lengths ``prompts`` padded to S, H heads of
-    N, bf16 r/k/v with k=0 and logw=0 on pad steps as the model gives them,
-    logw = −exp(·), u and s0 in fp32: rwkv6-7b's prefill (H=64, N=64) and
-    the calibration's shape (H=2, N=32)."""
+def wkv6_inputs(B: int, S: int, H: int, N: int, prompts):
+    """K4's operands (r, k, v, logw, u, s0) from a seed: B ragged prompts
+    of lengths ``prompts`` padded to S, H heads of N, bf16 r/k/v with k=0
+    and logw=0 on pad steps as the model gives them, logw = −exp(·), u and
+    s0 in fp32."""
     import torch
-    from repro_torch.kernels import wkv6 as wk
     g = torch.Generator(device="cuda").manual_seed(4)
 
     def normal(shape, scale=1.0):
@@ -857,7 +870,18 @@ def wkv6_case(label: str, B: int, S: int, H: int, N: int, prompts, fault_step: i
     v = normal(shape).to(torch.bfloat16)
     logw = torch.where(valid, -torch.exp(normal(shape)), 0.0)
     u, s0 = normal((H, N), 0.1), normal((B, H, N, N), 0.1)
-    args = (r, k, v, logw, u, s0)
+    return r, k, v, logw, u, s0
+
+
+def wkv6_case(label: str, B: int, S: int, H: int, N: int, prompts, fault_step: int):
+    """K4 at B ragged prompts of lengths ``prompts`` padded to S, H heads of
+    N, bf16 r/k/v with k=0 and logw=0 on pad steps as the model gives them,
+    logw = −exp(·), u and s0 in fp32: rwkv6-7b's prefill (H=64, N=64) and
+    the calibration's shape (H=2, N=32)."""
+    import torch
+    from repro_torch.kernels import wkv6 as wk
+    args = wkv6_inputs(B, S, H, N, prompts)
+    r, k, v, logw, u, s0 = args
     got = wk.wkv6(*args)
     want = wkv_want(*args)
     atols = wkv_atol(*args)
@@ -2821,28 +2845,40 @@ def phase_train():
 # the output's own scale, not ATOL: a model's gradients are ~1e-4), the
 # factor 2 as for K4's forward.
 #
-# K4's backward (wkv6_bwd.cu, fp32 FMA on the CUDA cores, T = 32 steps a
-# chunk, N the head size, C chunks) likewise, after ref.wkv6_backward_
-# chunked_reference's decomposition.  Factors: a running product of at most
-# T - 1 factors e^{w} (expf ≤ 2 ulp = 4u, each product rounded) is within
-# 5Tu; a sum of n products within (n + 1)u of the sum of their absolute
-# values.  The carried matrices: the states S_c (errors E_c, absolute
-# recurrence A_c, A_0 = |s0|) and the gradients Go_c of the chunks' ends
-# (errors F_c, absolute recurrence Ga_c from |dS|) are each updated as
-# M' = round(D·M) then T fused multiply-adds of the decayed rows: with I_c
-# the chunk's absolute increment, E' ≤ D·E + (|x| + T + 6)u·D·A + (6T + 2)u·I
-# (x = Σ w of the chunk, its decay D = e^x a double sum rounded once, then
-# expf), and F likewise from the other end.  Each output is then within
-# γ·(its value on absolute inputs, ``wk.plain_grad`` on |r|, |k|, |v|, |u|,
-# |s0|, |do|, |dS|) plus what the carried errors reach it through:
-# - dr: γ = (N + 6T + 6)u, + pd ⊙ (E_c |do|); dk: γ likewise, + sd ⊙ (F_c |v|);
-#   dv: γ likewise, + F_cᵀ (|k| ⊙ sd);
-# - dlogw: γ = (N + 7T + 10)u times W_t, the absolute value of every term of
+# K4's backward (wkv6_bwd.cu, T = 32 steps a chunk, N the head size, C
+# chunks in the forward's segments of Lc, ``wk.plan_segments``) likewise,
+# after its decomposition (tests/test_torch_wkv6_bwd_chunked.py).  Factors:
+# a running product of at most T - 1 factors e^{w} (expf ≤ 2 ulp = 4u, each
+# product rounded) is within 5Tu in any order; a sum of n products on the
+# CUDA cores within (n + 1)u of the sum of their absolute values.  A
+# contraction on the tensor cores (mma.sync tf32) adds what the FMA
+# derivation lacks, 60u of its absolute sum: 12u of the tf32 split (the
+# dropped small·small product and what each small part's own rounding
+# leaves, 4u each; 4u where one operand is exact in tf32) and 48u of the
+# tensor core's own sums, which truncate (≤ 2u each) over the ≤ 24 products
+# of a k8 step in three passes; the k8 steps are then added in IEEE fp32,
+# within the (n + 1)u above.  The carried matrices: the states S_c (errors
+# E_c, absolute recurrence A_c, A_0 = |s0|) and the gradients Go_c of the
+# chunks' ends (errors F_c, absolute recurrence Ga_c from |dS|) are each
+# updated as M' = round(D·M + increment), the increment a contraction of
+# the decayed rows: with I_c the chunk's absolute increment,
+# E' ≤ D·E + (|x| + T + 6)u·D·A + (6T + 62)u·I (x = Σ w of the chunk, its
+# decay D = e^x a double sum rounded once, then expf), and F likewise from
+# the other end; at a segment boundary the chains of segments add
+# (|X| + 5)u·d·A (X = Σ w of the segment, d = e^X, A the absolute state
+# entering it; Ga leaving it for F), as for K4's forward.  Each output is
+# then within γ·(its value on absolute inputs, ``wk.plain_grad`` on |r|,
+# |k|, |v|, |u|, |s0|, |do|, |dS|) plus what the carried errors reach it
+# through:
+# - dr: γ = (N + 6T + 126)u (two contractions deep: P, then P against the
+#   decayed k), + pd ⊙ (E_c |do|); dk: γ likewise, + sd ⊙ (F_c |v|); dv: γ
+#   likewise, + F_cᵀ (|k| ⊙ sd);
+# - dlogw: γ = (N + 7T + 130)u times W_t, the absolute value of every term of
 #   the reverse-cumsum identity (D·rowsum(Ga⊙A) + Σ_{s<t} |k| sd (Ga|v|) +
 #   Σ_{τ>t} |r|·|dr′| + Σ_{s≥t} |k|·|dk′ intra|, which cancel to leave
 #   dlogw), + what E_c and F_c reach through it (summed over the chunk);
-# - du: γ = (N + T + B·C + 4)u (a chunk's sum, then B·C chunks' in order);
-#   dstate0: the carried error F at the sequence's start.
+# - du: γ = (N + T + B·C + 64)u (P, a chunk's sum, then B·C chunks' in
+#   order); dstate0: the carried error F at the sequence's start.
 # Each limit is 2 x that + (bf16 outputs) RTOL·|want| + UNIT·max|want|, as
 # above.
 # ``wk.plain_grad`` in float64 (the explicit sequential formulas) is the
@@ -2857,6 +2893,11 @@ TRAIN19_SLICE = {"recurrentgemma-9b": 6, "rwkv6-7b": 8}   # layers at full width
 TRAIN19_STEPS = 3
 TRAIN19_RESTART = "rwkv6-7b"           # the 100M run killed and restored
 BWD_FAULT_FACTOR = 10.0               # a planted fault fails by this much at least
+# phase 19 (a)'s K4′ cases: label → (B, S, H, N, dtype of r/k/v/do)
+WKV_BWD_SHAPES = {"rwkv6-7b": (4, 2048, 64, 64, "bfloat16"),
+                  "N 32": (4, 2048, 128, 32, "bfloat16"),
+                  "partial chunk": (4, 300, 64, 64, "bfloat16"),
+                  "100M": (8, 256, 32, 16, "float32")}
 
 
 def rglru_bwd_limits(a, b, s0, g, g_last):
@@ -2900,6 +2941,21 @@ def held_bwd(got, want, limits):
     return max(errs), max(ratios), ratios
 
 
+def rglru_bwd_inputs(dtype: str, B: int = BWD_CASE["B"], S: int = BWD_CASE["S"],
+                     R: int = RG_WIDTH):
+    """K3′'s operands (a, b, s0, g, g_last) on the card from a seed: a in
+    [0.5, 0.999), b and g normal, a, b and g in ``dtype``."""
+    import torch
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    a = (0.5 + 0.499 * torch.rand((B, S, R), generator=gen, device="cuda")).to(dt)
+    b = (0.1 * torch.randn((B, S, R), generator=gen, device="cuda")).to(dt)
+    s0 = torch.randn((B, R), generator=gen, device="cuda")
+    g = torch.randn((B, S, R), generator=gen, device="cuda").to(dt)
+    g_last = torch.randn((B, R), generator=gen, device="cuda")
+    return a, b, s0, g, g_last
+
+
 def rglru_bwd_case(dtype: str):
     """Phase 19 (a): K3′ at recurrentgemma-9b's training shape, a/b/g in
     ``dtype`` (the model sends fp32; bf16 is the calibration's dtype), held
@@ -2911,16 +2967,21 @@ def rglru_bwd_case(dtype: str):
     from repro_torch.kernels.ref import rglru_reference
     B, S, R = BWD_CASE["B"], BWD_CASE["S"], RG_WIDTH
     dt = getattr(torch, dtype)
-    gen = torch.Generator(device="cuda").manual_seed(5)
-    a = (0.5 + 0.499 * torch.rand((B, S, R), generator=gen, device="cuda")).to(dt)
-    b = (0.1 * torch.randn((B, S, R), generator=gen, device="cuda")).to(dt)
-    s0 = torch.randn((B, R), generator=gen, device="cuda")
-    gs = torch.randn((B, S, R), generator=gen, device="cuda").to(dt)
-    g_last = torch.randn((B, R), generator=gen, device="cuda")
-    args = (a, b, s0, gs, g_last)
+    args = rglru_bwd_inputs(dtype)
+    a, b, s0, gs, g_last = args
     got = rg.rglru_scan_bwd(*args)
+    plan = rg.last_bwd_plan
     torch.cuda.synchronize()
     require([x.dtype for x in got] == [dt, dt, torch.float32], "rglru_scan_bwd dtypes")
+    require(plan.variant == "ring", f"rglru_scan_bwd {dtype} at the training shape runs the ring")
+    # the ring and the register kernel (PR 23's) walk the same rounded steps
+    register = rg.rglru_scan_bwd(*args, use=rg.REGISTER)
+    require(all(torch.equal(x, y) for x, y in zip(got, register)),
+            f"rglru_scan_bwd {dtype}: the ring {plan} bitwise equal to the register kernel")
+    # and the plain version's fp32 walk, rounded to a's type
+    plain32 = [x.to(y.dtype) for x, y in zip(rg.plain_grad(*args), got)]
+    require(all(torch.equal(x, y) for x, y in zip(got, plain32)),
+            f"rglru_scan_bwd {dtype} bitwise equal to its plain version's fp32 walk")
     with torch.enable_grad():
         xs = [t.double().requires_grad_() for t in (a, b, s0)]
         seq, last = rglru_reference(*xs)
@@ -2948,8 +3009,9 @@ def rglru_bwd_case(dtype: str):
     ms_bound, by = bound(5.0 * B * S * R, size * 5.0 * B * S * R + 4.0 * 3 * B * R,
                          PEAK_FP32_FLOPS)
     res = dict(max_abs_err=err, limit_ratio=ratio, ratios=ratios, control_ratio=control_ratio,
-               fault_ratio=faults, formulas_vs_autograd=formulas,
+               fault_ratio=faults, formulas_vs_autograd=formulas, plan=plan._asdict(),
                ms=cuda_ms(lambda: rg.rglru_scan_bwd(*args), 20),
+               register_ms=cuda_ms(lambda: rg.rglru_scan_bwd(*args, use=rg.REGISTER), 20),
                plain_ms=cuda_ms(lambda: rg.plain_grad(*args), 2),
                library_ms=None,   # no single PyTorch call computes the reversed scan
                bound_ms=ms_bound, bound_by=by)
@@ -2985,12 +3047,20 @@ def wkv_bwd_limits(r, k, v, logw, u, s0, do, ds):
     x = lw.sum(dim=3)
     D = torch.exp(x)[..., None]
     kd, rd = ka * sd, ra * pd
-    grow, g_inc = (x.abs()[..., None] + T + 6) * unit * D, (6 * T + 2) * unit
+    grow, g_inc = (x.abs()[..., None] + T + 6) * unit * D, (6 * T + 62) * unit
+    Lc = wk.plan_segments(B, H, S)[1]
+
+    def seg_step(p):  # (|X| + 5)u·d of segment p, a column of rows d
+        X = x[p * Lc:(p + 1) * Lc].sum(dim=0)[..., None]
+        return (X.abs() + 5) * unit * torch.exp(X)
     A, E = [s0.double().abs()], [torch.zeros_like(s0, dtype=torch.float64)]
     for c in range(C - 1):
         inc = torch.einsum("bhtd,bhte->bhde", kd[c], va[c])
         E.append(D[c] * E[c] + grow[c] * A[c] + g_inc * inc)
         A.append(D[c] * A[c] + inc)
+        if (c + 1) % Lc == 0:   # chunk c + 1 starts a segment: the segments' chain
+            p = (c + 1) // Lc - 1
+            E[-1] = E[-1] + seg_step(p) * A[p * Lc]
     Go, F = [None] * C, [None] * C
     go, f = ds.double().abs(), torch.zeros_like(A[0])
     for c in reversed(range(C)):
@@ -2998,6 +3068,8 @@ def wkv_bwd_limits(r, k, v, logw, u, s0, do, ds):
         inc = torch.einsum("bhtd,bhte->bhde", rd[c], oa[c])
         f = D[c] * f + grow[c] * go + g_inc * inc
         go = D[c] * go + inc
+        if c and c % Lc == 0:   # chunk c starts segment c / Lc: the chain leaving it
+            f = f + seg_step(c // Lc) * Go[min(c + Lc, C) - 1]
     A, E, Go, F = (torch.stack(m) for m in (A, E, Go, F))
     mag = wk.plain_grad(r.abs(), k.abs(), v.abs(), logw, u.abs(), s0.abs(), do.abs(),
                         ds.abs(), acc=torch.float64)
@@ -3007,7 +3079,7 @@ def wkv_bwd_limits(r, k, v, logw, u, s0, do, ds):
     gv = torch.einsum("cbhde,cbhte->cbhtd", Go, va)
     se = torch.einsum("cbhde,cbhte->cbhtd", E, oa)
     fv = torch.einsum("cbhde,cbhte->cbhtd", F, va)
-    g_rkv = (N + 6 * T + 6) * unit
+    g_rkv = (N + 6 * T + 126) * unit
     ks = kd * gv
     rr = ra * (Mdr - ua * ka * ptt).clamp(min=0)
     ki = ka * (Mdk - sd * gv - ua * ra * ptt).clamp(min=0)
@@ -3018,8 +3090,8 @@ def wkv_bwd_limits(r, k, v, logw, u, s0, do, ds):
     return (2 * unchunk(g_rkv * Mdr + pd * se),
             2 * unchunk(g_rkv * Mdk + sd * fv),
             2 * unchunk(g_rkv * Mdv + torch.einsum("cbhtd,cbhde->cbhte", kd, F)),
-            2 * unchunk((N + 7 * T + 10) * unit * W + carried_w),
-            2 * (N + T + B * C + 4) * unit * mag[4],
+            2 * unchunk((N + 7 * T + 130) * unit * W + carried_w),
+            2 * (N + T + B * C + 64) * unit * mag[4],
             2 * f)
 
 
@@ -3057,16 +3129,11 @@ def wkv6_bwd_faults(args, want):
             "dlogw_without_its_state_term": no_state}
 
 
-def wkv6_bwd_case(label: str, B: int, S: int, H: int, N: int, dtype: str = "bfloat16"):
-    """Phase 19 (a): K4′ at B x S, H heads of N, r/k/v/do in ``dtype``,
-    logw = −exp(·), u, state0 and the final state's gradient nonzero, held
-    to the float64 sequential formulas (themselves held to float64 autograd
-    on batch 0's first heads) within ``wkv_bwd_limits``; the fp32 plain
-    version as a control; the three planted faults.  A head size outside
-    ``wk.HEAD_SIZES`` runs padded (``wk.pad_heads``): K4 is then held too,
-    within ``wkv_atol``."""
+def wkv6_bwd_inputs(B: int, S: int, H: int, N: int, dtype: str = "bfloat16"):
+    """K4′'s operands (r, k, v, logw, u, s0, do, dS) on the card from a
+    seed: r, k, v and do in ``dtype``, logw = −exp(·), u, state0 and the
+    final state's gradient nonzero."""
     import torch
-    from repro_torch.kernels import wkv6 as wk
     gen = torch.Generator(device="cuda").manual_seed(6)
     dt = getattr(torch, dtype)
 
@@ -3077,7 +3144,22 @@ def wkv6_bwd_case(label: str, B: int, S: int, H: int, N: int, dtype: str = "bflo
     v, logw = normal(shape).to(dt), -torch.exp(normal(shape))
     u, s0 = normal((H, N), 0.1), normal((B, H, N, N), 0.1)
     do, ds = normal(shape).to(dt), normal((B, H, N, N))
-    args = (r, k, v, logw, u, s0, do, ds)
+    return r, k, v, logw, u, s0, do, ds
+
+
+def wkv6_bwd_case(label: str, B: int, S: int, H: int, N: int, dtype: str = "bfloat16"):
+    """Phase 19 (a): K4′ at B x S, H heads of N, r/k/v/do in ``dtype``,
+    logw = −exp(·), u, state0 and the final state's gradient nonzero, held
+    to the float64 sequential formulas (themselves held to float64 autograd
+    on batch 0's first heads) within ``wkv_bwd_limits``; the fp32 plain
+    version as a control; the three planted faults.  A head size outside
+    ``wk.HEAD_SIZES`` runs padded (``wk.pad_heads``): K4 is then held too,
+    within ``wkv_atol``."""
+    import torch
+    from repro_torch.kernels import wkv6 as wk
+    dt = getattr(torch, dtype)
+    args = wkv6_bwd_inputs(B, S, H, N, dtype)
+    r, k, v, logw, u, s0, do, ds = args
     got = wk.wkv6_bwd(*args)
     torch.cuda.synchronize()
     require([x.dtype for x in got] == [dt] * 3 + [torch.float32] * 3, "wkv6_bwd dtypes")
@@ -3148,13 +3230,13 @@ def phase_recurrent_train():
         (("rglru_scan_bwd", "recurrentgemma-9b", f"bf16 a/b/g (the calibration's dtype), "
           f"B {B} x {S}, R 4096"), merge([rglru_bwd_case("bfloat16")]), (None, "")),
         (("wkv6_bwd", "rwkv6-7b", f"bf16, B {B} x {S}, 64 heads of 64"),
-         merge([wkv6_bwd_case("rwkv6-7b", B, S, 64, 64)]), ("slice", "rwkv6-7b")),
+         merge([wkv6_bwd_case("rwkv6-7b", *WKV_BWD_SHAPES["rwkv6-7b"])]), ("slice", "rwkv6-7b")),
         (("wkv6_bwd", "rwkv6-7b", f"N 32: bf16, B {B} x {S}, 128 heads of 32"),
-         merge([wkv6_bwd_case("N 32", B, S, 128, 32)]), (None, "")),
+         merge([wkv6_bwd_case("N 32", *WKV_BWD_SHAPES["N 32"])]), (None, "")),
         (("wkv6_bwd", "rwkv6-7b", f"S 300 (a partial last chunk), B {B}, 64 heads of 64"),
-         merge([wkv6_bwd_case("partial chunk", B, 300, 64, 64)]), (None, "")),
+         merge([wkv6_bwd_case("partial chunk", *WKV_BWD_SHAPES["partial chunk"])]), (None, "")),
         (("wkv6_bwd", "rwkv6-7b 100M", "the ~100M config's shape: fp32, B 8 x 256, 32 heads "
-          "of 16 (padded to 32)"), merge([wkv6_bwd_case("100M", 8, 256, 32, 16, "float32")]),
+          "of 16 (padded to 32)"), merge([wkv6_bwd_case("100M", *WKV_BWD_SHAPES["100M"])]),
          ("100M", "rwkv6-7b")),
     ]
     t_a = time.perf_counter() - t_phase

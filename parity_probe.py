@@ -1,8 +1,23 @@
 #!/usr/bin/env python3
 """Which parity measures the kernels need, on one H100.
 
-    python3 parity_probe.py [--kernel attention|wkv6|flash_bwd]
+    python3 parity_probe.py [--kernel attention|wkv6|flash_bwd|recurrent_bwd]
                             [NAME:SWITCH=VALUE,SWITCH=VALUE ...]
+
+``--kernel recurrent_bwd`` builds K3's and K4's backward kernels and their
+forward kernels once per variant (with no arguments: the shipped build and
+``WKV_BWD_UNDONE``, K4′ with 1 and 2 tf32 passes, ``WKV_BWD_TF32_PASSES``;
+``NAME:SRC=DIR`` builds DIR's copy of the sources, a parent commit's, and
+calls its backwards through PR 23's C entry points, ``legacy_*``) and
+prints, per variant: ptxas's report; on ``chip_smoke.py`` phase 19 (a)'s
+cases, K3′'s outputs bitwise against the first variant's and, for a
+shipped-API variant, its plan and its ring against its register kernel,
+and K4′'s limit ratio per output (dr, dk, dv, dlogw, du, dstate0) against
+the float64 plain version within ``chip_smoke.wkv_bwd_limits``; for both,
+whether two calls give the same bits, the time (the variants in order, then
+in reverse) and each launch's device time (``torch.profiler``); then K3's
+and K4's forward on phase 3's inputs, their times in turns and whether
+their outputs have the first variant's bits (~2 min for four variants).
 
 ``--kernel flash_bwd`` builds K1's backward once per variant of its bf16
 parity switches (with no arguments: the shipped build and ``BWD_VARIANTS``:
@@ -76,14 +91,20 @@ WKV_UNDONE = {"one_pass": {"WKV_TF32_PASSES": 1}, "two_passes": {"WKV_TF32_PASSE
 BWD_VARIANTS = {f"parts{n}_{'fresh' if fresh else 'chained'}":
                 {"PARITY_BWD_PARTS": n, "PARITY_BWD_FRESH": fresh}
                 for n in (1, 2, 3) for fresh in (1, 0)}
+# K4′ with fewer tf32 passes per product than it ships with
+WKV_BWD_UNDONE = {"bwd_one_pass": {"WKV_BWD_TF32_PASSES": 1},
+                  "bwd_two_passes": {"WKV_BWD_TF32_PASSES": 2}}
 # per mode: the kernels built, the models whose activations hold them, the
 # default variants besides the shipped build
 MODES = {"attention": (("flash_attention", "decode_attention"),
                        ("gemma2-2b", "recurrentgemma-9b"), UNDONE),
          "wkv6": (("wkv6",), ("rwkv6-7b",), WKV_UNDONE),
-         "flash_bwd": (("flash_attention_bwd", "flash_attention"), (), BWD_VARIANTS)}
+         "flash_bwd": (("flash_attention_bwd", "flash_attention"), (), BWD_VARIANTS),
+         "recurrent_bwd": (("rglru_scan_bwd", "wkv6_bwd", "rglru_scan", "wkv6"), (),
+                           WKV_BWD_UNDONE)}
 # the cached loader of each kernel's library: (module, function)
-LOADERS = {"flash_attention_bwd": ("flash_attention", "_lib_bwd")}
+LOADERS = {"flash_attention_bwd": ("flash_attention", "_lib_bwd"),
+           "rglru_scan_bwd": ("rglru_scan", "_lib_bwd"), "wkv6_bwd": ("wkv6", "_lib_bwd")}
 MODE = "attention"
 KERNELS, ARCHS = MODES[MODE][:2]
 
@@ -231,7 +252,9 @@ def passes_ms(fn, reps: int = 3) -> dict:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return {e.key[:60]: e.device_time_total / 1e3 / reps for e in prof.key_averages()
+    def short(key):   # "void ns::(anonymous namespace)::name<T, 64>(args)" → "name<T, 64>"
+        return re.sub(r"^void |\w+::|\(anonymous namespace\)::", "", key).split("(")[0][:80]
+    return {short(e.key): e.device_time_total / 1e3 / reps for e in prof.key_averages()
             if e.device_time_total > 0}
 
 
@@ -279,6 +302,135 @@ def bwd_cases(variants) -> dict:
     return out
 
 
+def legacy_rglru_bwd(a, b, s0, g, g_last):
+    """K3′ through PR 23's C entry point (one thread a channel, a state
+    stored every 16 steps), for a SRC variant built from that source."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import rglru_scan as rg
+    fn = rg._lib_bwd().rglru_scan_bwd
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    B, S, R = a.shape
+    da, db, ds0 = torch.empty_like(a), torch.empty_like(b), torch.empty_like(s0)
+    starts = torch.empty((B, -(-S // 16), R), dtype=torch.float32, device=a.device)
+    _build.check(fn(*(t.data_ptr() for t in (a, b, s0, g, g_last, da, db, ds0, starts)),
+                    B, S, R, rg.DTYPES[a.dtype], torch.cuda.current_stream().cuda_stream),
+                 "legacy rglru_scan_bwd")
+    return da, db, ds0
+
+
+def legacy_wkv6_bwd(r, k, v, logw, u, s0, do, ds):
+    """K4′ through PR 23's C entry point (scratch of every chunk's state and
+    gradient, one block a chunk), for a SRC variant built from that source;
+    heads of fewer than 32 padded as the wrapper pads them."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import wkv6 as wk
+    N = r.shape[-1]
+    if N not in wk.HEAD_SIZES:
+        grads = legacy_wkv6_bwd(*wk.pad_heads(wk.kernel_head_size(N), r, k, v, logw, u, s0,
+                                              do, ds))
+        return (*(x[..., :N].contiguous() for x in grads[:5]),
+                grads[5][..., :N, :N].contiguous())
+    fn = wk._lib_bwd().wkv6_bwd
+    fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    B, S, H, N = r.shape
+    C = -(-S // wk.CHUNK)
+    dr, dk, dv = torch.empty_like(r), torch.empty_like(k), torch.empty_like(v)
+    dlogw, du, ds0 = torch.empty_like(logw), torch.empty_like(u), torch.empty_like(s0)
+    states = torch.empty((B, H, C, N, N), dtype=torch.float32, device=r.device)
+    gouts = torch.empty_like(states)
+    du_part = torch.empty((B, H, C, N), dtype=torch.float32, device=r.device)
+    _build.check(fn(*(t.data_ptr() for t in (r, k, v, logw, u, s0, do, ds, dr, dk, dv, dlogw,
+                                             du, ds0, states, gouts, du_part)),
+                    B, S, H, N, wk.DTYPES[r.dtype], torch.cuda.current_stream().cuda_stream),
+                 "legacy wkv6_bwd")
+    return dr, dk, dv, dlogw, du, ds0
+
+
+def recurrent_cases(variants) -> dict:
+    """Per variant: K3′ at phase 19 (a)'s two cases, its outputs bitwise
+    against the first variant's and, where the variant plans a ring,
+    against its own register kernel; K4′ at phase 19 (a)'s four cases, each
+    output's limit ratio (``chip_smoke.wkv_bwd_limits``) and whether two
+    calls give the same bits; the times of both, the variants in order, then
+    in reverse, and each launch's device time; then K3's and K4's forward on
+    phase 3's inputs, their times in turns and whether their outputs have
+    the first variant's bits.  A SRC variant's backwards run through PR
+    23's entry points (``legacy_*``)."""
+    import torch
+    from repro_torch.kernels import rglru_scan as rg
+    from repro_torch.kernels import wkv6 as wk
+
+    def runner(name, kernel):
+        if "SRC" in variants[name]:
+            return legacy_rglru_bwd if kernel == "rglru_scan_bwd" else legacy_wkv6_bwd
+        return rg.rglru_scan_bwd if kernel == "rglru_scan_bwd" else wk.wkv6_bwd
+    cases = [(f"K3′ {dtype}", "rglru_scan_bwd", lambda dtype=dtype: cs.rglru_bwd_inputs(dtype))
+             for dtype in ("float32", "bfloat16")]
+    cases += [(f"K4′ {label}", "wkv6_bwd", lambda shape=shape: cs.wkv6_bwd_inputs(*shape))
+              for label, shape in cs.WKV_BWD_SHAPES.items()]
+    out = {name: {} for name in variants}
+    for label, kernel, make in cases:
+        args = make()
+        checked = kernel == "wkv6_bwd"
+        if checked:
+            want = wk.plain_grad(*args, acc=torch.float64)
+            limits = cs.wkv_bwd_limits(*args)
+        first = None
+        for name in variants:
+            use(name)
+            run = runner(name, kernel)
+            got, again = run(*args), run(*args)
+            plan = None if checked or "SRC" in variants[name] else rg.last_bwd_plan
+            first = got if first is None else first
+            rec = out[name][label] = dict(
+                bitwise_twice=all(torch.equal(x, y) for x, y in zip(got, again)),
+                bitwise_first=all(torch.equal(x, y) for x, y in zip(got, first)))
+            if checked:
+                rec["limit_ratio"], rec["ratios"] = cs.held_bwd(got, want, limits)[1:]
+            elif "SRC" not in variants[name]:
+                regs = rg.rglru_scan_bwd(*args, use=rg.REGISTER)
+                rec["plan"] = plan._asdict()
+                rec["ring_equals_register"] = all(torch.equal(x, y) for x, y in zip(got, regs))
+            del got, again
+        if checked:
+            del want, limits
+        for order in (list(variants), list(variants)[::-1]):
+            for name in order:
+                use(name)
+                run = runner(name, kernel)
+                out[name][label].setdefault("ms", []).append(cs.cuda_ms(lambda: run(*args), 5))
+        for name in variants:
+            use(name)
+            run = runner(name, kernel)
+            out[name][label]["launches_ms"] = passes_ms(lambda: run(*args))
+            print(f"[case] {label} {name} {json.dumps(out[name][label])}", flush=True)
+        del args, first
+        torch.cuda.empty_cache()
+    forward = [("K3 fp32", rg.rglru_scan, lambda: cs.rglru_inputs("float32")),
+               ("K3 bf16", rg.rglru_scan, lambda: cs.rglru_inputs("bfloat16")),
+               ("K4 rwkv6-7b", wk.wkv6,
+                lambda: cs.wkv6_inputs(len(cs.PROMPTS), max(cs.PROMPTS), 64, 64, cs.PROMPTS)),
+               ("K4 calibration", wk.wkv6, lambda: cs.wkv6_inputs(4, 256, 2, 32, (256,) * 4))]
+    for label, fn, make in forward:
+        args, first = make(), None
+        for name in variants:
+            use(name)
+            got = fn(*args)
+            first = got if first is None else first
+            out[name][label] = dict(bitwise_first=all(torch.equal(x, y)
+                                                      for x, y in zip(got, first)))
+        for order in (list(variants), list(variants)[::-1]):
+            for name in order:
+                use(name)
+                out[name][label].setdefault("ms", []).append(cs.cuda_ms(lambda: fn(*args), 10))
+        for name in variants:
+            print(f"[case] {label} {name} {json.dumps(out[name][label])}", flush=True)
+        del args, first
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -300,7 +452,7 @@ def main() -> int:
     for arch in ARCHS:
         for name, rec in model_checks(arch, variants).items():
             result[name][arch] = rec
-    cases = bwd_cases if MODE == "flash_bwd" else kernel_cases
+    cases = {"flash_bwd": bwd_cases, "recurrent_bwd": recurrent_cases}.get(MODE, kernel_cases)
     for name, rec in cases(variants).items():
         result[name]["cases"] = rec
     print(json.dumps(result))

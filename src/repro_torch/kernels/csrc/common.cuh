@@ -1,6 +1,7 @@
 // Helpers shared by the kernels: element conversion, tile loads, the PTX
 // wrappers (cp.async, ldmatrix, mma.sync) of the tensor-core attention
-// kernels, and the mbarrier and bulk-copy wrappers of the RG-LRU ring.
+// kernels, the tf32 products of the WKV kernels, and the mbarrier and
+// bulk-copy wrappers of the RG-LRU ring.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -384,6 +385,43 @@ __device__ __forceinline__ void pv_step(const float (&s)[NT][4], float (&acc)[NO
                           [&](int, int e) { return vb[2 * h + e]; });
     }
   }
+}
+
+// ---- tf32 tensor-core products of fp32 operands (K4 and its backward) ----
+
+// x as its tf32 rounding (big) and the tf32 rounding of what that leaves.
+__device__ __forceinline__ void tf32_split(float x, uint32_t& big, uint32_t& small) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(big) : "f"(x));
+  const float rest = x - __uint_as_float(big);
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(small) : "f"(rest));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// An A fragment (four fp32 values) split into its tf32 parts.
+struct FragA {
+  uint32_t big[4], small[4];
+  __device__ __forceinline__ explicit FragA(const float (&x)[4]) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) tf32_split(x[i], big[i], small[i]);
+  }
+};
+// d = a · b from zero: the accumulator's zeros are constants, not moves
+__device__ __forceinline__ void mma_tf32_fresh(float (&d)[4], const uint32_t (&a)[4],
+                                               uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %11, %12, %13};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(0.f), "f"(0.f),
+        "f"(0.f), "f"(0.f));
 }
 
 // ---- mbarriers and one-dimensional bulk copies (the RG-LRU ring) ----

@@ -109,40 +109,6 @@ struct Smem {
   float u[N];                 // the head's bonus u
 };
 
-__device__ __forceinline__ void tf32_split(float x, uint32_t& big, uint32_t& small) {
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(big) : "f"(x));
-  const float rest = x - __uint_as_float(big);
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(small) : "f"(rest));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// An A fragment (four fp32 values) split into its tf32 parts.
-struct FragA {
-  uint32_t big[4], small[4];
-  __device__ __forceinline__ explicit FragA(const float (&x)[4]) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) tf32_split(x[i], big[i], small[i]);
-  }
-};
-// d = a · b from zero: the accumulator's zeros are constants, not moves
-__device__ __forceinline__ void mma_tf32_fresh(float (&d)[4], const uint32_t (&a)[4],
-                                               uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %11, %12, %13};\n"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(0.f), "f"(0.f),
-        "f"(0.f), "f"(0.f));
-}
-
 // acc += a · b for one k8 step: a (16 x 8) given as its four fp32 fragment
 // values, b (8 x 8) as its two; the product is summed from zero in PASSES
 // tf32 products, smallest first, and added to acc in IEEE fp32.  With B_EXACT, b holds bf16 values, which tf32 represents exactly:

@@ -11,7 +11,10 @@ launch and ``launches`` counts the launches.
 
 The backward kernel (``csrc/rglru_scan_bwd.cu``) computes the gradient of
 the same function and replaces no TPU kernel (the reference differentiates
-its scan with XLA); ``launches_bwd`` counts its launches.
+its scan with XLA).  It has the same two variants, both bitwise equal to
+:func:`plain_grad`'s sequential fp32 walk: :func:`plan_bwd` chooses one,
+``last_bwd_plan`` holds the plan of the latest launch and ``launches_bwd``
+counts the launches.
 :class:`RGLRUScan` ties the two together for autograd; :func:`plain_grad`
 is the backward's plain version.
 """
@@ -45,7 +48,8 @@ THREADS_PER_SM = 2048
 
 launches = 0
 launches_bwd = 0
-BWD_CHUNK = 16                  # steps between the states the backward stores (CH)
+BWD_CHUNK = 16                  # steps between the states the register backward stores (CH)
+BWD_TILES = 3                   # a, b and g a stage of the backward's ring
 
 
 class Plan(NamedTuple):
@@ -74,6 +78,7 @@ class Plan(NamedTuple):
 
 REGISTER = Plan("register", 128, 16, 1)
 last_plan: Optional[Plan] = None
+last_bwd_plan: Optional[Plan] = None
 
 
 @functools.lru_cache(maxsize=1024)   # a lookup, not a plan, on the host's path
@@ -116,6 +121,27 @@ def plan(B: int, S: int, R: int, itemsize: int, sm_count: int = H100_SMS,
     T = max(1, min(MAX_STEPS, S, STAGE_BYTES // (2 * C * itemsize)))
     stage = 2 * T * C * itemsize
     room = min(SMEM_PER_BLOCK, SMEM_PER_SM // max(per_sm, 1) - SMEM_RESERVED) - BARRIER_BYTES
+    want = RING_BYTES_PER_SM // max(per_sm, 1) // stage
+    P = min(MAX_STAGES, max(-(-S // T), 1), max(2, want), max(1, room // stage))
+    return Plan("ring", C, T, P)
+
+
+@functools.lru_cache(maxsize=1024)
+def plan_bwd(B: int, S: int, R: int, itemsize: int, sm_count: int = H100_SMS,
+             aligned: bool = True) -> Plan:
+    """The variant and shape of one backward call: :func:`plan`'s variant,
+    C and T, and P stages of ``BWD_TILES`` tiles (a, b and g), chosen as
+    :func:`plan` chooses them, beside each block's fp32 area of T x C for
+    the states of the stage being walked back."""
+    fwd = plan(B, S, R, itemsize, sm_count, aligned)
+    if fwd.variant == "register":
+        return REGISTER
+    C, T = fwd.channels, fwd.steps
+    per_sm = min(-(-(B * -(-R // C)) // sm_count),
+                 BLOCKS_PER_SM, THREADS_PER_SM // (C + 32 * PRODUCERS))
+    stage = BWD_TILES * T * C * itemsize
+    room = (min(SMEM_PER_BLOCK, SMEM_PER_SM // max(per_sm, 1) - SMEM_RESERVED)
+            - BARRIER_BYTES - 4 * T * C)
     want = RING_BYTES_PER_SM // max(per_sm, 1) // stage
     P = min(MAX_STAGES, max(-(-S // T), 1), max(2, want), max(1, room // stage))
     return Plan("ring", C, T, P)
@@ -178,19 +204,21 @@ def _lib_bwd() -> ctypes.CDLL:
     lib = _build.library("rglru_scan_bwd")
     fn = lib.rglru_scan_bwd
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     return lib
 
 
 def rglru_scan_bwd(a: torch.Tensor, b: torch.Tensor, s0: torch.Tensor, g: torch.Tensor,
-                   g_last: Optional[torch.Tensor] = None
+                   g_last: Optional[torch.Tensor] = None, use: Optional[Plan] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch the backward kernel: the gradients (da, db, ds0) of
     :func:`rglru_scan` given ``g`` (B, S, R), the gradient of its states,
     and ``g_last`` (B, R) fp32, that of the last one (None: zero).  Operands
     as for the forward, ``g`` in a's dtype; da and db come back in a's dtype,
-    ds0 in fp32.  The fp32 states are recomputed from a, b and s0."""
-    global launches_bwd
+    ds0 in fp32.  The fp32 states are recomputed from a, b and s0.  ``use``
+    overrides :func:`plan_bwd` (for measurements; a plan the kernel cannot
+    take raises)."""
+    global launches_bwd, last_bwd_plan
     if g_last is None:
         g_last = torch.zeros_like(s0)
     if a.dim() != 3 or b.shape != a.shape or g.shape != a.shape \
@@ -206,14 +234,19 @@ def rglru_scan_bwd(a: torch.Tensor, b: torch.Tensor, s0: torch.Tensor, g: torch.
                              f"card of a, got {t.device} {t.dtype}")
     B, S, R = a.shape
     a, b, s0, g, g_last = (t.contiguous() for t in (a, b, s0, g, g_last))
+    p = use or plan_bwd(B, S, R, a.element_size(), _build.sm_count(a.device.index),
+                        aligned=all(t.data_ptr() % 16 == 0 for t in (a, b, g)))
     da, db, ds0 = torch.empty_like(a), torch.empty_like(b), torch.empty_like(s0)
-    starts = torch.empty((B, -(-S // BWD_CHUNK), R), dtype=torch.float32, device=a.device)
+    every = BWD_CHUNK if p.variant == "register" else p.steps   # steps between stored states
+    starts = torch.empty((B, -(-S // every), R), dtype=torch.float32, device=a.device)
     err = _lib_bwd().rglru_scan_bwd(
         a.data_ptr(), b.data_ptr(), s0.data_ptr(), g.data_ptr(), g_last.data_ptr(),
         da.data_ptr(), db.data_ptr(), ds0.data_ptr(), starts.data_ptr(), B, S, R,
-        DTYPES[a.dtype], torch.cuda.current_stream(a.device).cuda_stream)
-    _build.check(err, "rglru_scan_bwd")
+        DTYPES[a.dtype], VARIANTS[p.variant], p.channels, p.steps, p.stages,
+        torch.cuda.current_stream(a.device).cuda_stream)
+    _build.check(err, f"rglru_scan_bwd ({p})")
     launches_bwd += 1
+    last_bwd_plan = p
     return da, db, ds0
 
 

@@ -7,10 +7,11 @@ whole 32-step chunks (``plan_segments``) and runs up to three launches a
 call; ``launches`` counts one per call.
 
 The backward kernel (``csrc/wkv6_bwd.cu``) computes the gradient of the same
-function in the chunked form and replaces no TPU kernel (the reference
-differentiates its chunked WKV with XLA); ``launches_bwd`` counts one per
-call (four launches).  :class:`WKV6` ties the two together for autograd;
-:func:`plain_grad` is the backward's plain version.
+function in the chunked form, in the same segments, and replaces no TPU
+kernel (the reference differentiates its chunked WKV with XLA);
+``launches_bwd`` counts one per call (up to four launches).  :class:`WKV6`
+ties the two together for autograd; :func:`plain_grad` is the backward's
+plain version.
 """
 from __future__ import annotations
 
@@ -143,7 +144,7 @@ def _lib_bwd() -> ctypes.CDLL:
     lib = _build.library("wkv6_bwd")
     fn = lib.wkv6_bwd
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     return lib
 
 
@@ -155,8 +156,8 @@ def wkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.Tens
     gradient of its output, and ``dstate`` (B, H, N, N) fp32, that of its
     final state (None: zero).  Operands as for the forward; dr, dk and dv
     come back in r's dtype, the others in fp32.  The states at the chunks'
-    starts are recomputed from state0 (scratch of B·H·ceil(S/32)·N² fp32
-    twice, with the gradients at the chunks' ends)."""
+    starts are recomputed from state0, in the forward's segments
+    (``plan_segments``), into scratch of B·H·ceil(S/32)·N² fp32."""
     global launches_bwd
     _check_call("wkv6_bwd", r, k, v, logw, u, state0)
     B, S, H, N = r.shape
@@ -171,18 +172,30 @@ def wkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.Tens
             or dstate.device != r.device:
         raise ValueError(f"wkv6_bwd: dout {tuple(dout.shape)} {dout.dtype} and dstate "
                          f"{tuple(dstate.shape)} {dstate.dtype} do not match r and state0")
-    r, k, v, logw, u, state0, dout, dstate = (
-        t.contiguous() for t in (r, k, v, logw, u, state0, dout, dstate))
+    # the kernel copies 16 bytes at a time: a view that starts off that
+    # alignment is copied
+    r, k, v, logw, state0, dout, dstate = (
+        t if t.is_contiguous() and t.data_ptr() % 16 == 0
+        else t.clone(memory_format=torch.contiguous_format)
+        for t in (r, k, v, logw, state0, dout, dstate))
+    u = u.contiguous()
     C = -(-S // CHUNK)
+    P, Lc = plan_segments(B, H, S)
     dr, dk, dv = torch.empty_like(r), torch.empty_like(k), torch.empty_like(v)
     dlogw, du, dstate0 = torch.empty_like(logw), torch.empty_like(u), torch.empty_like(state0)
-    states = torch.empty((B, H, C, N, N), dtype=torch.float32, device=r.device)
-    gouts = torch.empty_like(states)
-    du_part = torch.empty((B, H, C, N), dtype=torch.float32, device=r.device)
+
+    def scratch(*shape):
+        return torch.empty((B, H) + shape, dtype=torch.float32, device=r.device)
+    # every chunk's state; each segment's state and gradient contributions,
+    # then those entering and leaving it; its decay; its part of du
+    states = scratch(C, N, N)
+    seg_state, seg_grad = scratch(P - 1, N, N), scratch(P - 1, N, N)
+    seg_decay, du_part = scratch(P, N), scratch(P, N)
     err = _lib_bwd().wkv6_bwd(
         *(t.data_ptr() for t in (r, k, v, logw, u, state0, dout, dstate, dr, dk, dv, dlogw,
-                                 du, dstate0, states, gouts, du_part)),
-        B, S, H, N, DTYPES[r.dtype], torch.cuda.current_stream(r.device).cuda_stream)
+                                 du, dstate0, states, seg_state, seg_grad, seg_decay,
+                                 du_part)),
+        B, S, H, N, DTYPES[r.dtype], P, Lc, torch.cuda.current_stream(r.device).cuda_stream)
     _build.check(err, "wkv6_bwd")
     launches_bwd += 1
     return dr, dk, dv, dlogw, du, dstate0

@@ -1011,3 +1011,75 @@ def test_wkv6_kernels_run_small_heads_padded(cuda, dtype, N):
     torch.testing.assert_close(out.float(), want_out.float(), atol=2e-4, rtol=rtol)
     torch.testing.assert_close(state, want_state, atol=2e-4, rtol=1e-3)
     assert held_bwd(got, wk.plain_grad(*args, acc=torch.float64)) <= 1.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [1, 31, 300, 2048])
+@pytest.mark.parametrize("N", wk.HEAD_SIZES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_wkv6_backward_kernel_gives_the_same_bits_twice(cuda, dtype, N, S):
+    """K4′ over two calls, in one segment (S ≤ 32: one chunk) and in several
+    (``wk.plan_segments`` cuts 300 and 2048 steps at B·H = 8): the same
+    bits, as the trainer's bitwise restart needs, and within held_bwd of the
+    float64 plain version."""
+    args = wkv_grad_inputs(16, 2, S, 4, N, dtype, cuda)
+    assert (wk.plan_segments(2, 4, S)[0] > 1) == (S > 32)
+    got = wk.wkv6_bwd(*args)
+    assert all(torch.equal(x, y) for x, y in zip(got, wk.wkv6_bwd(*args)))
+    assert held_bwd(got, wk.plain_grad(*args, acc=torch.float64)) <= 1.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N", wk.HEAD_SIZES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_wkv6_backward_kernel_in_one_long_segment(cuda, dtype, N):
+    """At B·H = 2048 the planner takes one segment of all ten chunks of 300
+    steps: the kernel walks them in one block, the same bits twice, within
+    held_bwd of the float64 plain version."""
+    args = wkv_grad_inputs(17, 16, 300, 128, N, dtype, cuda)
+    assert wk.plan_segments(16, 128, 300) == (1, 10)
+    got = wk.wkv6_bwd(*args)
+    assert all(torch.equal(x, y) for x, y in zip(got, wk.wkv6_bwd(*args)))
+    assert held_bwd(got, wk.plain_grad(*args, acc=torch.float64)) <= 1.0
+
+
+def chip_smoke():
+    """``chip_smoke.py`` (at the repository root) as a module, for its
+    limits."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,N", [("bfloat16", 64), ("float32", 32), ("float32", 16)])
+def test_wkv6_backward_kernel_within_phase_19_limits(cuda, dtype, N):
+    """K4′ at a small shape within ``chip_smoke.py`` phase 19's limits, which
+    its tf32 arithmetic and its segments are derived into
+    (``wkv_bwd_limits``)."""
+    cs = chip_smoke()
+    args = wkv_grad_inputs(18, 2, 300, 4, N, dtype, cuda)
+    got = wk.wkv6_bwd(*args)
+    want = wk.plain_grad(*args, acc=torch.float64)
+    assert cs.held_bwd(got, want, cs.wkv_bwd_limits(*args))[1] <= 1.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,R", [(4, 2048, 4096), (1, 1000, 4096), (3, 333, 520)])
+def test_rglru_backward_ring_equals_the_register_kernel(cuda, dtype, B, S, R):
+    """K3′'s ring (at recurrentgemma-9b's training shape, at a batch of one
+    on blocks of 32 channels, and with a partial last block and stage) and
+    its register kernel give the same bits, which are the plain version's
+    fp32 walk rounded to a's type."""
+    args = rglru_grad_inputs(19, B, S, R, dtype, cuda)
+    got = rg.rglru_scan_bwd(*args)
+    assert rg.last_bwd_plan.variant == "ring"
+    register = rg.rglru_scan_bwd(*args, use=rg.REGISTER)
+    assert all(torch.equal(x, y) for x, y in zip(got, register))
+    plain = rg.plain_grad(*args)
+    assert all(torch.equal(x, y.to(x.dtype)) for x, y in zip(got, plain))

@@ -159,3 +159,40 @@ def test_plan_follows_the_card():
     assert rg.plan(1, 4700, R9B, 4, 66).channels == 32
     assert rg.plan(2, 4700, R9B, 4, 66).channels == 128
     assert rg.plan(2, 4700, R9B, 4, SMS).channels == 32
+
+
+def bwd_smem(p, itemsize):
+    """Dynamic shared memory of a backward ring block: the barriers, P
+    stages of a, b and g, and the fp32 states of the stage walked back."""
+    return (rg.BARRIER_BYTES + rg.BWD_TILES * p.stages * p.steps * p.channels * itemsize
+            + 4 * p.steps * p.channels)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,R", [(4, 2048, R9B), (1, 2048, R9B), (8, 256, 1024), (3, 333, 520),
+                                   (2, 1, 4096), (2, 256, 256), (4, 2048, 100)])
+def test_backward_plan_takes_the_forwards_variant_and_ring_shape(dtype, B, S, R):
+    """K3′'s planner takes K3's variant, C and T, and P stages of three
+    tiles that fit a block's shared memory and, with the blocks an SM holds,
+    the SM's."""
+    itemsize = ITEMSIZE[dtype]
+    fwd, bwd = rg.plan(B, S, R, itemsize, SMS), rg.plan_bwd(B, S, R, itemsize, SMS)
+    assert (bwd.variant, bwd.channels, bwd.steps) == (fwd.variant, fwd.channels, fwd.steps)
+    if bwd.variant == "register":
+        assert bwd == rg.REGISTER
+        return
+    assert 1 <= bwd.stages <= min(rg.MAX_STAGES, max(-(-S // bwd.steps), 1))
+    smem = bwd_smem(bwd, itemsize)
+    per_sm = min(-(-(B * -(-R // bwd.channels)) // SMS), rg.BLOCKS_PER_SM,
+                 rg.THREADS_PER_SM // bwd.threads())
+    assert smem <= rg.SMEM_PER_BLOCK
+    assert per_sm * (smem + rg.SMEM_RESERVED) <= rg.SMEM_PER_SM
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_backward_ring_at_the_training_shape(dtype):
+    """recurrentgemma-9b's training shape (B 4 × 2048): the ring, 128
+    channels a block, two stages (as K3's forward there)."""
+    p = rg.plan_bwd(4, 2048, R9B, ITEMSIZE[dtype], SMS)
+    assert p == rg.Plan("ring", 128, 32 if dtype == "float32" else 64, 2)
+    assert rg.plan_bwd(4, 2048, R9B, ITEMSIZE[dtype], SMS, aligned=False) == rg.REGISTER

@@ -116,8 +116,23 @@ def test_port_imports_without_jax():
                    env={"PYTHONPATH": str(REPO / "src"), "PATH": "/usr/bin:/bin"})
 
 
-IMPORT = re.compile(r"^\s*(import\s+(jax|repro)\b(?!_)|from\s+(jax|repro)(\.|\s)(?!_))",
-                    re.M)
+# an import of jax or repro: a statement (also in a list, ``import os,
+# repro``), or a module named by a string (importlib, __import__)
+IMPORT = re.compile(r"^\s*(import\s+([\w.]+(\s+as\s+\w+)?\s*,\s*)*(jax|repro)\b(?!_)"
+                    r"|from\s+(jax|repro)(\.|\s)(?!_))"
+                    r"|(import_module|__import__)\(\s*[\'\"](jax|repro)[.\'\"]", re.M)
+
+
+def test_the_import_guard_sees_every_form():
+    caught = ["import repro", "import repro.kernels.ref as r", "    import jax.numpy as jnp",
+              "from repro.models import build_model", "from jax import numpy",
+              "import os, repro", "import numpy as np, jax",
+              "importlib.import_module('repro.kernels')", '__import__("jax")']
+    passed = ["import repro_torch", "from repro_torch.kernels import wkv6",
+              "import os, repro_torch", "importlib.import_module('repro_torch.models')",
+              "# the reference (repro) differentiates with jax"]
+    assert [bool(IMPORT.search(line)) for line in caught] == [True] * len(caught)
+    assert [bool(IMPORT.search(line)) for line in passed] == [False] * len(passed)
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py"))
