@@ -189,6 +189,18 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 both families' ~100M configs through ``launch/train.py``
                 for 200 steps (a nat down at least), and rwkv6-7b's killed
                 at step 30 and restored bitwise;
+ 20. cost     — cost accounting (``launch/dryrun.py``): (a) the dry-run
+                over all 10 archs × 4 shapes on meta tensors on this host,
+                32 OK and 8 SKIP, none FAIL, its roofline table (accounting
+                on ``hw.GPU_H100``'s data-sheet rates) and seconds; (b)
+                gemma2-2b's prefill (4 × 2048) and decode (8 at 4096) cells
+                counted on meta, then run on the card through K1 and K2:
+                ``argument_bytes`` exactly the bytes the operands requested
+                of the allocator, the card's peak within COST_PEAK_RATIO of
+                the meta peak, launches exact, logits finite, the counted
+                FLOPs beside the step's time; (c) the paper's Fig. 9 and
+                Fig. 10 (``launch/figures.py``) measured on the card, their
+                JSON of the reference's keys;
 then a ``kernels`` JSON line (``hook_launches``: phase 11's,
 ``plan_hook_launches``: phase 12's; phase 18's and 19's records name the run
 their ``launches`` were counted on), and last the ``ok`` JSON line.
@@ -209,6 +221,8 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+
+from repro_torch.kernels import costs  # noqa: E402  (the kernels' formulas)
 
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core rate
 PEAK_FP32_FLOPS = 67e12    # H100 SXM fp32 rate outside the tensor cores
@@ -479,6 +493,13 @@ def bound(flops: float, nbytes: float, peak_flops: float = PEAK_BF16_FLOPS):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def bound_of(cost):
+    """``bound`` of a kernel call's ``kernels.costs.Cost``, its operations
+    at the peak rate of their type."""
+    peak = {"bf16": PEAK_BF16_FLOPS, "fp32": PEAK_FP32_FLOPS, "int8": PEAK_INT8_OPS}
+    return bound(cost.flops, cost.bytes, peak[cost.peak])
+
+
 def counters():
     from repro_torch.kernels import (decode_attention, flash_attention, int8_matmul,
                                      rglru_scan, wkv6)
@@ -600,10 +621,9 @@ def flash_case(arch: str, H: int, K: int, window: int, softcap: float, d: int = 
         mask &= pos[None, :] > pos[:, None] - window
     mask = (mask[None] & (pos[None, None, :] < lengths[:, None, None]))[:, None]
     # work these inputs need: valid query rows × keys in their mask
-    pairs = sum(sum(min(i + 1, window or i + 1) for i in range(n)) for n in prompts)
-    flops = 4.0 * d * H * pairs
-    nbytes = 2.0 * d * B * S * (2 * H + 2 * K)       # q, out, k, v once
-    ms_bound, by = bound(flops, nbytes)
+    pairs = costs.attention_pairs(S, S, window=window, lengths=prompts, padded_rows=False)
+    ms_bound, by = bound_of(costs.flash_attention(
+        B, H, K, S, S, d, q.element_size(), window=window, softcap=softcap, pairs=pairs))
     res = dict(max_abs_err=err, limit_ratio=ratio, fault_ratio=fault_ratio,
                ms=cuda_ms(lambda: fa.flash_attention(q, k, v, **kw), 10),
                plain_ms=cuda_ms(lambda: fa.plain(q, k, v, **kw), 3),
@@ -676,9 +696,9 @@ def decode_case(arch: str, H: int, K: int, T: int, window: int, softcap: float,
     require(all(r > 1.0 for r in fault_ratio.values()),
             f"decode_attention check rejects planted faults {fault_ratio}")
     mask = decode_mask(lengths, T, window=window, q_pos=q_pos, slot_pos=slot_pos)
-    live = int(mask.sum())
-    nbytes = 2.0 * (2 * live * K * d + 2 * B * H * d)   # live K/V rows, q, out
-    ms_bound, by = bound(4.0 * d * H * live, nbytes)
+    ms_bound, by = bound_of(costs.decode_attention(
+        B, H, K, T, d, q.element_size(), window=window, softcap=softcap,
+        live=int(mask.sum())))
     res = dict(max_abs_err=err, limit_ratio=ratio, fault_ratio=fault_ratio,
                ms=cuda_ms(lambda: da.decode_attention(q, k, v, lengths, **kw), 50),
                plain_ms=cuda_ms(lambda: da.plain(q, k, v, lengths, **kw), 10),
@@ -720,9 +740,8 @@ def flash_cross_case(label: str, B: int, H: int, Sq: int, Skv: int, d: int):
     fault_ratio = {name: held(out, want)[1] for name, out in faults.items()}
     require(all(r > 1.0 for r in fault_ratio.values()),
             f"flash_attention check rejects planted faults {fault_ratio}")
-    flops = 4.0 * d * H * B * Sq * Skv
-    nbytes = 2.0 * d * B * H * (2 * Sq + 2 * Skv)      # q, out, k, v once
-    ms_bound, by = bound(flops, nbytes)
+    ms_bound, by = bound_of(costs.flash_attention(B, H, H, Sq, Skv, d, q.element_size(),
+                                                  causal=False))
     res = dict(max_abs_err=err, limit_ratio=ratio, fault_ratio=fault_ratio,
                ms=cuda_ms(lambda: fa.flash_attention(q, k, v, causal=False), 20),
                plain_ms=cuda_ms(lambda: fa.plain(q, k, v, causal=False), 5),
@@ -764,8 +783,7 @@ def decode_cross_case(label: str, B: int, H: int, T: int, d: int):
     fault_ratio = {name: held(out, want)[1] for name, out in faults.items()}
     require(all(r > 1.0 for r in fault_ratio.values()),
             f"decode_attention check rejects planted faults {fault_ratio}")
-    nbytes = 2.0 * (2 * B * T * H * d + 2 * B * H * d)   # K/V, q, out
-    ms_bound, by = bound(4.0 * d * H * B * T, nbytes)
+    ms_bound, by = bound_of(costs.decode_attention(B, H, H, T, d, q.element_size()))
     res = dict(max_abs_err=err, limit_ratio=ratio, fault_ratio=fault_ratio,
                ms=cuda_ms(lambda: da.decode_attention(q, k, v, lengths), 50),
                plain_ms=cuda_ms(lambda: da.plain(q, k, v, lengths), 10),
@@ -827,11 +845,7 @@ def rglru_case(dtype: str = "float32"):
         faults[name] = exact_scan(rg.rglru_scan(a_f, b_f, s0), want)
     require(not any(eq for eq, _ in faults.values()),
             f"rglru_scan check rejects planted faults {faults}")
-    # a and b read once, s0 read once, seq and last written once; two
-    # fp32 operations a step
-    size = a.element_size()
-    ms_bound, by = bound(2.0 * B * S * R, size * 3.0 * B * S * R + 4.0 * 2 * B * R,
-                         PEAK_FP32_FLOPS)
+    ms_bound, by = bound_of(costs.rglru_scan(B, S, R, a.element_size()))
     one = [x[:1] for x in (a, b, s0)]   # a batch of one, the card covered by C = 32
     require(exact_scan(rg.rglru_scan(*one), rg.plain(*one))[0],
             f"rglru_scan {dtype} {rg.last_plan} at B=1 bitwise equal to plain")
@@ -907,18 +921,15 @@ def wkv6_case(label: str, B: int, S: int, H: int, N: int, prompts, fault_step: i
                        wk.wkv6(r, k_z, v, w_z, u, s0), want, atols)[1]}
     require(all(r_ > 1.0 for r_ in fault_ratio.values()),
             f"wkv6 {label} check rejects planted faults {fault_ratio}")
-    # every (b, s, h) step: 5N² + 4N fp32 operations; r, k, v and out read or
-    # written once in bf16, logw once in fp32, u once, the state in and out
-    flops = (5.0 * N * N + 4.0 * N) * B * S * H
-    nbytes = 2.0 * 4 * B * S * H * N + 4.0 * (B * S * H * N + H * N + 2 * B * H * N * N)
-    ms_bound, by = bound(flops, nbytes, PEAK_FP32_FLOPS)
+    cost = costs.wkv6(B, S, H, N, r.element_size())
+    ms_bound, by = bound_of(cost)
     res = dict(max_abs_err=err, limit_ratio=ratio, out_ratio=out_ratio,
                state_ratio=state_ratio, fault_ratio=fault_ratio,
                state_max_abs_err=float((got[1] - want[1]).abs().max()),
                # reported, not held: the output against ATOL + RTOL alone
                ulp_only_ratio=held(got[0], want[0])[1], segments=[P, Lc],
                # beside the bound: the time its bytes alone take
-               bytes_ms=nbytes / PEAK_BYTES * 1e3,
+               bytes_ms=cost.bytes / PEAK_BYTES * 1e3,
                ms=cuda_ms(lambda: wk.wkv6(*args), 20),
                plain_ms=cuda_ms(lambda: wk.plain(*args), 2),
                library_ms=None,   # no single PyTorch call computes the recurrence
@@ -980,9 +991,7 @@ def int8_case(label: str, x_q, w_q, sx, sw):
     fault_err = {name: float((out - w).abs().max()) for name, (out, w) in faults.items()}
     require(not any(torch.equal(out, w) for out, w in faults.values()),
             f"int8_matmul {label} check rejects planted faults {fault_err}")
-    # x and w read once (int8), the scales once, out written once (fp32)
-    ms_bound, by = bound(2.0 * M * N * K, M * K + K * N + 4.0 * (M + N + M * N),
-                         PEAK_INT8_OPS)
+    ms_bound, by = bound_of(costs.int8_matmul(M, K, N))
     ms = cuda_ms(lambda: i8.int8_matmul(x_q, w_q, sx, sw), 20)
     ms_cm = cuda_ms(lambda: i8.int8_matmul(x_q, w_cm, sx, sw), 20)
     res = dict(max_abs_err=err, ref_max_abs_err=ref_err, ref_tol=ref_tol,
@@ -2282,11 +2291,8 @@ def flash_bwd_case(label: str, B: int, H: int, K: int, Sq: int, Skv: int, d: int
     mask = mask.expand(B, Sq, Skv)
     if lens is not None:
         mask = mask & (kp[None, None, :] < lens[:, None, None])
-    pairs = float(mask.sum()) * H
-    flops = 5 * 2.0 * d * pairs
-    nbytes = dt.itemsize * d * (3 * B * H * Sq + 4 * B * K * Skv)   # q, dO, dq; k, v, dk, dv
-    ms_bound, by = bound(flops, nbytes, PEAK_BF16_FLOPS if dtype == "bfloat16"
-                         else PEAK_FP32_FLOPS)
+    ms_bound, by = bound_of(costs.flash_attention_bwd(
+        B, H, K, Sq, Skv, d, dt.itemsize, pairs=int(mask.sum())))
     plain_ms = 0.0
     for b in range(B):   # the fp32 plain version one sequence at a time (memory)
         sl = slice(b, b + 1)
@@ -3003,11 +3009,7 @@ def rglru_bwd_case(dtype: str):
               "state_shifted_by_one": held_bwd(shifted, want, limits)[1]}
     require(all(f >= BWD_FAULT_FACTOR for f in faults.values()),
             f"rglru_scan_bwd check rejects planted faults by {BWD_FAULT_FACTOR}x: {faults}")
-    # a, b and g read once, da and db written once (s0, g_last, ds0 beside);
-    # five operations an element: the state (2), then ds, da and the carry
-    size = a.element_size()
-    ms_bound, by = bound(5.0 * B * S * R, size * 5.0 * B * S * R + 4.0 * 3 * B * R,
-                         PEAK_FP32_FLOPS)
+    ms_bound, by = bound_of(costs.rglru_scan_bwd(B, S, R, a.element_size()))
     res = dict(max_abs_err=err, limit_ratio=ratio, ratios=ratios, control_ratio=control_ratio,
                fault_ratio=faults, formulas_vs_autograd=formulas, plan=plan._asdict(),
                ms=cuda_ms(lambda: rg.rglru_scan_bwd(*args), 20),
@@ -3192,21 +3194,13 @@ def wkv6_bwd_case(label: str, B: int, S: int, H: int, N: int, dtype: str = "bflo
             f"wkv6_bwd {label} check rejects planted faults by {BWD_FAULT_FACTOR}x: {faults}")
     again = wk.wkv6_bwd(*args)
     require(all(torch.equal(x, y) for x, y in zip(got, again)), f"wkv6_bwd {label} deterministic")
-    # every (b, s, h) step: 14N² + 16N fp32 operations (the state recomputed,
-    # the gradient carried, dr, dk, dv and dlogw each an N x N contraction,
-    # the bonus terms; at the unpadded N); r, k, v, do read and dr, dk, dv
-    # written once in their dtype,
-    # logw read and dlogw written once in fp32, u and du, state0, dS and
-    # dstate0 once
-    flops = (14.0 * N * N + 16.0 * N) * B * S * H
-    nbytes = (r.element_size() * 7.0 * B * S * H * N + 4.0 * 2 * B * S * H * N
-              + 4.0 * 2 * H * N + 4.0 * 3 * B * H * N * N)
-    ms_bound, by = bound(flops, nbytes, PEAK_FP32_FLOPS)
+    cost = costs.wkv6_bwd(B, S, H, N, r.element_size())
+    ms_bound, by = bound_of(cost)
     res = dict(max_abs_err=err, limit_ratio=ratio, ratios=ratios,
                control_ratio=control_ratio, fault_ratio=faults, formulas_vs_autograd=formulas,
                **({} if forward_ratio is None else {"padded_to": wk.kernel_head_size(N),
                                                      "forward_limit_ratio": forward_ratio}),
-               bytes_ms=nbytes / PEAK_BYTES * 1e3,
+               bytes_ms=cost.bytes / PEAK_BYTES * 1e3,
                ms=cuda_ms(lambda: wk.wkv6_bwd(*args), 10),
                plain_ms=cuda_ms(lambda: wk.plain_grad(*args), 1),
                library_ms=None,   # no single PyTorch call computes the recurrence's gradient
@@ -3270,6 +3264,184 @@ def phase_recurrent_train():
                             "config takes (the kernel's launches are on its other rows)")
         records[(kernel, arch, variant)] = {**launched, **rec}
     return records, slices
+
+
+# ---- phase 20: cost accounting ---------------------------------------------
+# (b)'s gemma2-2b cells: (kind, global batch, sequence or cache length), at
+# shapes that fit the card.  Their meta run allocates the tensors the card's
+# run allocates, in the same order, each freed when its last reference
+# dies (Python reference counts on both), the kernels' scratch included
+# (``kernels/meta.py``); the card adds the caching allocator's rounding of
+# each block to 512 bytes and any workspace a library call takes through
+# the allocator.  So the card's peak is held within COST_PEAK_RATIO of the
+# meta run's.  The operands' bytes are held exactly to what the step's
+# tensors requested of the allocator (its ``requested_bytes`` counter);
+# ``memory_allocated`` counts whole blocks, each rounded to 512 bytes and
+# up to 1 MiB more where the allocator does not split a block, so it is
+# printed beside.
+COST_CELLS = (("prefill", 4, 2048), ("decode", 8, 4096))
+COST_PEAK_RATIO = (0.99, 1.05)
+
+
+def leaves(tree):
+    from torch.utils._pytree import tree_flatten
+    flat, spec = tree_flatten(tree)
+    return [t for t in flat if hasattr(t, "untyped_storage")], spec
+
+
+def requested(which: str = "current") -> int:
+    """Bytes the live tensors requested of the caching allocator (``which``
+    "current") or their peak since the last reset ("peak")."""
+    import torch
+    return torch.cuda.memory_stats()[f"requested_bytes.all.{which}"]
+
+
+def cost_operands(cell, model):
+    """The cell's operands on the card, from a seed: the model's own random
+    init, random prompt tokens of full length (prefill), or a full cache of
+    random k/v whose next position is its last slot (decode), so the step
+    attends every slot the cost pass counts."""
+    import torch
+    B, S = cell.shape.global_batch, cell.shape.seq_len
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    g = torch.Generator(device="cuda").manual_seed(1)
+    prefill = cell.shape.kind == "prefill"
+    tokens = torch.randint(0, cell.cfg.vocab_size,
+                           (cell.args[1]["tokens"] if prefill else cell.args[2]).shape,
+                           generator=g, device="cuda", dtype=torch.int32)
+    if prefill:
+        return params, {"tokens": tokens,
+                        "lengths": torch.full((B,), S, dtype=torch.int32, device="cuda")}
+    cache = model.init_cache(B, S)
+    cache["lengths"].fill_(S - 1)
+    for leaf in leaves(cache)[0]:
+        if leaf.is_floating_point():
+            leaf.normal_(generator=g)
+        elif leaf.dim() > 1:          # slot_pos: slot t holds position t
+            leaf.copy_(torch.arange(S, dtype=torch.int32, device="cuda").expand_as(leaf))
+    return params, cache, tokens
+
+
+def cost_cell(kind: str, B: int, S: int) -> dict:
+    """Phase 20 (b): a gemma2-2b cell counted on meta, then run on the card
+    through K1 and K2: the operands' bytes against the card's allocation,
+    the meta peak against the card's, the counted FLOPs beside the step's
+    time, the launches exact, the logits finite."""
+    import torch
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.launch import cells, costing
+    from repro_torch.models import build_model
+    from repro_torch.serving.engine import make_decode_fn, make_prefill_fn
+    arch = "gemma2-2b"
+    shape = ShapeSpec(f"{kind}_{B}x{S}", S, B, kind)
+    build = cells.build_prefill_cell if kind == "prefill" else cells.build_decode_cell
+    cell = build(arch, shape)
+    argument_bytes = costing.storage_bytes(cell.args)
+    _, counted, meta_peak = costing.count(cell.fn, *cell.args)
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    before, before_req = torch.cuda.memory_allocated(), requested()
+    model = build_model(cell.cfg)
+    args = cost_operands(cell, model)
+    torch.cuda.synchronize()
+    placed, placed_req = torch.cuda.memory_allocated() - before, requested() - before_req
+    (got, got_spec), (want, want_spec) = leaves(args), leaves(cell.args)
+    require(got_spec == want_spec and [(t.shape, t.dtype) for t in got]
+            == [(t.shape, t.dtype) for t in want], f"cost {kind}: operands as the cell's")
+    require(placed_req == argument_bytes,
+            f"cost {kind}: the card's operands requested {placed_req} B of the allocator, "
+            f"argument_bytes {argument_bytes}")
+    step = (make_prefill_fn(model) if kind == "prefill" else make_decode_fn(model))
+    run = ((lambda: step(args[0], **args[1])) if kind == "prefill"
+           else (lambda: step(*args)))
+    lengths0 = args[1]["lengths"] if kind == "decode" else None
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    out = run()
+    torch.cuda.synchronize()
+    real_peak = torch.cuda.max_memory_allocated() - before
+    requested_peak = requested("peak") - before_req
+    launched = read_launches()
+    logits = out[1]
+    require(tuple(logits.shape) == (B, cell.cfg.vocab_size)
+            and bool(torch.isfinite(logits).all()), f"cost {kind}: logits finite, (B, V)")
+    n_attn = layer_counts(cell.cfg)[0]
+    want_launches = {**{k: 0 for k in KERNELS},
+                     ("flash_attention" if kind == "prefill" else "decode_attention"): n_attn}
+    require(launched == want_launches, f"cost {kind}: launches {launched} != {want_launches}")
+    ratio = real_peak / meta_peak
+    require(COST_PEAK_RATIO[0] <= ratio <= COST_PEAK_RATIO[1],
+            f"cost {kind}: the card's peak {real_peak} B is {ratio}x the meta run's "
+            f"{meta_peak} B, outside {COST_PEAK_RATIO}")
+    del out, logits
+
+    def timed():
+        if lengths0 is not None:
+            args[1]["lengths"] = lengths0         # the cache's next position again
+        return run()
+    times = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        timed()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    step_s = float(np.median(times[1:]))
+    res = dict(argument_bytes=argument_bytes, allocated_bytes=placed,
+               meta_peak_bytes=meta_peak, card_peak_bytes=real_peak, peak_ratio=ratio,
+               requested_peak_ratio=requested_peak / meta_peak,
+               counted_flops=counted["flops"], counted_bytes=counted["bytes"],
+               step_s=step_s, step_s_all=times,
+               attained_tflops=counted["flops"] / step_s / 1e12, launches=launched)
+    print(f"[cost] {arch} {kind} B={B} S={S} " + json.dumps(res))
+    del args
+    return res
+
+
+def phase_cost():
+    """Phase 20: (a) the dry-run's 40 records on this host; (b) two gemma2-2b
+    cells on the card against their counts; (c) the paper's Fig. 9 and
+    Fig. 10 (b) measured on the card, Fig. 10 (a) from (a)'s records."""
+    import tempfile
+    import torch
+    from repro_torch.analysis import report
+    from repro_torch.configs import ARCHS, SHAPES
+    from repro_torch.launch import dryrun, figures
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        records_dir = str(Path(tmp) / "dryrun")
+        recs = dryrun.run(list(ARCHS), list(SHAPES), records_dir)
+        t_a = time.perf_counter() - t_phase
+        status = [("SKIP" if r.get("skipped") else "OK" if r["ok"] else "FAIL") for r in recs]
+        print(report.roofline_table(report.load_cells(records_dir)))
+        print(f"[cost] (a) dry-run: {len(recs)} records, {status.count('OK')} OK, "
+              f"{status.count('SKIP')} SKIP, {status.count('FAIL')} FAIL, s={t_a:.1f} "
+              "(accounting on hw.GPU_H100's data-sheet rates, not timings)")
+        require(len(recs) == 40 and status.count("OK") == 32 and status.count("SKIP") == 8,
+                f"dry-run: 32 OK and 8 SKIP of 40, got {len(recs)}: "
+                f"{ {s: status.count(s) for s in set(status)} }")
+        for kind, B, S in COST_CELLS:
+            torch.cuda.empty_cache()
+            cost_cell(kind, B, S)
+        t_b = time.perf_counter() - t_phase - t_a
+        torch.cuda.empty_cache()
+        fig9 = figures.fig9(tmp)
+        fig10 = figures.fig10(tmp, records_dir)
+    heat = {"rows", "cols", "matrix", "row_key", "col_key", "value_key"}
+    require(set(fig9) == {f"{f}/result.{v}" for f in figures.FAMILIES
+                          for v in ("latency_s", "attained_gflops")}
+            and all(set(hm) == heat and len(hm["rows"]) == len(figures.LAYERS)
+                    and len(hm["cols"]) == len(figures.WIDTHS) for hm in fig9.values()),
+            "fig9 has the reference's keys and grid")
+    require(set(fig10) == {"real", "generated"} and len(fig10["real"]) == 32
+            and all(set(r) == {"intensity", "attained_tflops", "roofline_bound",
+                               "dominant_term"} for r in fig10["real"].values())
+            and len(fig10["generated"]) == 8
+            and all(set(p) == {"intensity", "attained_flops"}
+                    for p in fig10["generated"].values()), "fig10 has the reference's keys")
+    print("[cost] fig9 " + json.dumps(fig9))
+    print("[cost] fig10 " + json.dumps(fig10))
+    print(f"[cost] phase 20 s={time.perf_counter() - t_phase:.1f} (a {t_a:.1f}, b {t_b:.1f})")
 
 
 def main() -> int:
@@ -3362,6 +3534,9 @@ def main() -> int:
     # phase 19: the hybrid and RWKV6 families train
     torch.cuda.empty_cache()
     train19_records, slices19 = phase_recurrent_train()
+    # phase 20: cost accounting
+    torch.cuda.empty_cache()
+    phase_cost()
     src = "src/repro_torch/kernels/csrc/"
     replaces = {"flash_attention": "src/repro/kernels/flash_attention.py:94",
                 "decode_attention": "src/repro/kernels/decode_attention.py:73",
