@@ -201,6 +201,42 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 FLOPs beside the step's time; (c) the paper's Fig. 9 and
                 Fig. 10 (``launch/figures.py``) measured on the card, their
                 JSON of the reference's keys;
+ 21. dist     — distribution (``repro_torch.dist``, ``launch/mesh.py``) at
+                world size 1, the only size one card has (the collectives
+                between ranks are held on CPU ``gloo`` groups,
+                tests/test_torch_dist.py): (a) an ``nccl`` group of one and
+                ``make_host_mesh(1)``; granite-3-2b whole (4 × 2048, remat,
+                fp32 masters) takes one gradient with its state placed by
+                ``TRAIN_RULES`` on the 1 × 1 mesh: loss and every gradient
+                leaf bitwise the same gradient without a mesh, K1 and K1′
+                launched exactly 80 and 40 times, both step times and peaks
+                printed, then the update on the mesh; (b)
+                granite-moe-3b-a800m at full width, phase 13's ragged
+                prefill and one decode step under ``MOE_EP_RULES`` (gspmd),
+                ``MOE_LOCAL_RULES`` (local) and ``MOE_EP_LOCAL_RULES``
+                (ep_local) on the 1 × 1 mesh, routing pinned as phase 13
+                pins it: logits bitwise the run without a mesh, K1 and K2
+                launches the same; a planted fault (ep_local's expert
+                offset shifted by one) must change them; (c)
+                ``compressed_psum`` over the group on one of (a)'s gradient
+                leaves bitwise ``dequantize(*quantize(g))``; (d) the
+                dry-run of gemma2-2b, granite-moe-3b-a800m and dbrx-132b ×
+                train_4k, prefill_32k, decode_32k on both production meshes
+                (fake groups on this host, meta tensors), granite-moe-3b-a800m
+                and dbrx-132b under ``--rules ep_local`` and
+                granite-moe-3b-a800m under ``moe_local``: all OK, their
+                collectives by kind, the roofline's collective term (at
+                ``hw.GPU_H100.link_bw``) and the MoE blocks' mode (ep_local
+                runs only where the experts divide over "model": dbrx-132b's
+                16, not granite-moe-3b-a800m's 40, which run gspmd), and the
+                same 9 cells on a 1 × 1 fake mesh counting what phase 20 (a)
+                counted, digit for digit; seconds printed; (e)
+                granite-moe-3b-a800m's train step at full width (4 layers,
+                2 × 2048, fp32 masters) on the 1 × 1 mesh under each MoE
+                mode's rules: x's gradient in each MoE block adds its aux
+                loss's router term in another order than without a mesh, so
+                the step is held to TRAIN_DRIFT × the distance from the
+                control of the step without a mesh, launches exact;
 then a ``kernels`` JSON line (``hook_launches``: phase 11's,
 ``plan_hook_launches``: phase 12's; phase 18's and 19's records name the run
 their ``launches`` were counted on), and last the ``ok`` JSON line.
@@ -211,6 +247,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import os
 import re
 import subprocess
 import sys
@@ -3442,6 +3479,293 @@ def phase_cost():
     print("[cost] fig9 " + json.dumps(fig9))
     print("[cost] fig10 " + json.dumps(fig10))
     print(f"[cost] phase 20 s={time.perf_counter() - t_phase:.1f} (a {t_a:.1f}, b {t_b:.1f})")
+    return recs
+
+
+# Phase 21: distribution at world size 1.  The dry-run's production meshes
+# are fake groups of 256 and 512 ranks in worker processes on this host.
+DIST_CELLS = (("gemma2-2b", "granite-moe-3b-a800m", "dbrx-132b"),
+              ("train_4k", "prefill_32k", "decode_32k"))
+DIST_MOE_RULES = {"gspmd": "MOE_EP_RULES", "local": "MOE_LOCAL_RULES",
+                  "ep_local": "MOE_EP_LOCAL_RULES"}
+# Phase 21 (e): granite-moe-3b-a800m's train step at full width, depth cut
+DIST_MOE_TRAIN = dict(layers=4, batch=2, seq=2048)
+
+
+def dist_train(mesh) -> None:
+    """Phase 21 (a) and (c): granite-3-2b's gradient with and without the
+    1 × 1 mesh, then the update on it and compressed_psum."""
+    import torch
+    from repro_torch.dist import sharding as shd
+    from repro_torch.training.compress import compressed_psum, dequantize, quantize
+    from repro_torch.training.data import DataConfig, host_batch
+    from repro_torch.training.optimizer import OptimizerConfig, adamw_update, opt_state_axes
+    from repro_torch.training.step import make_grad_fn
+    from repro_torch.training.tree import flatten
+    arch = TRAIN_SLICE["arch"]
+    cfg, model, state = train_setup(arch)
+    used = train_kernels(cfg)
+    grad_fn = make_grad_fn(model, remat=True)
+    batch = {k: torch.as_tensor(v).cuda() for k, v in host_batch(
+        DataConfig(global_batch=TRAIN_SLICE["batch"], seq_len=TRAIN_SLICE["seq"]),
+        cfg, 0).items()}
+    runs = {}
+    # the plain step twice (its first call warms the card up), the mesh's
+    # between: its gradients stay until compared
+    for name in ("plain", "mesh", "plain again"):
+        params, args = state["params"], batch
+        if name == "mesh":
+            axes = model.logical_axes()
+            params = shd.shard_tree(params, axes, shd.TRAIN_RULES, mesh)
+            args = shd.shard_tree(batch, {k: ("batch", "seq") for k in batch},
+                                  shd.TRAIN_RULES, mesh)
+        ctx = (shd.activation_sharding(mesh, shd.TRAIN_RULES) if name == "mesh"
+               else contextlib.nullcontext())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        reset_launches()
+        t1 = time.perf_counter()
+        with ctx:
+            grads, aux = grad_fn(params, args)
+        torch.cuda.synchronize()
+        runs[name] = dict(s=time.perf_counter() - t1,
+                          gb=(torch.cuda.max_memory_allocated() - held) / 1e9,
+                          launches=train_launches_read(used), grads=grads, aux=aux,
+                          params=params)
+        del grads
+        if name == "mesh":          # compared, then the plain gradients go
+            local = {p: g.to_local() for p, g in flatten(runs["mesh"]["grads"])}
+            same = [p for p, g in flatten(runs["plain"].pop("grads")) if torch.equal(local[p], g)]
+            torch.cuda.empty_cache()
+    runs["plain again"].pop("grads")
+    plain, meshed, again = runs["plain"], runs["mesh"], runs["plain again"]
+    plain_loss = plain["aux"]["ce"]
+    loss = (float(plain_loss), float(meshed["aux"]["ce"].to_local()))
+    require(torch.equal(meshed["aux"]["ce"].to_local(), plain_loss),
+            f"{arch} on the 1 x 1 mesh: loss bitwise the plain step's {loss}")
+    require(len(same) == len(local), f"{arch} on the 1 x 1 mesh: {len(same)} of {len(local)} "
+            "gradient leaves bitwise the plain step's")
+    want = {k: (2 * n, n) for k, n in used.items()}
+    require(meshed["launches"] == want, f"{arch} on the mesh launches {meshed['launches']}, "
+            f"want {want}")
+    g = next(iter(local.values()))
+    require(torch.equal(compressed_psum(g), dequantize(*quantize(g))),
+            "(c) compressed_psum over the nccl group of one is dequantize(quantize(g))")
+    n_leaves, g_shape = len(local), tuple(g.shape)
+    del local, g
+    torch.cuda.empty_cache()
+    opt = shd.shard_tree(state["opt"], opt_state_axes(model.logical_axes()),
+                         shd.TRAIN_RULES, mesh)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    with shd.activation_sharding(mesh, shd.TRAIN_RULES):
+        _, _, metrics = adamw_update(OptimizerConfig(), meshed["grads"], opt, meshed["params"])
+    torch.cuda.synchronize()
+    update_s = time.perf_counter() - t1
+    gnorm = float(metrics["grad_norm"].to_local())
+    require(np.isfinite(gnorm), f"grad norm finite {gnorm}")
+    print(f"[dist] (a) {arch} whole, {cfg.num_layers} layers, batch {TRAIN_SLICE['batch']} x "
+          f"{TRAIN_SLICE['seq']}, remat, fp32 masters, nccl group of 1, mesh "
+          f"{shd.mesh_sizes(mesh)}: loss {loss[1]} and {len(same)} of {n_leaves} gradient "
+          f"leaves bitwise the plain step's; gradient s: plain {plain['s']:.3f} (first call), "
+          f"mesh {meshed['s']:.3f}, plain again {again['s']:.3f}; peak GB above what each "
+          f"run found allocated: plain {plain['gb']:.2f}, mesh {meshed['gb']:.2f}, plain "
+          f"again {again['gb']:.2f}; "
+          f"launches (forward, backward) {meshed['launches']}; update on the mesh "
+          f"{update_s:.3f} s, grad norm {gnorm}")
+    print(f"[dist] (c) compressed_psum of a {g_shape} leaf over the nccl group of 1: "
+          "bitwise dequantize(quantize(g))")
+
+
+def dist_moe(mesh) -> None:
+    """Phase 21 (b): granite-moe-3b-a800m's prefill and decode step under
+    each MoE mode on the 1 × 1 mesh against the run without a mesh."""
+    import torch
+    from repro_torch.dist import sharding as shd
+    from repro_torch.models import moe
+    arch = "granite-moe-3b-a800m"
+    cfg, m, params, tokens, lengths, max_len, extra = model_setup(arch, MODEL_RUNS.get(arch, {}))
+    ref = Routing()
+    pre0, dec0, tok, launches0 = prefill_and_step(m, params, tokens, lengths, max_len,
+                                                  extra, {}, route=ref)
+    notes = []
+    for mode, rules_name in list(DIST_MOE_RULES.items()) + [("ep_local fault", None)]:
+        rules = getattr(shd, rules_name or DIST_MOE_RULES["ep_local"])
+        placed = shd.shard_tree(params, m.logical_axes(), rules, mesh)
+        offset = moe._expert_offset
+        if rules_name is None:      # the planted fault: each rank's experts one off
+            moe._expert_offset = lambda mesh_, E_l: offset(mesh_, E_l) + 1
+        try:
+            with shd.activation_sharding(mesh, rules):
+                pre, dec, _, launches = prefill_and_step(
+                    m, placed, tokens, lengths, max_len, extra, {}, tok=tok,
+                    route=Routing(pin=ref))
+        finally:
+            moe._expert_offset = offset
+        same = torch.equal(pre.to_local(), pre0) and torch.equal(dec.to_local(), dec0)
+        if rules_name is None:
+            require(not same, "the planted fault (ep_local's expert offset + 1) changes the "
+                    "logits")
+            notes.append(f"{mode}: logits changed, max |diff| "
+                         f"{max_diff(dec.to_local(), dec0):.3g}")
+            continue
+        require(same, f"{arch} under {rules_name} on the 1 x 1 mesh: prefill and decode "
+                "logits bitwise the run without a mesh")
+        require(launches == launches0, f"{mode} launches {launches}, without a mesh "
+                f"{launches0}")
+        notes.append(f"{mode} ({rules_name}): bitwise, launches {launches}")
+    print(f"[dist] (b) {arch} full width, {cfg.num_layers} layers, prompts "
+          f"{tuple(lengths.tolist())}, routing pinned: " + "; ".join(notes))
+
+
+def dist_moe_train(mesh) -> None:
+    """Phase 21 (e): granite-moe-3b-a800m's train step on the 1 × 1 mesh
+    under each MoE mode's rules against the same step without a mesh.  The
+    forward is the same, but not every gradient bit: in each MoE block the
+    aux loss's router term of x's gradient arrives through its own
+    ``local_map`` and is added after the block's own terms, where autograd
+    without a mesh adds the three terms in another order.  So the mesh's
+    distances from the control (attention in float64) are held to
+    max(TRAIN_FLOOR, TRAIN_DRIFT × the run without a mesh's), launches
+    exact, no plain call."""
+    import torch
+    from repro_torch.dist import sharding as shd
+    from repro_torch.training.data import DataConfig, host_batch
+    from repro_torch.training.step import make_grad_fn
+    arch, run = "granite-moe-3b-a800m", DIST_MOE_TRAIN
+    cfg, model, state = train_setup(arch, run["layers"])
+    params = state["params"]
+    del state
+    batch = {k: torch.as_tensor(v).cuda() for k, v in host_batch(
+        DataConfig(global_batch=run["batch"], seq_len=run["seq"]), cfg, 0).items()}
+    grad_fn = make_grad_fn(model, remat=False)
+    used = train_kernels(cfg)
+    ctl = plain_step(arch, "control", grad_fn, params, batch, used,
+                     {k: controls()[k] for k in used})
+    t1 = time.perf_counter()
+    bare = kernel_step(arch, grad_fn, params, batch, used)
+    bare_s = time.perf_counter() - t1
+    notes = []
+    for mode, rules_name in DIST_MOE_RULES.items():
+        rules = getattr(shd, rules_name)
+        placed = shd.shard_tree(params, model.logical_axes(), rules, mesh)
+        args = shd.shard_tree(batch, {k: ("batch", "seq") for k in batch}, rules, mesh)
+        t1 = time.perf_counter()
+        with shd.activation_sharding(mesh, rules):
+            got = kernel_step(arch, grad_fn, placed, args, used)
+        s_mesh = time.perf_counter() - t1
+        got = (got[0].to_local(), got[1].to_local(),
+               {p: g.to_local() for p, g in got[2].items()})
+        same = sum(torch.equal(g, bare[2][p]) for p, g in got[2].items())
+        worst = held_step(arch, step_distances(got, ctl), step_distances(bare, ctl),
+                          f"1 x 1 mesh under {rules_name} against no mesh")
+        notes.append(f"{mode} ({rules_name}): loss bitwise {torch.equal(got[0], bare[0])}, "
+                     f"{same} of {len(got[2])} gradient leaves bitwise, worst ratio {worst:.4g}, "
+                     f"step s {s_mesh:.3f}")
+        del got, placed, args
+        torch.cuda.empty_cache()
+    print(f"[dist] (e) {arch} full width, {run['layers']} layers, batch {run['batch']} x "
+          f"{run['seq']}, fp32 masters, no remat: without a mesh step s {bare_s:.3f}; "
+          + "; ".join(notes) + f"; launches (forward, backward) "
+          f"{ {k: (n, n) for k, n in used.items()} } in each run, no plain call")
+
+
+def one_by_one_counts(arch: str, shape: str) -> dict:
+    """A cell's production counts on a 1 × 1 fake mesh (a worker process)."""
+    from repro_torch.launch import cells, costing
+    from repro_torch.launch.mesh import make_accounting_mesh
+    cell = cells.build_cell(arch, shape, make_accounting_mesh((1, 1), ("data", "model")))
+    return costing.count_costs(cell.fn, *cell.args)
+
+
+def dist_dryrun(one_records) -> None:
+    """Phase 21 (d): the production meshes' dry-run, and 1 × 1 against
+    phase 20 (a)."""
+    import multiprocessing
+    import tempfile
+    from concurrent.futures import ProcessPoolExecutor
+    t0 = time.perf_counter()
+    archs, shapes = DIST_CELLS
+    # ep_local needs the experts to divide over "model": granite-moe-3b-a800m's
+    # 40 do not at 16, so its blocks run gspmd there; dbrx-132b's 16 do
+    runs = [(["--rules", r], r) for r in ("default", "ep_local", "moe_local")]
+    rule_archs = {"default": archs, "ep_local": ("granite-moe-3b-a800m", "dbrx-132b"),
+                  "moe_local": ("granite-moe-3b-a800m",)}
+    with tempfile.TemporaryDirectory() as tmp:
+        # the three at once: each pool's longest cells run beside the others'
+        procs = []
+        for flags, rules in runs:
+            log = open(Path(tmp) / f"{rules}.log", "w+")
+            procs.append((flags, log, subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                 ",".join(rule_archs[rules]), "--shape", ",".join(shapes), "--mesh", "both",
+                 "--out", tmp] + flags,
+                cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+                stdout=log, stderr=subprocess.STDOUT, text=True)))
+        for flags, log, proc in procs:
+            proc.wait()
+            log.seek(0)
+            require(proc.returncode == 0, f"dry-run --mesh both {flags}: {log.read()[-6000:]}")
+            log.close()
+        recs = [json.loads(p.read_text()) for p in sorted(Path(tmp).glob("*.json"))]
+    t_mesh = time.perf_counter() - t0
+    n_recs = 2 * len(shapes) * sum(map(len, rule_archs.values()))
+    require(len(recs) == n_recs and all(r["ok"] and not r.get("skipped") for r in recs),
+            f"dry-run on the production meshes: {n_recs} records OK, got "
+            f"{[(r['arch'], r['shape'], r['mesh'], r['rules'], r.get('error')) for r in recs]}")
+    want_mode = {("granite-moe-3b-a800m", "default"): "gspmd",
+                 ("granite-moe-3b-a800m", "ep_local"): "gspmd",
+                 ("granite-moe-3b-a800m", "moe_local"): "local",
+                 ("dbrx-132b", "default"): "gspmd", ("dbrx-132b", "ep_local"): "ep_local"}
+    modes = {(r["arch"], r["rules"]): r["moe_mode"] for r in recs if "moe_mode" in r}
+    require(all(r.get("moe_mode") == want_mode[r["arch"], r["rules"]] for r in recs
+                if (r["arch"], r["rules"]) in want_mode),
+            f"the MoE blocks' modes {modes}, want {want_mode}")
+    for r in recs:
+        rf = r["roofline"]
+        colls = {k: (v["count"], v["bytes"]) for k, v in rf["collectives"].items() if v["count"]}
+        print(f"[dist] (d) {r['arch']} {r['shape']} {r['mesh']} {r['rules']}: dominant "
+              f"{rf['dominant']}, step {rf['step_time_s']:.4f} s (compute {rf['compute_s']:.4f}, "
+              f"memory {rf['memory_s']:.4f}, collective {rf['collective_s']:.4f}), collective "
+              f"bytes/device {rf['collective_bytes_per_device']:.4g}, (count, bytes) {colls}, "
+              f"chips {rf['chips']}, peak {r['memory']['peak_bytes'] / 1e9:.2f} GB/device"
+              + (f", MoE mode {r['moe_mode']}" if "moe_mode" in r else ""))
+    t1 = time.perf_counter()
+    cells_ = [(a, s) for a in archs for s in shapes]
+    with ProcessPoolExecutor(len(cells_), mp_context=multiprocessing.get_context("spawn")) as pool:
+        got = list(pool.map(one_by_one_counts, *zip(*cells_)))
+    want = {(r["arch"], r["shape"]): r["production_costs_scan_body_once"]
+            for r in one_records if not r.get("skipped")}
+    for (a, s), costs in zip(cells_, got):
+        require(costs == want[a, s], f"{a} {s} on a 1 x 1 fake mesh counts {costs}, phase 20 "
+                f"(a) {want[a, s]}")
+    print(f"[dist] (d) {len(recs)} records OK on 16x16 and 2x16x16 (s={t_mesh:.1f}); the "
+          f"{len(cells_)} cells on a 1 x 1 fake mesh count phase 20 (a)'s FLOPs, bytes, "
+          f"transcendentals and collectives digit for digit (s={time.perf_counter() - t1:.1f})")
+
+
+def phase_dist(one_records) -> None:
+    """Phase 21: distribution at world size 1 on the card; the production
+    meshes' accounting on this host."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    t0 = time.perf_counter()
+    mesh = make_host_mesh(1)
+    require(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+            f"an nccl group of one: {dist.get_backend()}, {dist.get_world_size()}")
+    try:
+        dist_train(mesh)
+        torch.cuda.empty_cache()
+        dist_moe(mesh)
+        torch.cuda.empty_cache()
+        dist_moe_train(mesh)
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    dist_dryrun(one_records)
+    print(f"[dist] phase 21 s={time.perf_counter() - t0:.1f}")
 
 
 def main() -> int:
@@ -3536,7 +3860,10 @@ def main() -> int:
     train19_records, slices19 = phase_recurrent_train()
     # phase 20: cost accounting
     torch.cuda.empty_cache()
-    phase_cost()
+    one_records = phase_cost()
+    # phase 21: distribution
+    torch.cuda.empty_cache()
+    phase_dist(one_records)
     src = "src/repro_torch/kernels/csrc/"
     replaces = {"flash_attention": "src/repro/kernels/flash_attention.py:94",
                 "decode_attention": "src/repro/kernels/decode_attention.py:73",

@@ -11,7 +11,17 @@ compute nothing, and counts what it dispatches:
   a kernel moves its formula's bytes;
 - ``transcendentals``: the elements of exp, log, tanh, sigmoid, rsqrt and
   kin, and each kernel's formula;
-- ``collectives``: the five kinds of ``COLL_KINDS``, zero on one device.
+- ``collectives``: the five kinds of ``COLL_KINDS``.  Under a device mesh
+  the step runs on DTensors, whose collectives reach the counter as
+  ``_c10d_functional`` ops on the local blocks: each is counted at its
+  local result by the reference's ring model (``repro.analysis.hlo``, whose
+  formulas are copied in :func:`collective_cost`).  Zero on one device.
+
+Under a mesh every count is per device, each op counted once: an op on
+DTensors is passed on (``NotImplemented``) to DTensor, whose work on the
+local blocks comes back to the counter and is counted there; the
+FakeTensor ops DTensor's sharding propagation runs on global shapes are
+not counted.
 
 :func:`count` also tracks the live bytes of the run: the storages the
 operands and every op's outputs hold, each released when its last tensor
@@ -29,7 +39,9 @@ import weakref
 from typing import Any, Callable, Dict, Iterable, Tuple
 
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
+from torch._subclasses.fake_tensor import FakeTensor
+from torch.distributed.tensor import DTensor
+from torch.utils._python_dispatch import TorchDispatchMode, _disable_current_modes
 from torch.utils._pytree import tree_leaves
 from torch.utils.flop_counter import FlopCounterMode
 from torch.utils.weak import WeakIdKeyDictionary
@@ -51,7 +63,40 @@ _TRANSCENDENTAL = {getattr(_aten, name) for name in (
 _TRANSCENDENTAL_IN = {_aten.logsumexp}
 # ops that read and write nothing
 _NO_TRAFFIC = {_aten.empty, _aten.empty_like, _aten.empty_strided, _aten.detach,
-               _aten.alias, _aten.lift_fresh}
+               _aten.alias, _aten.lift_fresh, torch.ops._c10d_functional.wait_tensor,
+               torch.ops._c10d_functional._wrap_tensor_autograd}
+# _c10d_functional op → (collective kind, the argument holding the group size)
+_COLLECTIVES = {"all_gather_into_tensor": ("all-gather", 1),
+                "all_gather_into_tensor_coalesced": ("all-gather", 1),
+                "all_reduce": ("all-reduce", None),
+                "all_reduce_coalesced": ("all-reduce", None),
+                "reduce_scatter_tensor": ("reduce-scatter", 2),
+                "reduce_scatter_tensor_coalesced": ("reduce-scatter", 2),
+                "all_to_all_single": ("all-to-all", None),
+                "broadcast": ("collective-permute", None)}
+
+
+def collective_cost(kind: str, result_bytes: float, group: int) -> float:
+    """Per-device interconnect bytes of one collective by the reference's
+    ring model (``repro.analysis.hlo.parse_collectives``), n the group size:
+    all-gather ≈ result bytes (each device receives n−1 shards), all-reduce
+    ≈ 2 × result bytes (reduce-scatter + all-gather), reduce-scatter ≈
+    result bytes × n (the full operand streams through), all-to-all and
+    permute ≈ result bytes."""
+    if kind == "all-reduce":
+        return 2 * result_bytes
+    if kind == "reduce-scatter":
+        return result_bytes * group
+    return result_bytes
+
+
+def _collective(func, args):
+    """(kind, group size) of a ``_c10d_functional`` collective, else None."""
+    ns, _, name = func._schema.name.partition("::")
+    if not ns.startswith("_c10d_functional") or name not in _COLLECTIVES:
+        return None
+    kind, at = _COLLECTIVES[name]
+    return kind, (args[at] if at is not None else 1)
 
 
 def depth_variants(cfg):
@@ -69,7 +114,10 @@ def depth_variants(cfg):
 
 
 def _tensors(tree) -> Iterable[torch.Tensor]:
-    return (t for t in tree_leaves(tree) if isinstance(t, torch.Tensor))
+    """The tensors of ``tree``, a DTensor's local block in its place (what
+    one device holds)."""
+    return (t._local_tensor if isinstance(t, DTensor) else t
+            for t in tree_leaves(tree) if isinstance(t, torch.Tensor))
 
 
 def _nbytes(tree) -> float:
@@ -99,6 +147,7 @@ class _Counter(TorchDispatchMode):
         super().__init__()
         self.bytes = 0.0
         self.transcendentals = 0.0
+        self.collectives = {k: {"bytes": 0, "count": 0} for k in COLL_KINDS}
         self.live = 0
         self.peak = 0
         self._held = WeakIdKeyDictionary()
@@ -119,8 +168,18 @@ class _Counter(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented          # counted on the local blocks
+        if any(issubclass(t, FakeTensor) for t in types):
+            with _disable_current_modes():  # sharding propagation: not counted
+                return func(*args, **kwargs)
         out = func(*args, **kwargs)
         packet = func._overloadpacket
+        coll = _collective(func, args)
+        if coll is not None:
+            kind, group = coll
+            self.collectives[kind]["count"] += 1
+            self.collectives[kind]["bytes"] += collective_cost(kind, _nbytes(out), group)
         if packet in kernel_meta.COSTS:
             cost = kernel_meta.COSTS[packet](*args, **kwargs)
             self.bytes += cost.bytes
@@ -146,7 +205,7 @@ def count(step: Callable, *args) -> Tuple[Any, Dict, int]:
         out = step(*args)
     costs = {"flops": float(flops.get_total_flops()), "bytes": counter.bytes,
              "transcendentals": counter.transcendentals,
-             "collectives": {k: {"bytes": 0, "count": 0} for k in COLL_KINDS}}
+             "collectives": counter.collectives}
     return out, costs, counter.peak
 
 

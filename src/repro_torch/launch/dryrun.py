@@ -20,17 +20,34 @@ Two passes per cell:
 
        total = cost(d1) + (n_full − n1)·(cost(d2) − cost(d1))
 
-   then ``memory_model.estimate_bytes`` and the roofline at one chip of
-   ``hw.GPU_H100`` (``analysis/roofline.py``): accounting on the card's
-   data-sheet rates, not a timing.
+   then ``memory_model.estimate_bytes`` and the roofline on ``hw.GPU_H100``
+   (``analysis/roofline.py``): accounting on the card's data-sheet rates,
+   not a timing.
 
-Usage (the reference's flags; only one device):
+Meshes (``--mesh``):
+  one      the port's card, no mesh (the default: the one-card pass, records
+           ``{arch}__{shape}__single.json`` with ``"mesh": "1"``);
+  single   the reference's 16 × 16 pod, ``"mesh": "16x16"``;
+  multi    its two pods, 2 × 16 × 16, ``"mesh": "2x16x16"``;
+  both     single and multi.
+A production mesh is a ``DeviceMesh`` over a fake group in this process
+(``launch/mesh.py``): the cell's operands are DTensors over meta blocks,
+every count is per device, and the collectives DTensor issues are counted
+by kind (``launch/costing.py``); the roofline runs at the mesh's chip count
+with the collective term at ``hw.GPU_H100.link_bw``.  Their records are
+``{arch}__{shape}__{16x16|2x16x16}[__{rules}].json``.  ``--rules`` takes the
+reference's seven rule sets (``dist.sharding.RULE_SETS``) on a production
+mesh; on one device only the default.  An MoE arch's mesh records say which
+of ``models/moe.py``'s modes its blocks ran in (``moe_mode``): ep_local
+needs the experts to divide over "model", so granite-moe-3b-a800m's 40 run
+gspmd under ``--rules ep_local`` at 16 × 16 and dbrx-132b's 16 run
+ep_local.
+
+Usage (the reference's flags):
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch all --shape all \\
-      --mesh single --out out/dryrun
+      --mesh both --out out/dryrun
 
-Nothing runs on a device, so there is no ``--device``.  ``--mesh multi``
-and ``both``, and every ``--rules`` but the default, need distribution
-(M12b) and raise.
+Nothing runs on a device, so there is no ``--device``.
 """
 from __future__ import annotations
 
@@ -44,29 +61,43 @@ import time
 import traceback
 from concurrent.futures import ProcessPoolExecutor
 from pathlib import Path
+from typing import Optional
 
 from repro_torch.analysis import memory_model
 from repro_torch.analysis import roofline as roofline_lib
 from repro_torch.configs import ARCHS, SHAPES, applicable, get_config
+from repro_torch.dist import sharding as shd
 from repro_torch.launch.cells import build_cell
 from repro_torch.launch.costing import (count, count_costs, depth_variants, extrapolate,
                                         shared_bytes, storage_bytes)
+from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.models.moe import mode_name
 
-# the reference's rule sets; only the default runs on one device
-RULE_SETS = ("default", "tp", "ep", "moe_local", "moe_sp", "moe_sp_tp", "ep_local")
-M12B = "distribution (M12b) is not yet ported"
+RULE_SETS = shd.RULE_SETS
+MESHES = {"one": [None], "single": [False], "multi": [True], "both": [False, True]}
 
 
-def run_cell(arch: str, shape_name: str, multi_pod: bool = False,
+def record_tag(arch: str, shape: str, multi_pod: Optional[bool] = None,
+               rules: str = "default") -> str:
+    """A record's file name (no suffix)."""
+    if multi_pod is None:
+        return f"{arch}__{shape}__single"
+    return (f"{arch}__{shape}__{'2x16x16' if multi_pod else '16x16'}"
+            + ("" if rules == "default" else f"__{rules}"))
+
+
+def run_cell(arch: str, shape_name: str, multi_pod: Optional[bool] = None,
              rules_name: str = "default", grad_accum: int = 1,
              remat: bool = True, cost_pass: bool = True) -> dict:
-    if multi_pod:
-        raise NotImplementedError(f"a multi-pod mesh: {M12B}")
-    if rules_name != "default":
-        raise NotImplementedError(f"rules {rules_name!r}: {M12B}")
+    """One cell's record: on the port's one device (``multi_pod`` None), or
+    on the reference's 16 × 16 (False) or 2 × 16 × 16 (True) mesh."""
+    if multi_pod is None and rules_name != "default":
+        raise ValueError(f"rules {rules_name!r} need a production mesh (--mesh single, "
+                         "multi or both)")
     shape = SHAPES[shape_name]
     cfg = get_config(arch)
-    rec = {"arch": arch, "shape": shape_name, "mesh": "1",
+    rec = {"arch": arch, "shape": shape_name,
+           "mesh": "1" if multi_pod is None else "2x16x16" if multi_pod else "16x16",
            "rules": rules_name, "ok": False}
     if not applicable(shape, cfg):
         rec.update(ok=True, skipped=True,
@@ -77,7 +108,9 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False,
     try:
         # ---- production pass --------------------------------------------
         t0 = time.time()
-        cell = build_cell(arch, shape_name, **kw)
+        mesh = None if multi_pod is None else make_production_mesh(multi_pod=multi_pod)
+        rules = RULE_SETS[rules_name]
+        cell = build_cell(arch, shape_name, mesh, rules, **kw)
         t1 = time.time()
         argument_bytes = storage_bytes(cell.args)
         outputs, prod_costs, peak = count(cell.fn, *cell.args)
@@ -97,13 +130,17 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False,
             },
             production_costs_scan_body_once=prod_costs,
         )
+        if cfg.is_moe and mesh is not None:       # the mode the MoE blocks ran in
+            rec["moe_mode"] = mode_name(
+                mesh, cell.rules, shape.global_batch // grad_accum,
+                1 if shape.kind == "decode" else shape.seq_len, cfg.num_experts)
         del outputs
         # ---- cost pass (two depths, extrapolated) ------------------------
         if cost_pass:
             d1, d2, n1, n_full = depth_variants(cfg)
             costs = []
             for dcfg in (d1, d2):
-                c = build_cell(arch, shape_name, cfg=dcfg, **kw)
+                c = build_cell(arch, shape_name, mesh, rules, cfg=dcfg, **kw)
                 costs.append(count_costs(c.fn, *c.args))
             total = extrapolate(costs[0], costs[1], n1, n_full)
             bytes_model = memory_model.estimate_bytes(
@@ -113,7 +150,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False,
                 bytes_per_device=total["bytes"],
                 bytes_model_per_device=bytes_model,
                 collectives=total["collectives"],
-                chips=1, model_flops=cell.model_flops)
+                chips=1 if mesh is None else mesh.size(), model_flops=cell.model_flops)
             rec["roofline"] = report.to_dict()
             rec["cost_depths"] = [d1.num_layers, d2.num_layers, n_full]
     except Exception as e:  # a failed cell is a bug — record it loudly
@@ -123,17 +160,20 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False,
 
 
 def run(archs, shapes, out: str, rules: str = "default", grad_accum: int = 1,
-        remat: bool = True, cost_pass: bool = True) -> list:
-    """Every (arch, shape) cell → its record, each written to
-    ``{out}/{arch}__{shape}__single.json`` and reported on one line, in
-    order.  The cells run in worker processes, one a core: each is Python
-    dispatch on the host, and they share nothing."""
-    if rules != "default":
-        raise NotImplementedError(f"rules {rules!r}: {M12B}")
+        remat: bool = True, cost_pass: bool = True, mesh: str = "one") -> list:
+    """Every (arch, shape, mesh) cell → its record, each written to
+    ``{out}/{record_tag}.json`` and reported on one line, in order.  The
+    cells run in worker processes, one a core: each is Python dispatch on
+    the host, and they share nothing (each worker makes its own fake
+    group)."""
+    if mesh == "one" and rules != "default":
+        raise ValueError(f"--rules {rules} needs a production mesh (--mesh single, "
+                         "multi or both)")
     outdir = Path(out)
     outdir.mkdir(parents=True, exist_ok=True)
-    cells = [(arch, shape) for arch in archs for shape in shapes]
-    job = functools.partial(run_cell, multi_pod=False, rules_name=rules,
+    cells = [(arch, shape, multi) for arch in archs for shape in shapes
+             for multi in MESHES[mesh]]
+    job = functools.partial(run_cell, rules_name=rules,
                             grad_accum=grad_accum, remat=remat, cost_pass=cost_pass)
     workers = min(len(cells), len(os.sched_getaffinity(0)))
     with contextlib.ExitStack() as stack:
@@ -144,8 +184,8 @@ def run(archs, shapes, out: str, rules: str = "default", grad_accum: int = 1,
         else:
             results = map(job, *zip(*cells))
         records = []
-        for (arch, shape), rec in zip(cells, results):
-            tag = f"{arch}__{shape}__single"
+        for (arch, shape, multi), rec in zip(cells, results):
+            tag = record_tag(arch, shape, multi, rules)
             (outdir / f"{tag}.json").write_text(json.dumps(rec, indent=2))
             status = ("SKIP" if rec.get("skipped")
                       else "OK" if rec["ok"] else "FAIL")
@@ -164,7 +204,7 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="all")
     ap.add_argument("--shape", default="all")
-    ap.add_argument("--mesh", default="single", choices=["single", "multi", "both"])
+    ap.add_argument("--mesh", default="one", choices=list(MESHES))
     ap.add_argument("--rules", default="default", choices=list(RULE_SETS))
     ap.add_argument("--grad-accum", type=int, default=1)
     ap.add_argument("--no-remat", action="store_true")
@@ -172,13 +212,12 @@ def main(argv=None) -> None:
                     help="production pass only (skip the roofline cost pass)")
     ap.add_argument("--out", default="out/dryrun")
     args = ap.parse_args(argv)
-    if args.mesh != "single":
-        raise NotImplementedError(f"--mesh {args.mesh}: {M12B}; use --mesh single")
 
     archs = list(ARCHS) if args.arch == "all" else args.arch.split(",")
     shapes = list(SHAPES) if args.shape == "all" else args.shape.split(",")
     records = run(archs, shapes, args.out, args.rules, grad_accum=args.grad_accum,
-                  remat=not args.no_remat, cost_pass=not args.no_cost_pass)
+                  remat=not args.no_remat, cost_pass=not args.no_cost_pass,
+                  mesh=args.mesh)
     n_ok = sum(r["ok"] for r in records)
     n_fail = len(records) - n_ok
     print(f"dry-run complete: {n_ok} ok, {n_fail} failed")

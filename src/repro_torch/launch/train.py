@@ -3,12 +3,22 @@
 Trains an assigned architecture (optionally depth/width-reduced to a
 ~100M-param config) with the training stack: AdamW, remat, the data
 pipeline, async checkpoints, restart recovery and straggler monitoring, on
-one device — the card unless ``--device cpu`` (no mesh and no shardings;
-``--model-parallel`` above 1 waits for the port's distribution layer,
-ROADMAP M12).  Same flags and printed lines as the reference, plus
-``--device`` and ``--layers`` (a depth cut at full width, for archs whose
-whole state does not fit one card: recurrentgemma-9b at 6 layers, rwkv6-7b
-at 8).
+a (world / mp, mp) ("data", "model") mesh over every rank
+(``launch/mesh.py``) — the card and ``nccl`` unless ``--device cpu``
+(``gloo``).  Parameters and optimizer state are laid out by
+``TRAIN_RULES``, the global batch is built on every rank from the seed and
+sharded over the batch axes, and the step runs under the rules'
+activation sharding.  One device (one process, ``--model-parallel 1``)
+joins no group and places nothing: the step runs on plain tensors, and the
+printed mesh is the reference's 1 × 1.  On one card only that runs; more
+ranks run on CPU groups:
+
+  torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.train \\
+      --smoke --steps 3 --device cpu --model-parallel 2
+
+Same flags and printed lines as the reference, plus ``--device`` and
+``--layers`` (a depth cut at full width, for archs whose whole state does
+not fit one card: recurrentgemma-9b at 6 layers, rwkv6-7b at 8).
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch granite-3-2b \\
       --reduce --steps 200 --batch 8 --seq 128
@@ -17,21 +27,26 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import math
 import os
 import tempfile
 import time
 from typing import Callable, Dict
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from repro_torch import resolve_device
 from repro_torch.configs import get_config
+from repro_torch.dist import sharding as shd
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import build_model, reduced
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.registry import count_params, param_shapes
-from repro_torch.training.data import DataConfig, host_batch
+from repro_torch.training.data import DataConfig, batch_axes, host_batch
 from repro_torch.training.ft import RunnerConfig, TrainingRunner
-from repro_torch.training.optimizer import OptimizerConfig
+from repro_torch.training.optimizer import OptimizerConfig, opt_state_axes
 from repro_torch.training.step import init_train_state, make_train_step
 
 
@@ -56,25 +71,50 @@ def model_config(arch: str, *, reduce: bool = False, smoke: bool = False,
     return dataclasses.replace(cfg, num_layers=layers) if layers else cfg
 
 
-def make_init_state_fn(model, seed: int = 0) -> Callable[[], Dict]:
+def state_shardings(model, mesh, rules=shd.TRAIN_RULES) -> Dict:
+    """The train state's placements on ``mesh`` (``{"params", "opt"}``)."""
+    params, opt = init_train_state(build_model(model.cfg, "meta"), torch.Generator())
+    p_axes = model.logical_axes()
+    return {"params": shd.tree_shardings(params, p_axes, rules, mesh),
+            "opt": shd.tree_shardings(opt, opt_state_axes(p_axes), rules, mesh)}
+
+
+def make_init_state_fn(model, seed: int = 0, mesh=None, placements=None) -> Callable[[], Dict]:
+    """→ the initial state from ``seed``; with ``mesh`` and ``placements``
+    (``state_shardings``) laid out on the mesh, every rank keeping its
+    block of the same numbers."""
     def init_state_fn():
         params, opt = init_train_state(model, torch.Generator(model.device).manual_seed(seed))
-        return {"params": params, "opt": opt}
+        state = {"params": params, "opt": opt}
+        return state if mesh is None else shd.distribute_tree(state, placements, mesh)
     return init_state_fn
 
 
+def _local(v):
+    return v.full_tensor() if isinstance(v, DTensor) else v
+
+
 def make_step_fn(model, opt_cfg: OptimizerConfig, data_cfg: DataConfig, *,
-                 grad_accum: int = 1, remat: bool = True) -> Callable:
+                 grad_accum: int = 1, remat: bool = True, mesh=None,
+                 rules=shd.TRAIN_RULES) -> Callable:
     """→ step_fn(state, step) = (state, metrics as floats): step ``step``'s
-    batch from the data pipeline through one train step."""
+    batch from the data pipeline through one train step; with ``mesh`` the
+    batch sharded over the batch axes and the step under ``rules``."""
     train_step = make_train_step(model, opt_cfg, grad_accum=grad_accum, remat=remat)
 
     def step_fn(state, step):
         batch = host_batch(data_cfg, model.cfg, step)
-        params, opt, metrics = train_step(state["params"], state["opt"], batch)
-        return {"params": params, "opt": opt}, {k: float(v) for k, v in metrics.items()}
+        if mesh is None:
+            params, opt, metrics = train_step(state["params"], state["opt"], batch)
+        else:
+            batch = {k: torch.as_tensor(v).to(model.device) for k, v in batch.items()}
+            batch = shd.shard_tree(batch, batch_axes(batch), rules, mesh)
+            with shd.activation_sharding(mesh, rules):
+                params, opt, metrics = train_step(state["params"], state["opt"], batch)
+        return {"params": params, "opt": opt}, {k: float(_local(v)) for k, v in metrics.items()}
 
     return step_fn
+
 
 
 def main(argv=None) -> None:
@@ -97,30 +137,51 @@ def main(argv=None) -> None:
     ap.add_argument("--layers", type=int, default=0,
                     help="keep the config's first N layers, at its width (0: all)")
     args = ap.parse_args(argv)
-    if args.model_parallel != 1:
-        raise NotImplementedError("--model-parallel above 1 needs the port's distribution "
-                                  "layer (ROADMAP M12); the port trains on one device")
 
     device = resolve_device(args.device)
+    world = (dist.get_world_size() if dist.is_initialized()
+             else int(os.environ.get("WORLD_SIZE", 1)))
+    if world == 1 and args.model_parallel == 1:
+        _train(args, device, None)             # one device: no group, plain tensors
+        return
+    joined = dist.is_initialized()
+    try:
+        _train(args, device, make_host_mesh(args.model_parallel, device=args.device))
+    finally:
+        if not joined and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _train(args, device, mesh) -> None:
+    """Train on ``mesh`` (every rank), or with ``mesh`` None on one device."""
+    if device.type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
     cfg = model_config(args.arch, reduce=args.reduce, smoke=args.smoke, layers=args.layers)
     model = build_model(cfg, device)
     opt_cfg = OptimizerConfig(learning_rate=args.lr,
                               warmup_steps=max(args.steps // 10, 1),
                               total_steps=args.steps)
     data_cfg = DataConfig(global_batch=args.batch, seq_len=args.seq)
-    step_fn = make_step_fn(model, opt_cfg, data_cfg, grad_accum=args.grad_accum)
+    placements = state_shardings(model, mesh) if mesh is not None else None
+    step_fn = make_step_fn(model, opt_cfg, data_cfg, grad_accum=args.grad_accum, mesh=mesh)
+    rank0 = mesh is None or dist.get_rank() == 0
 
     n_params = count_params(param_shapes(model))
-    print(f"arch={cfg.name} params={n_params/1e6:.1f}M "
-          f"devices=1 mesh={{'data': 1, 'model': 1}}")
+    if rank0:
+        sizes = shd.mesh_sizes(mesh) if mesh is not None else {"data": 1, "model": 1}
+        print(f"arch={cfg.name} params={n_params/1e6:.1f}M "
+              f"devices={math.prod(sizes.values())} mesh={sizes}")
 
     runner = TrainingRunner(
         RunnerConfig(ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
                      max_steps=args.steps),
-        step_fn, make_init_state_fn(model), device=device)
+        step_fn, make_init_state_fn(model, mesh=mesh, placements=placements),
+        device=device, placements=placements, mesh=mesh)
     t0 = time.time()
     result = runner.run()
     dt = time.time() - t0
+    if not rank0:
+        return
     losses = [m["loss"] for m in result["metrics"] if "loss" in m]
     print(f"done: {result['final_step']} steps in {dt:.1f}s "
           f"({dt / max(len(losses), 1):.3f}s/step)")

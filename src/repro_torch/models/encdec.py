@@ -32,10 +32,12 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
+from repro_torch.dist.sharding import (constrain_act, embed_lookup, set_prefix, set_rows,
+                                       take_rows)
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import _index, _split
+from repro_torch.models.transformer import _index, _split, stack_axes
 
 
 class EncDecLM:
@@ -90,6 +92,24 @@ class EncDecLM:
             params[norm] = group(norm, shapes[norm])
         return params
 
+    def logical_axes(self) -> Dict[str, Any]:
+        """Logical sharding axes of ``init``'s tree, keyed as the reference's."""
+        enc = {"ln1": L.rmsnorm_axes(), "attn": L.attention_axes(),
+               "ln2": L.rmsnorm_axes(), "ffn": L.mlp_axes()}
+        dec = {"ln1": L.rmsnorm_axes(), "attn": L.attention_axes(),
+               "lnx": L.rmsnorm_axes(), "xattn": L.attention_axes(),
+               "ln2": L.rmsnorm_axes(), "ffn": L.mlp_axes()}
+        return {"embed": ("vocab", "embed"), "enc_layers": stack_axes(enc),
+                "enc_norm": L.rmsnorm_axes(), "dec_layers": stack_axes(dec),
+                "final_norm": L.rmsnorm_axes()}
+
+    def cache_axes(self) -> Dict[str, Any]:
+        """Logical sharding axes of ``init_cache``'s tree."""
+        kv = ("batch", "kv", "kv_heads", "head_dim")
+        return {"lengths": ("batch",),
+                "self": stack_axes({"k": kv, "v": kv, "slot_pos": ("batch", "kv")}),
+                "cross_k": ("layers",) + kv, "cross_v": ("layers",) + kv}
+
     def _layer(self, params, stack: str, i: int):
         """Layer i of ``stack`` in the activation dtype."""
         return L.cast_layer_params(_index(params[stack], i), self.cfg.activation_dtype)
@@ -106,6 +126,7 @@ class EncDecLM:
         positions = self._positions(*x.shape[:2])
         for p in _split(params["enc_layers"]):
             p = L.cast_layer_params(p, c.activation_dtype)
+            x = constrain_act(x, "batch", "seq", "act_embed")
             h = L.rmsnorm(p["ln1"], x, c.norm_eps)
             x = x + L.attention_apply(p["attn"], h, positions, rope_theta=c.rope_theta,
                                       causal=False)
@@ -115,7 +136,7 @@ class EncDecLM:
 
     def _embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
         act = self.cfg.activation_dtype
-        x = params["embed"][tokens].to(act)
+        x = embed_lookup(params["embed"], tokens).to(act)
         # the scale is rounded to the activation dtype first, as in the reference
         return x * torch.tensor(math.sqrt(self.cfg.d_model), dtype=act, device=x.device)
 
@@ -137,6 +158,7 @@ class EncDecLM:
         here."""
         c = self.cfg
         p = L.cast_layer_params(p, c.activation_dtype)
+        x = constrain_act(x, "batch", "seq", "act_embed")
         h = L.rmsnorm(p["ln1"], x, c.norm_eps)
         x = x + L.attention_apply(p["attn"], h, positions, rope_theta=c.rope_theta,
                                   causal=True, lengths=lengths)
@@ -197,13 +219,14 @@ class EncDecLM:
         cks, cvs = [], []
         for i in range(c.num_layers):
             p, lc = self._layer(params, "dec_layers", i), _index(cache["self"], i)
+            x = constrain_act(x, "batch", "seq", "act_embed")
             h = L.rmsnorm(p["ln1"], x, c.norm_eps)
             y, (k, v) = L.attention_apply(p["attn"], h, positions, rope_theta=c.rope_theta,
                                           causal=True, lengths=lengths, return_kv=True)
             x = x + y
-            lc["k"][:, :S] = k
-            lc["v"][:, :S] = v
-            lc["slot_pos"][:, :S] = slot_pos
+            set_prefix(lc["k"], k)
+            set_prefix(lc["v"], v)
+            set_prefix(lc["slot_pos"], slot_pos)
             ck, cv = L.cross_attention_kv(p["xattn"], enc_out)
             x = self._cross_ffn(p, x, (ck, cv))
             cks.append(ck)
@@ -213,7 +236,7 @@ class EncDecLM:
         cache["cross_v"] = torch.stack(cvs).to(dtype)
         cache["lengths"] = lengths.clone()
         x = L.rmsnorm(params["final_norm"], x, c.norm_eps)
-        last = x[torch.arange(B, device=x.device), (lengths - 1).clamp(min=0).long()]
+        last = take_rows(x, (lengths - 1).clamp(min=0).long())
         return cache, self._logits(params, last)
 
     # ------------------------------------------------------------ decode step
@@ -233,15 +256,15 @@ class EncDecLM:
         scan = torch.clamp(q_pos + 1, max=W).to(torch.int32)
         for i in range(c.num_layers):
             p, lc = self._layer(params, "dec_layers", i), _index(cache["self"], i)
+            x = constrain_act(x, "batch", "seq", "act_embed")
             h = L.rmsnorm(p["ln1"], x, c.norm_eps)
             q = L.rope(L.project(h, p["attn"]["wq"]), q_pos[:, None], c.rope_theta)
             k_new = L.rope(L.project(h, p["attn"]["wk"]), q_pos[:, None], c.rope_theta)
             v_new = L.project(h, p["attn"]["wv"])
             # a masked read-modify-write: no host sync, no out-of-range index
-            keep = inside[:, None, None]
-            lc["k"][b, slot] = torch.where(keep, k_new[:, 0].to(lc["k"].dtype), lc["k"][b, slot])
-            lc["v"][b, slot] = torch.where(keep, v_new[:, 0].to(lc["v"].dtype), lc["v"][b, slot])
-            lc["slot_pos"][b, slot] = torch.where(inside, q_pos, lc["slot_pos"][b, slot])
+            set_rows(lc["k"], b, slot, k_new[:, 0].to(lc["k"].dtype), inside)
+            set_rows(lc["v"], b, slot, v_new[:, 0].to(lc["v"].dtype), inside)
+            set_rows(lc["slot_pos"], b, slot, q_pos, inside)
             # not a ring: slots past q_pos are empty, so the scan stops at
             # min(q_pos + 1, W)
             out = ops.decode_attention(

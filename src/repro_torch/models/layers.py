@@ -14,6 +14,7 @@ from typing import Any, Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.sharding import constrain_attn_q, merge_dims, split_last
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import _softcap
 
@@ -51,6 +52,12 @@ def embed_init(gen: torch.Generator, vocab: int, d: int, dtype,
 # --------------------------------------------------------------------------
 # RMSNorm, RoPE (the softcap is the kernels' plain one, ``ref._softcap``)
 # --------------------------------------------------------------------------
+def rmsnorm_axes() -> Params:
+    """Logical sharding axes of ``rmsnorm``'s parameters
+    (``repro_torch.dist.sharding``), as the reference's."""
+    return {"scale": ("embed",)}
+
+
 def rmsnorm(params: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     x32 = x.float()
     var = x32.square().mean(dim=-1, keepdim=True)
@@ -102,16 +109,24 @@ def attend(q, k, v, q_pos, k_pos, *, causal: bool, window: int = 0,
     return out.reshape(B, S, H, hd).to(q.dtype)
 
 
+def attention_axes() -> Params:
+    return {
+        "wq": ("embed", "heads", "head_dim"),
+        "wk": ("embed", "kv_heads", "head_dim"),
+        "wv": ("embed", "kv_heads", "head_dim"),
+        "wo": ("heads", "head_dim", "embed"),
+    }
+
+
 def project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x: (B, S, D) @ w: (D, H, hd) → (B, S, H, hd)."""
     D, H, hd = w.shape
-    return (x @ w.reshape(D, H * hd)).view(*x.shape[:-1], H, hd)
+    return split_last(x @ merge_dims(w, 1), (H, hd))
 
 
 def project_out(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     """out: (B, S, H, hd) @ wo: (H, hd, D) → (B, S, D)."""
-    H, hd, D = wo.shape
-    return out.reshape(*out.shape[:-2], H * hd) @ wo.reshape(H * hd, D)
+    return merge_dims(out, out.dim() - 2) @ merge_dims(wo, 0)
 
 
 def attention_apply(params: Params, x: torch.Tensor, positions: torch.Tensor,
@@ -124,7 +139,7 @@ def attention_apply(params: Params, x: torch.Tensor, positions: torch.Tensor,
     position 0, which the kernel's causal mask assumes); ``lengths`` (B,)
     masks keys of right-padded prompts.  With ``return_kv`` also returns the
     roped k and v, (B, S, K, hd) each."""
-    q = rope(project(x, params["wq"]), positions, rope_theta)
+    q = constrain_attn_q(rope(project(x, params["wq"]), positions, rope_theta))
     k = rope(project(x, params["wk"]), positions, rope_theta)
     v = project(x, params["wv"])
     out = ops.flash_attention(
@@ -151,7 +166,7 @@ def cross_attention_apply(params: Params, x: torch.Tensor, kv) -> torch.Tensor:
     positions: the query may see every t < T)."""
     k, v = kv
     B, S = x.shape[:2]
-    q = project(x, params["wq"])
+    q = constrain_attn_q(project(x, params["wq"]))
     if S == 1:
         full = torch.full((B,), k.shape[1], dtype=torch.int32, device=x.device)
         out = ops.decode_attention(q[:, 0], k.transpose(1, 2), v.transpose(1, 2),
@@ -165,6 +180,10 @@ def cross_attention_apply(params: Params, x: torch.Tensor, kv) -> torch.Tensor:
 # --------------------------------------------------------------------------
 # gated MLP (SwiGLU)
 # --------------------------------------------------------------------------
+def mlp_axes() -> Params:
+    return {"wi": ("embed", "ffn"), "wg": ("embed", "ffn"), "wo": ("ffn", "embed")}
+
+
 def mlp_apply(params: Params, x: torch.Tensor) -> torch.Tensor:
     h = x @ params["wi"]
     g = x @ params["wg"]

@@ -21,6 +21,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.sharding import pointwise
 from repro_torch.kernels import ops
 from repro_torch.models.layers import dense_init
 
@@ -33,6 +34,17 @@ def rglru_shapes(d: int, r: int) -> Dict[str, Tuple[int, ...]]:
     return {"w_x_in": (d, r), "w_y_in": (d, r), "conv": (CONV_WIDTH, r),
             "w_a": (r, r), "w_i": (r, r), "b_a": (r,), "b_i": (r,),
             "lam": (r,), "w_out": (r, d)}
+
+
+def rglru_axes() -> Dict:
+    """Logical sharding axes of one block's parameters, as the reference's."""
+    return {
+        "w_x_in": ("embed", "rnn"), "w_y_in": ("embed", "rnn"),
+        "conv": (None, "rnn"),
+        "w_a": ("rnn", "rnn_in"), "w_i": ("rnn", "rnn_in"),
+        "b_a": ("rnn",), "b_i": ("rnn",), "lam": ("rnn",),
+        "w_out": ("rnn", "embed"),
+    }
 
 
 def rglru_init(gen: torch.Generator, d: int, r: int, dtype, device,
@@ -62,7 +74,7 @@ def _gates(p: Dict, hx: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     h32 = hx.float()
     r_gate = torch.sigmoid(h32 @ p["w_a"].float() + p["b_a"].float())
     i_gate = torch.sigmoid(h32 @ p["w_i"].float() + p["b_i"].float())
-    log_a = C_CONST * r_gate * F.logsigmoid(p["lam"].float())
+    log_a = C_CONST * r_gate * pointwise(F.logsigmoid, p["lam"].float())
     a = torch.exp(log_a)
     beta = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12))
     return a, beta * (i_gate * h32)

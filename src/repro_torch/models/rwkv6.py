@@ -19,7 +19,9 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
+from repro_torch.dist.sharding import local_call, take_rows
 from repro_torch.kernels import ops
 from repro_torch.models.layers import dense_init
 
@@ -37,6 +39,20 @@ def rwkv_shapes(d: int, d_ff: int, head_dim: int) -> Dict[str, Tuple[int, ...]]:
                    "decay_b": (DECAY_LORA, d), "bonus_u": (d // head_dim, head_dim),
                    "ln_out": (d,), "w_ck": (d, d_ff), "w_cv": (d_ff, d)})
     return shapes
+
+
+def rwkv_axes() -> Dict:
+    """Logical sharding axes of one layer's parameters, as the reference's."""
+    e, f = "embed", "ffn"
+    return {
+        "mu_r": (e,), "mu_k": (e,), "mu_v": (e,), "mu_g": (e,), "mu_w": (e,),
+        "w_r": (e, "embed_out"), "w_k": (e, "embed_out"), "w_v": (e, "embed_out"),
+        "w_g": (e, "embed_out"), "w_o": ("embed_out", e),
+        "decay_w0": (e,), "decay_a": (e, None), "decay_b": (None, e),
+        "bonus_u": ("heads", None), "ln_out": (e,),
+        "mu_cr": (e,), "mu_ck": (e,),
+        "w_cr": (e, "embed_out"), "w_ck": (e, f), "w_cv": (f, e),
+    }
 
 
 def rwkv_init(gen: torch.Generator, d: int, d_ff: int, head_dim: int, dtype, device,
@@ -76,7 +92,15 @@ def init_state(batch: int, d: int, head_dim: int, dtype, device,
 
 
 def wkv_step(r, k, v, logw, u, state0) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One decode step.  r/k/v/logw: (B, H, N); state0: (B, H, N, N) fp32."""
+    """One decode step.  r/k/v/logw: (B, H, N); state0: (B, H, N, N) fp32.
+    On DTensors it runs on the local blocks, batch and heads as sharded."""
+    if isinstance(r, DTensor):
+        mesh = r.device_mesh
+        pl = tuple(p if isinstance(p, Shard) and p.dim < 2 else Replicate()
+                   for p in r.placements)
+        u_pl = tuple(Shard(0) if p == Shard(1) else Replicate() for p in pl)
+        return local_call(wkv_step, mesh, (r, k, v, logw, u, state0),
+                          (pl,) * 4 + (u_pl, pl), (pl, pl))
     rr, kk, vv = r.float(), k.float(), v.float()
     o = (torch.einsum("bhd,bhde->bhe", rr, state0)
          + (rr * u.float() * kk).sum(-1, keepdim=True) * vv)
@@ -103,7 +127,7 @@ def _shift(x: torch.Tensor, prev: torch.Tensor) -> torch.Tensor:
 def _last_valid(x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """x at each row's last valid position (position 0 for an empty row)."""
     lens = valid.sum(dim=1)
-    return x[torch.arange(x.shape[0], device=x.device), (lens - 1).clamp(min=0)]
+    return take_rows(x, (lens - 1).clamp(min=0))
 
 
 def _log_decay(p: Dict, xw: torch.Tensor) -> torch.Tensor:

@@ -38,6 +38,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
+from repro_torch.dist.sharding import (constrain_act, copy_into, embed_lookup, set_prefix,
+                                       set_rows, take_rows)
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models import moe, rglru, rwkv6
@@ -64,7 +66,14 @@ def _split(node: Dict[str, Any]) -> List[Dict[str, Any]]:
 def _write(dst: Dict[str, Any], src: Dict[str, Any]) -> None:
     """Copy every leaf of ``src`` into the same leaf of ``dst``, in place."""
     for k, v in src.items():
-        _write(dst[k], v) if isinstance(v, dict) else dst[k].copy_(v)
+        _write(dst[k], v) if isinstance(v, dict) else copy_into(dst[k], v)
+
+
+def stack_axes(axes_tree):
+    """Every axes leaf with the stacked "layers" axis in front."""
+    if isinstance(axes_tree, dict):
+        return {k: stack_axes(v) for k, v in axes_tree.items()}
+    return ("layers",) + tuple(axes_tree)
 
 
 class DecoderLM:
@@ -174,6 +183,42 @@ class DecoderLM:
                 "final_norm": {"scale": torch.ones((c.d_model,), dtype=dt, device=dev)},
                 **self._stacked(layer)}
 
+    # ------------------------------------------------------------------ axes
+    def _layer_axes(self, kind: str, lead) -> Dict[str, Any]:
+        p: Dict[str, Any] = {"ln1": L.rmsnorm_axes(), "ln2": L.rmsnorm_axes()}
+        if kind == RGLRU:
+            p["rec"] = rglru.rglru_axes()
+        elif kind == RWKV6:
+            p["tm_cm"] = rwkv6.rwkv_axes()
+        else:
+            p["attn"] = L.attention_axes()
+        if kind != RWKV6:
+            p["ffn"] = moe.moe_axes() if self.cfg.is_moe else L.mlp_axes()
+        return stack_axes(p) if lead else p
+
+    def logical_axes(self) -> Dict[str, Any]:
+        """Logical sharding axes of ``init``'s tree (``repro_torch.dist``),
+        keyed as the reference's."""
+        return {"embed": ("vocab", "embed"), "final_norm": L.rmsnorm_axes(),
+                **self._stacked(self._layer_axes)}
+
+    def _layer_cache_axes(self, kind: str, lead) -> Dict[str, Any]:
+        if kind == RGLRU:
+            p = {"s": ("batch", "rnn"), "conv": ("batch", None, "rnn")}
+        elif kind == RWKV6:
+            p = {"tm": {"shift": ("batch", "act_embed"),
+                        "wkv": ("batch", "heads", None, None)},
+                 "cm": ("batch", "act_embed")}
+        else:
+            p = {"k": ("batch", "kv", "kv_heads", "head_dim"),
+                 "v": ("batch", "kv", "kv_heads", "head_dim"),
+                 "slot_pos": ("batch", "kv")}
+        return stack_axes(p) if lead else p
+
+    def cache_axes(self) -> Dict[str, Any]:
+        """Logical sharding axes of ``init_cache``'s tree."""
+        return {"lengths": ("batch",), **self._stacked(self._layer_cache_axes)}
+
     def _layer_params(self, params) -> List[Dict[str, Any]]:
         """Every layer's subtree of ``params``, in order, each stacked leaf
         taken apart once (``_split``): the full-sequence pass's view."""
@@ -192,12 +237,12 @@ class DecoderLM:
         """Scaled token embeddings, after ``prefix_embeds`` (B, P, D) cast to
         the activation dtype and left unscaled, as in the reference."""
         act = self.cfg.activation_dtype
-        x = params["embed"][tokens].to(act)
+        x = embed_lookup(params["embed"], tokens).to(act)
         # the scale is rounded to the activation dtype first, as in the reference
         x = x * torch.tensor(math.sqrt(self.cfg.d_model), dtype=act, device=x.device)
         if prefix_embeds is not None:
             x = torch.cat([prefix_embeds.to(device=x.device, dtype=act), x], dim=1)
-        return x
+        return constrain_act(x, "batch", "seq", "act_embed")
 
     def _logits(self, params, x: torch.Tensor) -> torch.Tensor:
         logits = x.float() @ params["embed"].float().T
@@ -233,6 +278,7 @@ class DecoderLM:
         weights ``p`` cast here → (x, the MoE block's aux loss or None)."""
         c = self.cfg
         p = L.cast_layer_params(p, c.activation_dtype)
+        x = constrain_act(x, "batch", "seq", "act_embed")
         B = x.shape[0]
         # as in the reference: each recurrent layer starts from a zero state
         # and the recurrence does not mask padding
@@ -312,10 +358,10 @@ class DecoderLM:
         B, S = positions.shape
         W = lc["k"].shape[1]
         if W >= S:
-            lc["k"][:, :S] = k
-            lc["v"][:, :S] = v
+            set_prefix(lc["k"], k)
+            set_prefix(lc["v"], v)
             valid = positions < lengths[:, None]
-            lc["slot_pos"][:, :S] = torch.where(valid, positions, -1)
+            set_prefix(lc["slot_pos"], torch.where(valid, positions, -1))
         else:
             # Ring buffer: slot s must hold the *latest valid* position
             # p ≡ s (mod W).  A gather (one winner per slot):
@@ -326,9 +372,9 @@ class DecoderLM:
             ok = (last >= 0) & (lens > 0)
             gidx = last.clamp(0, S - 1)
             b = torch.arange(B, device=x.device)[:, None]
-            lc["k"].copy_(k[b, gidx])
-            lc["v"].copy_(v[b, gidx])
-            lc["slot_pos"].copy_(torch.where(ok, last, -1))
+            copy_into(lc["k"], k[b, gidx])
+            copy_into(lc["v"], v[b, gidx])
+            copy_into(lc["slot_pos"], torch.where(ok, last, -1))
         return x + y
 
     def _attn_decode(self, p, x, q_pos, window, lc):
@@ -343,9 +389,9 @@ class DecoderLM:
         W = lc["k"].shape[1]
         slot = (q_pos % W).long()
         b = torch.arange(B, device=x.device)
-        lc["k"][b, slot] = k_new[:, 0].to(lc["k"].dtype)
-        lc["v"][b, slot] = v_new[:, 0].to(lc["v"].dtype)
-        lc["slot_pos"][b, slot] = q_pos
+        set_rows(lc["k"], b, slot, k_new[:, 0].to(lc["k"].dtype))
+        set_rows(lc["v"], b, slot, v_new[:, 0].to(lc["v"].dtype))
+        set_rows(lc["slot_pos"], b, slot, q_pos)
         # round k/v to the cache dtype, then attend in q's dtype (as the
         # reference's kc.astype(q.dtype)).  Slots past q_pos are empty until
         # the ring wraps, so the scan stops at min(q_pos + 1, W).
@@ -409,6 +455,7 @@ class DecoderLM:
         valid = positions < lengths[:, None]
         for i, kind in enumerate(self.kinds):
             p, lc = self._layer(params, i), self._at(cache, i)
+            x = constrain_act(x, "batch", "seq", "act_embed")
             if kind == RWKV6:
                 x, new = self._rwkv_seq(p, x, lc, valid)
                 _write(lc, new)
@@ -423,7 +470,7 @@ class DecoderLM:
         # Gather the last valid hidden state *before* the vocab product: the
         # reference computes (B, S, V) logits and then gathers, the same
         # numbers at S times the memory (21 GB for gemma2-2b at B=4, S=5120).
-        last = x[torch.arange(B, device=x.device), (lengths - 1).clamp(min=0).long()]
+        last = take_rows(x, (lengths - 1).clamp(min=0).long())
         return cache, self._logits(params, last)
 
     # ------------------------------------------------------------ decode step
@@ -433,6 +480,7 @@ class DecoderLM:
         q_pos = cache["lengths"]
         for i, kind in enumerate(self.kinds):
             p, lc = self._layer(params, i), self._at(cache, i)
+            x = constrain_act(x, "batch", "seq", "act_embed")
             if kind == RWKV6:
                 x = self._rwkv_decode(p, x, lc)
                 continue

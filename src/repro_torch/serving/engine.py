@@ -14,12 +14,24 @@ from typing import Callable, Optional
 
 import torch
 
+from repro_torch.dist import sharding as shd
 from repro_torch.models.config import ModelConfig
 
 
 def serving_config(cfg: ModelConfig) -> ModelConfig:
     """Inference variant: bf16 params (or the config's serve dtype)."""
     return dataclasses.replace(cfg, param_dtype=cfg.serve_param_dtype)
+
+
+def _new_cache(model, *args, **kw):
+    """``model.init_cache(*args, **kw)``; under a mesh placed by the model's
+    cache axes and the active rules, as the reference's prefill cell lays
+    out its cache."""
+    cache = model.init_cache(*args, **kw)
+    ctx = shd._ACT_CTX[0]
+    if ctx is not None:
+        cache = shd.shard_tree(cache, model.cache_axes(), ctx[1], ctx[0])
+    return cache
 
 
 def make_prefill_fn(model, max_len: Optional[int] = None) -> Callable:
@@ -36,9 +48,9 @@ def make_prefill_fn(model, max_len: Optional[int] = None) -> Callable:
         if cfg.is_encdec:
             if frames is None:
                 raise ValueError(f"{cfg.name}: an encoder-decoder prefill needs frames")
-            cache = model.init_cache(B, cache_len, enc_len=frames.shape[1])
+            cache = _new_cache(model, B, cache_len, enc_len=frames.shape[1])
             return model.prefill(params, cache, tokens, lengths, frames=frames)
-        return model.prefill(params, model.init_cache(B, cache_len), tokens, lengths,
+        return model.prefill(params, _new_cache(model, B, cache_len), tokens, lengths,
                              prefix_embeds=patches)
     return prefill_step
 

@@ -11,8 +11,14 @@ Leaves are flattened in the order ``jax.tree_util`` gives a nested dict
 tree, and the manifest stores each leaf's key path where the reference
 stores its serialized treedef.  numpy has no bfloat16: a bf16 leaf is
 stored as its uint16 bits with ``"bfloat16"`` in the manifest.  Restore
-puts the leaves on a device (``device=``); restoring onto another mesh
-waits for the port's distribution layer (ROADMAP M12).
+puts the leaves on a device (``device=``).
+
+Under a device mesh the leaves are DTensors: ``save`` writes each whole
+(``full_tensor()``, gathered on every rank, written by rank 0 alone), as
+the reference writes whole numpy leaves, and ``restore(..., placements=,
+mesh=)`` places them on a target mesh that may differ from the writer's
+(the reference's elastic resharding).  Every rank calls ``save`` and
+``restore``; the ranks share the checkpoint directory.
 """
 from __future__ import annotations
 
@@ -25,8 +31,20 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from repro_torch.training.tree import flatten, tree_map, unflatten
+
+
+def _writer() -> bool:
+    """This process writes checkpoints: rank 0, or the only process."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _whole(leaf):
+    """A DTensor leaf gathered whole (a collective: every rank calls it)."""
+    return leaf.full_tensor() if isinstance(leaf, DTensor) else leaf
 
 
 def _key_str(i: int) -> str:
@@ -56,8 +74,10 @@ def _to_tensor(arr: np.ndarray, dtype: str, device) -> torch.Tensor:
 
 def save(ckpt_dir: str, step: int, tree: Any, *, host_id: int = 0) -> Path:
     """Synchronous save with atomic rename."""
-    items = flatten(tree)
+    items = [(path, _whole(leaf)) for path, leaf in flatten(tree)]
     final = Path(ckpt_dir) / f"step_{step:08d}"
+    if not _writer():
+        return final
     tmp = Path(str(final) + ".tmp")
     if tmp.exists():
         shutil.rmtree(tmp)
@@ -93,8 +113,11 @@ class AsyncCheckpointer:
 
     def save(self, step: int, tree: Any) -> None:
         self.wait()
+        whole = tree_map(_whole, tree)
+        if not _writer():
+            return
         snapshot = tree_map(lambda x: x.detach().to("cpu", copy=True)
-                            if isinstance(x, torch.Tensor) else np.array(x), tree)
+                            if isinstance(x, torch.Tensor) else np.array(x), whole)
         self._thread = threading.Thread(
             target=save, args=(self.ckpt_dir, step, snapshot), daemon=True)
         self._thread.start()
@@ -115,13 +138,16 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
 
 
 def restore(ckpt_dir: str, *, step: Optional[int] = None, target: Optional[Any] = None,
-            device=None) -> Tuple[int, Any]:
+            device=None, placements: Optional[Any] = None,
+            mesh=None) -> Tuple[int, Any]:
     """Restore a checkpoint → (step, tree of tensors).
 
     ``target`` (a tree of the same structure) supplies the key paths; without
     it the manifest's are used (a checkpoint the reference wrote has none, so
     it needs ``target``).  Leaves go to ``device``, or else to the target's
-    leaves' devices, or stay on the CPU."""
+    leaves' devices, or stay on the CPU.  With ``placements`` (a tree of the
+    same structure, ``dist.sharding.tree_shardings``'s) and ``mesh`` each
+    leaf becomes a DTensor on ``mesh``, each rank keeping its block."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -147,13 +173,18 @@ def restore(ckpt_dir: str, *, step: Optional[int] = None, target: Optional[Any] 
         devices = [device] * n
     leaves = [_to_tensor(data[_key_str(i)], manifest["dtypes"][i], devices[i])
               for i in range(n)]
+    if placements is not None:
+        from repro_torch.dist.sharding import distribute
+        places = [place for _, place in flatten(placements)]
+        leaves = [distribute(t.to(mesh.device_type), mesh, place)
+                  for t, place in zip(leaves, places)]
     return step, unflatten(zip(paths, leaves))
 
 
 def cleanup(ckpt_dir: str, keep: int = 3) -> None:
     """Retain only the newest ``keep`` checkpoints (GC for long runs)."""
     root = Path(ckpt_dir)
-    if not root.exists():
+    if not _writer() or not root.exists():
         return
     steps = sorted(p for p in root.glob("step_*") if not p.name.endswith(".tmp"))
     for p in steps[:-keep]:

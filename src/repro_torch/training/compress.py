@@ -2,9 +2,10 @@
 symmetric quantization with a per-leaf scale and an error-feedback buffer
 (residual accumulation), the standard trick for pushing gradient all-reduce
 bytes down ~4×.  ``torch.round`` rounds half to even, as ``jnp.round``
-does.  The reference's ``compressed_psum`` (the int8 wire-format reduce
-inside ``shard_map``) needs a process group and waits for the port's
-distribution layer (ROADMAP M12).
+does.  :func:`compressed_psum` is the int8 wire-format reduce over a
+``torch.distributed`` group, the reference's ``psum``/``pmax`` inside
+``shard_map``: on one card it runs over a group of one (``nccl``), across
+ranks it is held to the reference on ``gloo`` CPU groups.
 """
 from __future__ import annotations
 
@@ -41,3 +42,17 @@ def compress_grads_with_feedback(grads: Any, error: Optional[Any]) -> Tuple[Any,
 
     out = tree_map(one, grads, error)
     return tree_map(lambda t: t[0], out), tree_map(lambda t: t[1], out)
+
+
+def compressed_psum(g: torch.Tensor, group=None) -> torch.Tensor:
+    """int8-on-the-wire gradient all-reduce over ``group`` (default: the
+    world): quantize locally, all-reduce the int8 payload widened to int32
+    (a sum of ≤ world int8 values fits), all-reduce the scale by MAX, then
+    dequantize with the max scale."""
+    import torch.distributed as dist
+    q, scale = quantize(g)
+    total = q.to(torch.int32)
+    dist.all_reduce(total, op=dist.ReduceOp.SUM, group=group)
+    max_scale = scale.clone()
+    dist.all_reduce(max_scale, op=dist.ReduceOp.MAX, group=group)
+    return total.to(torch.float32) * max_scale

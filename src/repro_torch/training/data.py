@@ -57,6 +57,19 @@ def _synthetic_tokens(gen: torch.Generator, b: int, seq: int, vocab: int) -> np.
     return toks.T.astype(np.int32)
 
 
+# the reference's logical axes of a batch's leaves (``dist.sharding``); a
+# leaf of fewer dims takes the leading ones
+BATCH_AXES = {"tokens": ("batch", "seq"), "labels": ("batch", "seq"),
+              "loss_mask": ("batch", "seq"), "lengths": ("batch",),
+              "frames": ("batch", "seq", "act_embed"),
+              "patches": ("batch", "seq", "act_embed")}
+
+
+def batch_axes(batch) -> Dict[str, tuple]:
+    """``BATCH_AXES`` for the leaves of ``batch``."""
+    return {k: BATCH_AXES[k][:v.ndim] for k, v in batch.items()}
+
+
 def host_batch(cfg: DataConfig, model_cfg: ModelConfig, step: int) -> Dict[str, np.ndarray]:
     """This host's shard of the global batch for ``step`` (pure function)."""
     assert cfg.global_batch % cfg.n_hosts == 0

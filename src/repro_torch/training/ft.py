@@ -8,8 +8,10 @@
     hook decides,
   · failure injection for tests (deterministic, per step).
 Recovery restores the state from the checkpoint's own key paths onto
-``device`` (the reference restores onto its target's structure and
-shardings); the failed state is dropped first, so the card never holds two.
+``device``, or with ``placements`` and ``mesh`` (where the reference takes
+``shardings``) onto that mesh; the failed state is dropped first, so the
+card never holds two.  Under a mesh every rank runs the loop, and they meet
+at a barrier before a restart reads the checkpoint rank 0 wrote.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ import time
 from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
+import torch.distributed as dist
 
 from repro_torch import resolve_device
 from repro_torch.training import checkpoint as ckpt_lib
@@ -70,8 +73,10 @@ class TrainingRunner:
 
     def __init__(self, cfg: RunnerConfig, step_fn: Callable,
                  init_state_fn: Callable[[], Any], device=None,
-                 on_straggler: Optional[Callable[[List[int]], None]] = None):
+                 on_straggler: Optional[Callable[[List[int]], None]] = None,
+                 placements: Optional[Any] = None, mesh=None):
         self.cfg = cfg
+        self.placements, self.mesh = placements, mesh
         self.step_fn = step_fn
         self.init_state_fn = init_state_fn
         self.device = resolve_device(device)
@@ -86,7 +91,8 @@ class TrainingRunner:
         last = ckpt_lib.latest_step(self.cfg.ckpt_dir)
         if last is None:
             return 0, self.init_state_fn()
-        return ckpt_lib.restore(self.cfg.ckpt_dir, step=last, device=self.device)
+        return ckpt_lib.restore(self.cfg.ckpt_dir, step=last, device=self.device,
+                                placements=self.placements, mesh=self.mesh)
 
     # ---- main loop ----------------------------------------------------------
     def run(self) -> Dict[str, Any]:
@@ -118,6 +124,8 @@ class TrainingRunner:
             except SimulatedFailure:
                 # crash/restart path: reload the latest durable checkpoint
                 self.ckpt.wait()
+                if dist.is_initialized():
+                    dist.barrier()
                 restarts += 1
                 state = None
                 step, state = self._load_or_init()

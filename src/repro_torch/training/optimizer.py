@@ -51,6 +51,12 @@ def init_opt_state(params: Any) -> Dict:
             "step": torch.zeros((), dtype=torch.int32, device=device)}
 
 
+def opt_state_axes(param_axes: Any) -> Dict:
+    """Logical axes of the optimizer state: the parameters' for ``m`` and
+    ``v``, none for ``step``."""
+    return {"m": param_axes, "v": param_axes, "step": ()}
+
+
 def global_norm(tree: Any) -> torch.Tensor:
     return torch.sqrt(torch.stack([x.float().square().sum() for x in leaves(tree)]).sum())
 

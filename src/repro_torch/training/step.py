@@ -14,6 +14,7 @@ from __future__ import annotations
 from typing import Any, Callable, Dict, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.training import losses
@@ -44,6 +45,15 @@ def make_loss_fn(model, remat: bool = True) -> Callable:
     return loss_fn
 
 
+def _placed_as(g, p):
+    """A DTensor gradient laid out as its parameter (a partial sum over a
+    mesh axis becomes a reduce-scatter or an all-reduce), as the
+    reference's step returns gradients in the parameters' shardings."""
+    if isinstance(g, DTensor) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
 def make_grad_fn(model, *, grad_accum: int = 1, remat: bool = True) -> Callable:
     """→ grad_fn(params, batch) = (grads, {"ce", "aux"}): the gradient of
     the loss, averaged over ``grad_accum`` microbatches (summed in fp32,
@@ -61,7 +71,7 @@ def make_grad_fn(model, *, grad_accum: int = 1, remat: bool = True) -> Callable:
         grads = []
         for path, p in alias:
             g = next(got) if p.requires_grad else None
-            grads.append((path, torch.zeros_like(p) if g is None else g))
+            grads.append((path, torch.zeros_like(p) if g is None else _placed_as(g, p)))
         return unflatten(grads), {k: v.detach() for k, v in aux.items()}
 
     def grad_fn(params, batch):

@@ -99,10 +99,14 @@ def test_cell_matches_reference_and_counts_model_flops(arch, kind, mesh):
 
 
 def test_rules_and_meshes_other_than_one_device_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="M12b"):
+    """Rules other than one device's need a mesh: a cell given rules and no
+    mesh, and the one-device dry-run (``--mesh one``, the default) given
+    rules, raise and write nothing (the production meshes take every rule
+    set: tests/test_torch_sharding.py)."""
+    with pytest.raises(ValueError, match="mesh"):
         cells.build_cell("gemma2-2b", "decode_32k", rules=object())
-    for argv in (["--mesh", "multi"], ["--mesh", "both"], ["--rules", "tp"]):
-        with pytest.raises(NotImplementedError, match="M12b"):
+    for argv in (["--rules", "tp"], ["--mesh", "one", "--rules", "ep_local"]):
+        with pytest.raises(ValueError, match="production mesh"):
             dryrun.main(argv + ["--out", str(tmp_path)])
     assert not list(tmp_path.iterdir())
 

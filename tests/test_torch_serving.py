@@ -142,6 +142,12 @@ def test_port_source_imports_neither_jax_nor_reference(path):
     assert not IMPORT.findall(path.read_text())
 
 
+def test_the_import_guard_covers_the_distribution_modules():
+    scanned = set(PORT.rglob("*.py"))
+    assert {PORT / "dist" / "__init__.py", PORT / "dist" / "sharding.py",
+            PORT / "launch" / "mesh.py"} <= scanned
+
+
 def test_entry_points_need_a_card_unless_cpu_is_asked(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = reduced(get_config("gemma2-2b"))

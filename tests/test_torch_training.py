@@ -434,9 +434,14 @@ def test_train_smoke_prints_the_reference_s_lines(tmp_path):
 
 
 def test_model_parallel_waits_for_m12():
+    """Model parallelism now runs on a mesh of every rank (M12b,
+    tests/test_torch_dist.py runs it on 4); one process cannot split into
+    2 model-parallel ranks, and says so, leaving no group behind."""
+    import torch.distributed as dist
     from repro_torch.launch import train
-    with pytest.raises(NotImplementedError, match="M12"):
+    with pytest.raises(ValueError, match="model parallel 2"):
         train.main(["--smoke", "--model-parallel", "2", "--device", "cpu"])
+    assert not dist.is_initialized()
 
 
 def test_training_entry_points_need_a_card_unless_cpu_is_asked(monkeypatch):
