@@ -157,10 +157,10 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 path and a float64-attention control (TRAIN_DRIFT), launch
                 counts exact; granite-3-2b at full width and depth (fp32
                 masters, 4 x 2048, remat) for 3 steps, step times and peaks;
-                ``launch/train.py`` with examples/train_100m.py's flags (the
-                loss's last tenth a nat below its first), then 50 steps
-                killed at step 30 and restored: the final state bitwise that
-                of a run without the failure;
+                ``launch/train.py`` with examples_torch/train_100m.py's
+                flags (the loss's last tenth a nat below its first), then 50
+                steps killed at step 30 and restored: the final state
+                bitwise that of a run without the failure;
  19. train    — the hybrid and RWKV6 families: K3's backward
                 (``rglru_scan_bwd.cu``) at recurrentgemma-9b's training shape
                 (B 4 × 2048, R 4096) in fp32 and bf16, on the ring of bulk
@@ -237,8 +237,32 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 loss's router term in another order than without a mesh, so
                 the step is held to TRAIN_DRIFT × the distance from the
                 control of the step without a mesh, launches exact;
+ 22. examples — the port's example flows (``examples_torch/``): (a)
+                ``serve_benchmark``'s main at full width, gemma2-2b's 26
+                layers behind the none, tfs and tris policies of its sweep:
+                every request of the workload served under each policy, the
+                metrics finite, none's mean batch 1, K1 and K2 launched
+                exactly as the batches served ask (phase 5's count, with its
+                4 decode steps), K3, K4, K5 and the backward kernels not at
+                all; its table printed under the card's name and power
+                limit; then, outside the timed run, the flow's own shapes (a
+                prefill of each batch size its policies emit, 1 to 8, of its
+                32-token prompts and one decode step into its 64-slot cache)
+                with every K1 and K2 call held to the plain version in
+                float64, each limit ratio at most 1; (b) the ten flows that run on the host (the
+                simulator, the planner, the session on the roofline model,
+                the scheduler, the roofline report over the dry-run records
+                of tests/golden_torch_examples/dryrun), each from a temporary
+                working directory, their stdout equal to the reference's
+                golden text in tests/golden_torch_examples/ byte for byte
+                (in quickstart's tables, a run of rows that tie on the sort
+                key as a multiset, UNORDERED_ROWS), and observe_flash_crowd's
+                two files equal to the reference's by SHA-256; (c) phase 18 (d) and 19 (d)
+                take their flags from examples_torch/train_100m.py; seconds
+                printed;
 then a ``kernels`` JSON line (``hook_launches``: phase 11's,
-``plan_hook_launches``: phase 12's; phase 18's and 19's records name the run
+``plan_hook_launches``: phase 12's, ``examples_launches``: phase 22's on
+gemma2-2b's K1 and K2; phase 18's and 19's records name the run
 their ``launches`` were counted on), and last the ``ok`` JSON line.
 Needs one card; imports nothing of JAX or of the JAX package.
 """
@@ -246,6 +270,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
 import json
 import os
 import re
@@ -568,12 +593,16 @@ def read_launches():
     return {name: mod.launches for name, mod in counters().items()}
 
 
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip().splitlines()[0]
+
+
 def phase_device():
     import torch
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip().splitlines()[0]
-    print(smi)
+    print(card())
     name = torch.cuda.get_device_name(0)
     cap = torch.cuda.get_device_capability(0)
     print(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
@@ -1531,7 +1560,6 @@ def phase_serving(arch: str):
     from repro_torch.serving.engine import serving_config
     from repro_torch.serving.workload import WorkloadSpec, generate
     cfg = serving_config(get_config(arch))
-    n_attn, n_rec, n_rwkv = layer_counts(cfg)
     spec = SERVE[arch]
     policy = make_policy("tris")
     wl = WorkloadSpec(kind="poisson", seed=0, **spec)
@@ -1544,16 +1572,21 @@ def phase_serving(arch: str):
           f"decode_steps={DECODE_STEPS} {json.dumps(res)} launches={json.dumps(launches)}")
     require(res["requests"] == len(generate(wl)), "every request served")
     require(all(np.isfinite(v) for v in res.values()), "finite serving metrics")
-    # run_server warms up with one prefill and one decode step at each batch
-    # size the policy emits, then runs a prefill and decode_steps − 1 steps
-    # per batch
+    want = served_launches(cfg, policy, res, DECODE_STEPS)
+    require(launches == want, f"serving launches {launches} != {want}")
+
+
+def served_launches(cfg, policy, res: dict, decode_steps: int) -> dict:
+    """The launches of each kernel in one ``run_server`` call: it warms up
+    with one prefill and one decode step at each batch size the policy
+    emits, then runs a prefill and decode_steps − 1 steps per batch."""
+    n_attn, n_rec, n_rwkv = layer_counts(cfg)
     warm = len({1, getattr(policy, "max_batch", 1), *getattr(policy, "preferred", (1,))})
     batches = round(res["requests"] / res["mean_batch"])
-    want = {"flash_attention": n_attn * (batches + warm),
-            "decode_attention": n_attn * ((DECODE_STEPS - 1) * batches + warm),
+    return {"flash_attention": n_attn * (batches + warm),
+            "decode_attention": n_attn * ((decode_steps - 1) * batches + warm),
             "rglru_scan": n_rec * (batches + warm), "wkv6": n_rwkv * (batches + warm),
             "int8_matmul": 0}
-    require(launches == want, f"serving launches {launches} != {want}")
 
 
 def held_on_grid(tag: str, batches, seqs) -> dict:
@@ -2116,9 +2149,6 @@ TRAIN_DRIFT = 2.0
 TRAIN_CHECKS = {"granite-3-2b": dict(layers=4, batch=2, seq=2048),
                 "gemma2-2b": dict(layers=2, batch=2, seq=4608)}
 TRAIN_SLICE = dict(arch="granite-3-2b", batch=4, seq=2048, steps=3)
-# examples/train_100m.py's flags
-TRAIN_100M = ["--arch", "granite-3-2b", "--reduce", "--steps", "200", "--batch", "8",
-              "--seq", "256", "--lr", "3e-3", "--ckpt-every", "50"]
 
 
 def per_head_group(fn, q, k, v, dout, lengths=None, **kw):
@@ -2767,10 +2797,10 @@ def train_slice(arch: str, layers: int = 0, batch: int = 4, seq: int = 2048, ste
 
 def train_learns(tmp: str, arch: str = "granite-3-2b", restart: bool = True):
     """Phases 18 (d) and 19 (d): ``launch/train.py``'s main on ``arch``'s
-    ~100M config with examples/train_100m.py's other flags, the loss's last
-    tenth at least 1 nat below its first; then (``restart``) 50 steps killed
-    at step 30 and restored from the step-20 checkpoint give the parameters
-    and optimizer state of 50 steps without a failure."""
+    ~100M config with examples_torch/train_100m.py's other flags, the loss's
+    last tenth at least 1 nat below its first; then (``restart``) 50 steps
+    killed at step 30 and restored from the step-20 checkpoint give the
+    parameters and optimizer state of 50 steps without a failure."""
     import contextlib
     import io
     import torch
@@ -2783,12 +2813,14 @@ def train_learns(tmp: str, arch: str = "granite-3-2b", restart: bool = True):
     from repro_torch.training.tree import flatten
     cfg = train.model_config(arch, reduce=True)
     used = train_kernels(cfg)
-    flags = ["--arch", arch] + TRAIN_100M[2:]
+    flags = example("train_100m").arguments(
+        ["--arch", arch, "--ckpt-dir", f"{tmp}/{arch}-100m", "--device", "cuda"])
+    steps = int(flags[flags.index("--steps") + 1])
     out = io.StringIO()
     reset_launches()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(out):
-        train.main(flags + ["--ckpt-dir", f"{tmp}/{arch}-100m", "--device", "cuda"])
+        train.main(flags)
     learn_s = time.perf_counter() - t0
     lines = out.getvalue().splitlines()
     for line in lines:
@@ -2796,7 +2828,7 @@ def train_learns(tmp: str, arch: str = "granite-3-2b", restart: bool = True):
     first, last = map(float, re.search(r"first10=(\S+) last10=(\S+)", lines[-1]).groups())
     launched = train_launches_read(used)
     require(last <= first - 1.0, f"the {arch} 100M run learns: last tenth {last}, first {first}")
-    want = {k: (2 * n * 200, n * 200) for k, n in used.items()}
+    want = {k: (2 * n * steps, n * steps) for k, n in used.items()}
     require(launched == want, f"{arch} 100M launches {launched}, want {want}")
     note = ""
     if restart:
@@ -2817,7 +2849,7 @@ def train_learns(tmp: str, arch: str = "granite-3-2b", restart: bool = True):
         require(same, f"{arch}: the restarted run's final state bitwise the uninterrupted run's")
         note = (f"; 50 steps killed at 30 and restored from step 20: final params, m, v and "
                 f"step bitwise those of the uninterrupted run ({len(pairs)} leaves)")
-    print(f"[train] {arch} 100M: 200 steps in {learn_s:.1f} s, loss first tenth {first}, last "
+    print(f"[train] {arch} 100M: {steps} steps in {learn_s:.1f} s, loss first tenth {first}, last "
           f"tenth {last}; launches (forward, backward) {launched}{note}")
     return launched
 
@@ -3768,6 +3800,201 @@ def phase_dist(one_records) -> None:
     print(f"[dist] phase 21 s={time.perf_counter() - t0:.1f}")
 
 
+# Phase 22: the example flows on the port.  The golden texts are the
+# reference's stdout (examples/*.py on the CPU), which
+# tests/test_torch_examples_sim.py holds both the reference and the port to,
+# byte for byte; flows.json names each flow's arguments and the files it
+# writes, with their SHA-256.
+EXAMPLES = ROOT / "examples_torch"
+GOLDEN = ROOT / "tests" / "golden_torch_examples"
+# quickstart's followers run concurrently and PerfDB keeps its records in the
+# order they complete (in the reference as in the port), so jobs whose
+# results tie on a table's sort key may print in either order.  Its ties are
+# jobs of one spec (api-job and quickstart-14), whose rows print the same
+# but for the job id: each run of such rows is compared as a multiset.
+# Every other row keeps its place, also where its rounded sort key prints as
+# its neighbour's.
+UNORDERED_ROWS = ("quickstart",)
+
+
+def example(name: str):
+    """``examples_torch/<name>.py`` as a module (the folder is no package)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(f"examples_torch_{name}",
+                                                  EXAMPLES / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def golden_flows() -> dict:
+    """case → {"flow", "args", "files"}: flows.json, ``{golden}`` in an
+    argument replaced by the golden directory."""
+    flows = json.loads((GOLDEN / "flows.json").read_text())
+    for case in flows.values():
+        case["args"] = [a.format(golden=GOLDEN) for a in case.get("args", [])]
+    return flows
+
+
+def flow_dir(tmp) -> Path:
+    """A working directory for a flow: the profiles resolve in its
+    ``configs/``, and the files a flow writes land in it."""
+    (Path(tmp) / "configs").symlink_to(ROOT / "configs")
+    return Path(tmp)
+
+
+def flow_output(run, workdir) -> str:
+    """The stdout of ``run()`` with ``workdir`` as the working directory."""
+    import io
+    here = os.getcwd()
+    out = io.StringIO()
+    os.chdir(workdir)
+    try:
+        with contextlib.redirect_stdout(out):
+            run()
+    finally:
+        os.chdir(here)
+    return out.getvalue()
+
+
+def settled(text: str) -> str:
+    """``text`` with each run of consecutive lines that are equal but for
+    their first word sorted: the order concurrent followers may leave."""
+    def but_the_first_word(line):
+        words = line.split(None, 1)
+        return words[1] if len(words) == 2 else (line,)
+    return "\n".join(line for _, run in itertools.groupby(text.split("\n"),
+                                                         but_the_first_word)
+                     for line in sorted(run))
+
+
+def against_golden(case: str, text: str) -> tuple:
+    """(``text``, ``case``'s golden text), ties settled where the flow is
+    one of UNORDERED_ROWS: equal when the flow printed its golden."""
+    want = (GOLDEN / f"{case}.txt").read_text()
+    if case in UNORDERED_ROWS:
+        return settled(text), settled(want)
+    return text, want
+
+
+def held_to_golden(case: str, text: str) -> None:
+    """Raises, with the lines that differ, unless ``text`` is ``case``'s
+    golden text."""
+    import difflib
+    got, want = against_golden(case, text)
+    require(got == want, f"{case} differs from its golden:\n" + "\n".join(
+        difflib.unified_diff(want.split("\n"), got.split("\n"), "golden", "printed",
+                             lineterm="", n=0)))
+
+
+def sha256(path) -> str:
+    import hashlib
+    return hashlib.sha256(Path(path).read_bytes()).hexdigest()
+
+
+def examples_serve() -> dict:
+    """Phase 22 (a): serve_benchmark at full width on the card."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.serving.workload import generate
+    sb = example("serve_benchmark")
+    cfg = sb.model_config("cuda")
+    full = get_config("gemma2-2b")
+    require((cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.vocab_size)
+            == (full.num_layers, full.d_model, full.num_heads, full.vocab_size),
+            "serve_benchmark serves gemma2-2b at full width")
+    print(f"[examples] serve_benchmark on {card()}:")
+    reset_launches()
+    t0 = time.perf_counter()
+    rows = sb.main([])
+    serve_s = time.perf_counter() - t0
+    launches = read_launches()
+    backward = {k: counters()[k].launches_bwd for k in BACKWARD.values()}
+    n = len(generate(sb.BASE.workload))
+    want = {k: 0 for k in KERNELS}
+    for policy, res in rows:
+        require(res["requests"] == n, f"{policy.name}: {res['requests']} of {n} requests served")
+        require(all(np.isfinite(v) for v in res.values()), f"{policy.name}: finite metrics")
+        for k, v in served_launches(cfg, policy, res, sb.DECODE_STEPS).items():
+            want[k] += v
+    require([p.name for p, _ in rows] == ["none", "tfs-window", "tris-preferred"],
+            f"policies {[p.name for p, _ in rows]}")
+    require(rows[0][1]["mean_batch"] == 1.0, "none serves one request a batch")
+    print(f"[examples] serve_benchmark: {len(rows)} policies x {n} requests in {serve_s:.1f} s "
+          f"({cfg.name}, {cfg.num_layers} layers, max_len {sb.MAX_LEN}: K2 reads a "
+          f"{sb.MAX_LEN}-slot cache), launches {json.dumps(launches)}, backward "
+          f"{json.dumps(backward)}")
+    require(launches == want, f"serve_benchmark launches {launches} != {want}")
+    require(not any(backward.values()), f"no backward kernel launched: {backward}")
+    torch.cuda.empty_cache()
+    examples_checked(sb, max(getattr(p, "max_batch", 1) for p, _ in rows))
+    return launches
+
+
+def examples_checked(sb, max_batch: int) -> None:
+    """serve_benchmark's own shapes, outside its timed run: its card config
+    with run_server's weights (seed 0), a prefill of each batch size 1 to
+    ``max_batch`` of its prompts and one decode step into its MAX_LEN-slot
+    cache, every K1 and K2 call held to the plain version in float64
+    (``checked_kernels``), each limit ratio at most 1.  These launches come
+    after the counts are read and are not counted."""
+    import torch
+    from repro_torch.kernels.decode_attention import plan_splits
+    from repro_torch.models import build_model
+    cfg = sb.model_config("cuda")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    S = sb.BASE.workload.prompt_tokens
+    rng = np.random.default_rng(0)
+    worst = {}
+    for B in range(1, max_batch + 1):
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S))
+                                  .astype(np.int32)).cuda()
+        lengths = torch.full((B,), S, dtype=torch.int32, device="cuda")
+        prefill_and_step(model, params, tokens, lengths, sb.MAX_LEN, {},
+                         checked_kernels(worst, {}))
+    splits = {B: plan_splits(B, cfg.num_kv_heads, sb.MAX_LEN, cfg.head_dim, 2)[0]
+              for B in range(1, max_batch + 1)}
+    print(f"[examples] serve_benchmark's shapes (B 1..{max_batch} x {S} tokens, "
+          f"max_len {sb.MAX_LEN}, K2 splits {json.dumps(splits)}): per-call limit ratio "
+          f"{json.dumps(worst)} (fail above 1)")
+    require(set(worst) == {"flash_attention", "decode_attention"},
+            f"K1 and K2 held on serve_benchmark's shapes: {sorted(worst)}")
+    require(all(r <= 1.0 for r in worst.values()),
+            "every K1 and K2 call on serve_benchmark's shapes within the limit")
+    del model, params
+    torch.cuda.empty_cache()
+
+
+def examples_host() -> None:
+    """Phase 22 (b): the ten flows that run on the host, against their
+    goldens."""
+    import tempfile
+    for case, flow in golden_flows().items():
+        main = example(flow["flow"]).main
+        with tempfile.TemporaryDirectory() as tmp:
+            workdir = flow_dir(tmp)
+            t0 = time.perf_counter()
+            got = flow_output(lambda: main(flow["args"]), workdir)
+            held_to_golden(case, got)
+            files = {f: sha256(workdir / f) for f in flow.get("files", {})}
+        require(files == flow.get("files", {}), f"{case}: files {files} != the reference's")
+        print(f"[examples] {case}: {len(got.splitlines())} lines as the golden"
+              f"{', files equal' if files else ''} in {time.perf_counter() - t0:.1f} s")
+
+
+def phase_examples() -> dict:
+    """Phase 22: (a) and (b); (c) is phase 18 (d) and 19 (d) reading
+    examples_torch/train_100m.py."""
+    import torch
+    t0 = time.perf_counter()
+    launches = examples_serve()
+    torch.cuda.empty_cache()
+    examples_host()
+    print(f"[examples] phase 22 s={time.perf_counter() - t0:.1f}")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3864,6 +4091,9 @@ def main() -> int:
     # phase 21: distribution
     torch.cuda.empty_cache()
     phase_dist(one_records)
+    # phase 22: the example flows
+    torch.cuda.empty_cache()
+    examples = phase_examples()
     src = "src/repro_torch/kernels/csrc/"
     replaces = {"flash_attention": "src/repro/kernels/flash_attention.py:94",
                 "decode_attention": "src/repro/kernels/decode_attention.py:73",
@@ -3884,7 +4114,9 @@ def main() -> int:
                           if arch == "calibration" else
                           f"generate, {MODEL_RUNS[arch]['layers']} layers"
                           if MODEL_RUNS.get(arch, {}).get("layers") else "generate"),
-             hook_launches=hook[kernel], plan_hook_launches=plan_hook[kernel], **rec)
+             hook_launches=hook[kernel], plan_hook_launches=plan_hook[kernel],
+             **({"examples_launches": examples[kernel]} if arch == "gemma2-2b" else {}),
+             **rec)
         for (kernel, arch, variant), rec in records.items()] + [
         dict(name=kernel, model=arch, variant=variant, route="cuda",
              source=f"{src}{kernel}.cu",

@@ -136,6 +136,7 @@ def test_the_import_guard_sees_every_form():
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py"))
+                         + sorted((REPO / "examples_torch").glob("*.py"))
                          + [REPO / "chip_smoke.py", REPO / "parity_probe.py"],
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_port_source_imports_neither_jax_nor_reference(path):
