@@ -274,6 +274,7 @@ import itertools
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -633,6 +634,34 @@ def phase_build():
           "to 16 in one block (NG = 2 tiles of 8 heads above 8); combine_kernel "
           "merges the splits")
     require(not spilled, f"no kernel instantiation spills: {spilled}")
+    # K1's bf16 forward runs its products on wgmma (HGMMA in the SASS) at
+    # every head size; ptxas's note where it had to serialize them
+    k1 = {fn: ops for fn, ops in sass_ops(_build.BUILD_DIR / "libflash_attention.so").items()
+          if "wgmma" in fn}
+    serialized = [line.strip() for line in
+                  (_build.BUILD_DIR / "libflash_attention.log").read_text().splitlines()
+                  if "wgmma.mma_async instructions are serialized" in line]
+    print(f"[sass] flash_attention {json.dumps(k1)} serialized={len(serialized)}")
+    require(len(k1) == 3 and all(ops.get("HGMMA", 0) > 0 for ops in k1.values()),
+            f"K1's bf16 kernel runs wgmma at d 64, 128 and 256: {k1}")
+
+
+def sass_ops(lib: Path, ops=("HGMMA", "HMMA")) -> dict:
+    """{kernel function: {op: count}} of the SASS in ``lib``
+    (``cuobjdump -sass``), each function named without its namespaces."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : \w*?_cu_[0-9a-f]{8}\d+(\w+?_kernel)(I\w*?E)?", line)
+        if m:
+            fn = counts.setdefault(m[1] + (m[2] or ""), {})
+        elif fn is not None:
+            for op in ops:
+                if f" {op}." in line or f" {op} " in line:
+                    fn[op] = fn.get(op, 0) + 1
+    return counts
 
 
 def last_head_dropped(out, G: int):
@@ -644,6 +673,19 @@ def last_head_dropped(out, G: int):
     return f
 
 
+def flash_inputs(H: int, K: int, window: int, softcap: float, d: int = 256, prompts=PROMPTS):
+    """K1's inputs at a causal prefill: B ragged ``prompts`` padded to the
+    longest, H query heads on K kv heads of d, in the model's layout (B, S,
+    heads, d) handed over as transposed views → (q, k, v, kwargs)."""
+    import torch
+    B, S = len(prompts), max(prompts)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    q, k, v = (torch.randn((B, S, h, d), generator=g, device="cuda").to(torch.bfloat16)
+               .transpose(1, 2) for h in (H, K, K))
+    lengths = torch.tensor(prompts, dtype=torch.int32, device="cuda")
+    return q, k, v, dict(causal=True, window=window, softcap=softcap, lengths=lengths)
+
+
 def flash_case(arch: str, H: int, K: int, window: int, softcap: float, d: int = 256,
                prompts=PROMPTS):
     """K1 at the prefill shapes of ``arch``: B=4 ragged ``prompts`` padded to
@@ -652,12 +694,8 @@ def flash_case(arch: str, H: int, K: int, window: int, softcap: float, d: int = 
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     B, S = len(prompts), max(prompts)
-    g = torch.Generator(device="cuda").manual_seed(1)
-    # the model's layout: (B, S, heads, d), handed over as transposed views
-    q, k, v = (torch.randn((B, S, h, d), generator=g, device="cuda").to(torch.bfloat16)
-               .transpose(1, 2) for h in (H, K, K))
-    lengths = torch.tensor(prompts, dtype=torch.int32, device="cuda")
-    kw = dict(causal=True, window=window, softcap=softcap, lengths=lengths)
+    q, k, v, kw = flash_inputs(H, K, window, softcap, d, prompts)
+    lengths = kw["lengths"]
     got = fa.flash_attention(q, k, v, **kw)
     want = flash_want(q, k, v, **kw)
     # rows past a prompt's length are padding the model discards (a row
@@ -777,6 +815,15 @@ def decode_case(arch: str, H: int, K: int, T: int, window: int, softcap: float,
     return res
 
 
+def flash_cross_inputs(B: int, H: int, Sq: int, Skv: int, d: int):
+    """K1's inputs not causal, queries of Sq rows against Skv keys, H query
+    heads on as many kv heads, in the model's layout → (q, k, v)."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(3)
+    return tuple(torch.randn((B, n, H, d), generator=g, device="cuda").to(torch.bfloat16)
+                 .transpose(1, 2) for n in (Sq, Skv, Skv))
+
+
 def flash_cross_case(label: str, B: int, H: int, Sq: int, Skv: int, d: int):
     """K1 not causal and without lengths, queries of Sq rows against Skv keys
     (H query heads, as many kv heads): whisper-tiny's encoder (Sq = Skv) and
@@ -784,9 +831,7 @@ def flash_cross_case(label: str, B: int, H: int, Sq: int, Skv: int, d: int):
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
-    g = torch.Generator(device="cuda").manual_seed(3)
-    q, k, v = (torch.randn((B, n, H, d), generator=g, device="cuda").to(torch.bfloat16)
-               .transpose(1, 2) for n in (Sq, Skv, Skv))
+    q, k, v = flash_cross_inputs(B, H, Sq, Skv, d)
     got = fa.flash_attention(q, k, v, causal=False)
     want = flash_want(q, k, v, causal=False)
     err, ratio = held(got, want)
@@ -1986,7 +2031,6 @@ def phase_plan():
     configs: only the hook launches the port's kernels.  Nothing is caught."""
     import dataclasses as dc
     import os
-    import shutil
     import tempfile
 
     from repro_torch.calibrate.kernel_bench import kernel_registry
@@ -3904,10 +3948,27 @@ def examples_serve() -> dict:
             == (full.num_layers, full.d_model, full.num_heads, full.vocab_size),
             "serve_benchmark serves gemma2-2b at full width")
     print(f"[examples] serve_benchmark on {card()}:")
+    # the host's share of K1's calls: its wrapper's time from call to return
+    # (checks, tensor maps, launch), the kernel running on after it
+    from repro_torch.kernels import flash_attention as fa
+    wrapper, host_s = fa.flash_attention, []
+
+    def timed(*args, **kw):
+        t = time.perf_counter()
+        out = wrapper(*args, **kw)
+        host_s.append(time.perf_counter() - t)
+        return out
+
     reset_launches()
     t0 = time.perf_counter()
-    rows = sb.main([])
+    fa.flash_attention = timed
+    try:
+        rows = sb.main([])
+    finally:
+        fa.flash_attention = wrapper
     serve_s = time.perf_counter() - t0
+    print(f"[examples] K1's wrapper on the host: {1e6 * float(np.mean(host_s)):.2f} µs a call "
+          f"(median {1e6 * float(np.median(host_s)):.2f}) over {len(host_s)} calls")
     launches = read_launches()
     backward = {k: counters()[k].launches_bwd for k in BACKWARD.values()}
     n = len(generate(sb.BASE.workload))

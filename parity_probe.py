@@ -51,17 +51,25 @@ take measures to get there; each is a build-time switch in
 what each kernel sets before including it (K1 keeps three measures, K2
 none).  This script builds both kernels once per variant, a name and the
 switches it sets on nvcc's command line for both (``shipped`` sets none;
-with no arguments the variants are the shipped kernels and each measure
-that K1 keeps undone alone, ``UNDONE``, which leaves K2 as it ships), into
-``build/repro_torch/variants/<name>/``, and for each variant prints:
-- ptxas's registers and spill stores of every bf16 instantiation;
-- on gemma2-2b's and recurrentgemma-9b's own activations at full width
+with no arguments the variants are the shipped kernels and each of K1's
+measures set otherwise alone, ``UNDONE``, which leaves K2 as it ships; a
+variant ``NAME:SRC=DIR`` builds DIR's copy of the sources, a parent
+commit's, with no switches set), into ``build/repro_torch/variants/<name>/``,
+and for each variant prints:
+- ptxas's registers and spill stores of every bf16 instantiation, and how
+  many HGMMA and HMMA instructions (wgmma, mma.sync) K1's SASS holds;
+- on gemma2-2b's, recurrentgemma-9b's, granite-moe-3b-a800m's (d = 64) and
+  dbrx-132b's (d = 128, 4 layers) own activations at full width
   (``chip_smoke.py`` phase 4's random bf16 weights and prompts): the worst
   limit ratio of any K1 and any K2 call of a prefill and first decode step,
   each call against its float64 plain version as phase 4 holds it (above 1
-  fails), and the bf16 drift ratio of the logits (phase 4's limit: 1.1);
-- ``chip_smoke.py`` phase 3's K1 and K2 cases: limit ratio, planted-fault
-  ratios and times;
+  fails), and the bf16 drift ratio of the logits;
+- ``chip_smoke.py`` phase 3's K2 cases: limit ratio, planted-fault ratios
+  and times;
+- phase 3's K1 cases and phase 18's training shape (``K1_CASES``): limit
+  ratio, whether two calls give the same bits, the time by CUDA events
+  taken in turns (the variants in order, then in reverse) and each
+  launch's device time (``torch.profiler``);
 then, as its last line, one JSON object with all of it.  Nothing is held:
 a variant that fails a check is reported, and the next one runs.
 """
@@ -78,10 +86,16 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
 import chip_smoke as cs  # noqa: E402  (puts src/ on the path)
 
-# each parity measure that K1 keeps, undone (as K2 ships)
+# K1's parity measures one at a time, each set otherwise than K1 ships it
+# (K2 ships with none): P·V chained into the accumulator, or summed from
+# zero each k16 step instead of a tile; P in 2 bf16 parts; the fast
+# exponentials; Q·Kᵀ in chains of 8 k16 steps (two at d = 256) instead of
+# one
 UNDONE = {"pv_chained": {"PARITY_PV_FRESH": 0},
+          "pv_fresh_step": {"PARITY_PV_FRESH": 1},
           "p_two_parts": {"PARITY_P_PARTS": 2},
-          "fast_exp": {"PARITY_IEEE_EXP": 0}}
+          "fast_exp": {"PARITY_IEEE_EXP": 0},
+          "qk_chains_8": {"PARITY_QK_CHAIN": 8}}
 # K4 with fewer tf32 passes per product than the 3 it ships with: on every
 # product, or on those that give the outputs alone
 WKV_UNDONE = {"one_pass": {"WKV_TF32_PASSES": 1}, "two_passes": {"WKV_TF32_PASSES": 2},
@@ -97,7 +111,8 @@ WKV_BWD_UNDONE = {"bwd_one_pass": {"WKV_BWD_TF32_PASSES": 1},
 # per mode: the kernels built, the models whose activations hold them, the
 # default variants besides the shipped build
 MODES = {"attention": (("flash_attention", "decode_attention"),
-                       ("gemma2-2b", "recurrentgemma-9b"), UNDONE),
+                       ("gemma2-2b", "recurrentgemma-9b", "granite-moe-3b-a800m", "dbrx-132b"),
+                       UNDONE),
          "wkv6": (("wkv6",), ("rwkv6-7b",), WKV_UNDONE),
          "flash_bwd": (("flash_attention_bwd", "flash_attention"), (), BWD_VARIANTS),
          "recurrent_bwd": (("rglru_scan_bwd", "wkv6_bwd", "rglru_scan", "wkv6"), (),
@@ -149,7 +164,7 @@ def build(variants) -> dict:
             fn, spill = None, 0
             for line in (variant_dir(name) / f"lib{kernel}.log").read_text().splitlines():
                 if "Compiling entry function" in line:
-                    k1 = re.search(r"flash_bf16_kernelILi(\d+)E", line)
+                    k1 = re.search(r"flash_(?:bf16|wgmma)_kernelILi(\d+)E", line)
                     k2 = re.search(r"decode_kernelI13__nv_bfloat16Li(\d+)ELi(\d+)E", line)
                     k1b = re.search(r"\d(bwd_\w+?_kernel)I(f?)Li(\d+)E", line)
                     other = re.search(r"\d+(\w+_kernel)(I\w*?E)?", line)
@@ -162,6 +177,9 @@ def build(variants) -> dict:
                 elif fn and "Used" in line:
                     regs[fn] = [int(re.search(r"Used (\d+) registers", line)[1]), spill]
                     fn = None
+        if "flash_attention" in KERNELS:  # which instruction K1's bf16 products run on
+            regs["K1 sass"] = {fn: ops for fn, ops in cs.sass_ops(
+                variant_dir(name) / "libflash_attention.so").items() if "f32" not in fn}
     return report
 
 
@@ -186,8 +204,9 @@ def model_checks(arch: str, variants) -> dict:
     first decode step of ``arch`` on its own bf16 activations, and the drift
     ratio."""
     import torch
-    cfg, model, params, tokens, lengths, max_len = cs.model_setup(arch)
-    args = (params, tokens, lengths, max_len)
+    cfg, model, params, tokens, lengths, max_len, extra = cs.model_setup(
+        arch, cs.MODEL_RUNS.get(arch, {}))
+    args = (params, tokens, lengths, max_len, extra)
     *plain16, tok, _ = cs.prefill_and_step(model, *args, cs.plain_kernels())
     *plain32, _, _ = cs.prefill_and_step(cs.fp32_activations(cfg), *args,
                                          cs.plain_kernels(), tok)
@@ -214,9 +233,6 @@ def kernel_cases(variants) -> dict:
     cs.require = lambda cond, what: cond or failures.append(what)
     cases = {
         "attention": {
-            "K1 gemma2-2b window 4096": lambda: cs.flash_case("gemma2-2b", 8, 4, 4096, 50.0),
-            "K1 gemma2-2b global": lambda: cs.flash_case("gemma2-2b", 8, 4, 0, 50.0),
-            "K1 recurrentgemma-9b": lambda: cs.flash_case("recurrentgemma-9b", 16, 1, 2048, 0.0),
             "K2 gemma2-2b window 4096": lambda: cs.decode_case(
                 "gemma2-2b", 8, 4, 4736, 4096, 50.0, ring=False),
             "K2 gemma2-2b global": lambda: cs.decode_case(
@@ -238,6 +254,60 @@ def kernel_cases(variants) -> dict:
         out[name] = {case: {key: res[key] for key in keys if key in res}
                      for case, res in ((case, run()) for case, run in cases.items())}
         out[name]["failed_checks"] = list(failures)
+    return out
+
+
+# phase 3's K1 cases (and phase 18's training shape): (q, k, v, kwargs, rows
+# compared per sequence or None)
+K1_CASES = {
+    "K1 gemma2-2b window 4096": lambda: (*cs.flash_inputs(8, 4, 4096, 50.0), cs.PROMPTS),
+    "K1 gemma2-2b global": lambda: (*cs.flash_inputs(8, 4, 0, 50.0), cs.PROMPTS),
+    "K1 recurrentgemma-9b": lambda: (*cs.flash_inputs(16, 1, 2048, 0.0), cs.PROMPTS),
+    "K1 granite-moe-3b-a800m": lambda: (*cs.flash_inputs(24, 8, 0, 0.0, d=64), cs.PROMPTS),
+    "K1 dbrx-132b": lambda: (*cs.flash_inputs(48, 8, 0, 0.0, d=128), cs.PROMPTS),
+    "K1 whisper-tiny encoder": lambda: (*cs.flash_cross_inputs(4, 6, 1500, 1500, 64),
+                                        dict(causal=False), None),
+    "K1 whisper-tiny cross-attention": lambda: (*cs.flash_cross_inputs(4, 6, 432, 1500, 64),
+                                                dict(causal=False), None),
+    "K1 llava-next-34b": lambda: (*cs.flash_inputs(56, 8, 0, 0.0, d=128,
+                                                   prompts=cs.LLAVA_LENGTHS), cs.LLAVA_LENGTHS),
+    "K1 granite-3-2b train": lambda: (*cs.flash_inputs(32, 8, 0, 0.0, d=64,
+                                                       prompts=(2048,) * 4), None),
+}
+
+
+def k1_cases(variants) -> dict:
+    """Per variant, on each of ``K1_CASES``: the limit ratio against the
+    float64 plain version (computed once a case), whether two calls give
+    the same bits, the time by CUDA events (the variants in order, then in
+    reverse) and each launch's device time (``torch.profiler``)."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    out = {name: {} for name in variants}
+    for label, make in K1_CASES.items():
+        q, k, v, kw, rows = make()
+        want = cs.flash_want(q, k, v, **kw)
+        for name in variants:
+            use(name)
+            got, again = fa.flash_attention(q, k, v, **kw), fa.flash_attention(q, k, v, **kw)
+            err, ratio = cs.held(got, want, rows)
+            out[name][label] = dict(limit_ratio=ratio, max_abs_err=err,
+                                    bitwise_twice=torch.equal(got, again))
+            del got, again
+        del want
+        for order in (list(variants), list(variants)[::-1]):
+            for name in order:
+                use(name)
+                out[name][label].setdefault("ms", []).append(
+                    cs.cuda_ms(lambda: fa.flash_attention(q, k, v, **kw), 10))
+        for name in variants:
+            use(name)
+            out[name][label]["device_ms"] = passes_ms(lambda: fa.flash_attention(q, k, v, **kw))
+            print(f"[case] {label} {name} {json.dumps(out[name][label])}", flush=True)
+        del q, k, v
+        torch.cuda.empty_cache()
+    for name in variants:
+        out[name]["worst_k1_limit_ratio"] = max(c["limit_ratio"] for c in out[name].values())
     return out
 
 
@@ -455,6 +525,9 @@ def main() -> int:
     cases = {"flash_bwd": bwd_cases, "recurrent_bwd": recurrent_cases}.get(MODE, kernel_cases)
     for name, rec in cases(variants).items():
         result[name]["cases"] = rec
+    if MODE == "attention":
+        for name, rec in k1_cases(variants).items():
+            result[name]["k1_cases"] = rec
     print(json.dumps(result))
     return 0
 

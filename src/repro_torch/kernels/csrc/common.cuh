@@ -1,11 +1,14 @@
 // Helpers shared by the kernels: element conversion, tile loads, the PTX
 // wrappers (cp.async, ldmatrix, mma.sync) of the tensor-core attention
-// kernels, the tf32 products of the WKV kernels, and the mbarrier and
-// bulk-copy wrappers of the RG-LRU ring.
+// kernels, the tf32 products of the WKV kernels, and the Hopper wrappers
+// (mbarriers, bulk and TMA copies, wgmma descriptors and groups, the
+// driver's tensor-map encoder) of the RG-LRU ring, K1 and K5.
 #pragma once
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <dlfcn.h>
 #include <stdint.h>
 
 namespace repro_torch {
@@ -190,13 +193,15 @@ __device__ __forceinline__ void pipeline(int ntiles, Issue&& issue, Compute&& co
 // why); a -D on nvcc's command line overrides
 // them, which is how parity_probe.py builds variants.  The defaults below
 // are the most exact settings.
-// - PARITY_QK_CHAIN: k16 steps of Q·Kᵀ summed in one mma accumulator
-//   before the sum is added to the scores in IEEE fp32.  The tensor cores'
-//   fp32 accumulation is not IEEE: each mma truncates its sum toward zero,
-//   so a long chain drifts; 1 starts every mma from zero.
+// - PARITY_QK_CHAIN: k16 steps of Q·Kᵀ summed in one mma (or wgmma)
+//   accumulator before the sum is added to the scores in IEEE fp32.  The
+//   tensor cores' fp32 accumulation is not IEEE: each mma truncates its sum
+//   toward zero, so a long chain drifts; 1 starts every mma from zero.  K1's
+//   wgmma build takes at most two chains a tile.
 // - PARITY_PV_FRESH: 1 sums each k16 step of P·V from zero and adds it to
 //   the accumulator in IEEE fp32; 0 chains every step into the accumulator
-//   (588 mma a 4700-key row).
+//   (588 mma a 4700-key row).  K1 reads it as the k16 steps a fresh sum
+//   spans (4: a 64-key tile, or the whole 32-key tile at d = 256).
 // - PARITY_P_PARTS: bf16 parts of P in P·V (split_bf16), 2 or 3.
 // - PARITY_IEEE_EXP: 1 takes the softcap's tanh and the softmax's
 //   exponentials from tanhf/expf, as the plain version computes them; 0 from
@@ -242,6 +247,15 @@ __device__ __forceinline__ float softcap_tc(float x, float cap) {
 #endif
 }
 
+// softcap_tc of a cap known to be positive (K1 tests the cap once a tile).
+__device__ __forceinline__ float capped_tc(float x, float cap) {
+#if PARITY_IEEE_EXP
+  return cap * tanhf(x / cap);
+#else
+  return cap - __fdividef(2.f * cap, __expf(2.f * x / cap) + 1.f);
+#endif
+}
+
 // Step `step` of STEPS k16 steps of Q·Kᵀ into the scores s (zero at step
 // 0), in chains of PARITY_QK_CHAIN steps: a chain's running sum lives in u,
 // started from zero, and is added to s when the chain ends (at the last
@@ -265,9 +279,9 @@ __device__ __forceinline__ void qk_mma(float (&s)[4], float (&u)[4], int step,
 }
 
 // acc += (P in NP bf16 parts, smallest first) · B for one k16 step of
-// P·V, from zero and added in IEEE fp32 (FRESH) or chained.  K1 takes
+// P·V, from zero and added in IEEE fp32 (FRESH) or chained.  K2 takes
 // PARITY_P_PARTS and PARITY_PV_FRESH; K1's backward its own switches.
-template <int NP = PARITY_P_PARTS, bool FRESH = PARITY_PV_FRESH, typename PartA,
+template <int NP = PARITY_P_PARTS, bool FRESH = (PARITY_PV_FRESH != 0), typename PartA,
           typename PartB>
 __device__ __forceinline__ void pv_mma(float (&acc)[4], PartA&& a, PartB&& b) {
   if constexpr (FRESH) {
@@ -286,7 +300,8 @@ __device__ __forceinline__ void pv_mma(float (&acc)[4], PartA&& a, PartB&& b) {
 // Hide x's value from the compiler where the step helpers below use it:
 // their unrolled ldmatrix addresses, all derived from the lane, are then
 // computed where they are used, not hoisted out of the tile loop into
-// registers, which at d = 256 pushed K1 past 255 registers into spills.
+// registers, which at d = 256 pushed K1 on mma.sync past 255 registers
+// into spills.
 __device__ __forceinline__ void opaque(int& x) { asm volatile("mov.b32 %0, %0;\n" : "+r"(x)); }
 
 // S = Q · Kᵀ for one warp: 16 query rows from row q_row of a swizzled bf16
@@ -315,50 +330,13 @@ __device__ __forceinline__ void qk_step(float (&s)[NT][4], const __nv_bfloat16* 
   }
 }
 
-// One online-softmax step over a warp's scores s (rows g and g + 8 of the
-// mma layout; masked entries already -inf): updates the running max m and
-// this thread's share of the row sums l, rescales acc where the max moved,
-// and leaves exp(s - m) in s.  A row with no live key so far keeps
-// m = -inf, l = 0.
-template <int NT, int NO>
-__device__ __forceinline__ void softmax_step(float (&s)[NT][4], float (&m)[2], float (&l)[2],
-                                             float (&acc)[NO][4]) {
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    float mx = -INFINITY;
-#pragma unroll
-    for (int n = 0; n < NT; ++n) mx = fmaxf(mx, fmaxf(s[n][2 * h], s[n][2 * h + 1]));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-    const float m_old = m[h], m_new = fmaxf(m_old, mx);
-    const float m_use = m_new == -INFINITY ? 0.f : m_new;  // exp(-inf - 0) = 0
-    const float alpha = m_new == m_old ? 1.f : exp_tc(m_old - m_use);
-    m[h] = m_new;
-    float sum = 0.f;
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      s[n][2 * h] = exp_tc(s[n][2 * h] - m_use);
-      s[n][2 * h + 1] = exp_tc(s[n][2 * h + 1] - m_use);
-      sum += s[n][2 * h] + s[n][2 * h + 1];
-    }
-    l[h] = l[h] * alpha + sum;
-    if (m_new != m_old) {
-#pragma unroll
-      for (int n = 0; n < NO; ++n) {
-        acc[n][2 * h] *= alpha;
-        acc[n][2 * h + 1] *= alpha;
-      }
-    }
-  }
-}
-
 // acc += P · V for one warp: P the exp'd scores s (16 rows x NT·8 keys, in
 // registers: the accumulator fragments of two key tiles are the A fragment
 // of one k16 step), in NP bf16 parts (split_bf16); V the NT·8 rows from key0
 // of a swizzled bf16 tile, read transposed by ldmatrix (pv_mma sums the
 // parts, FRESH as it says).  K1's backward runs its gradient products
-// through it too: dV += Pᵀ·dO, dK += dSᵀ·Q and dQ += dS·K.
-template <int NT, int NO, int NP = PARITY_P_PARTS, bool FRESH = PARITY_PV_FRESH>
+// through it: dV += Pᵀ·dO, dK += dSᵀ·Q and dQ += dS·K.
+template <int NT, int NO, int NP = PARITY_P_PARTS, bool FRESH = (PARITY_PV_FRESH != 0)>
 __device__ __forceinline__ void pv_step(const float (&s)[NT][4], float (&acc)[NO][4],
                                         const __nv_bfloat16* v, int key0, int lane) {
   constexpr int CPR = NO;  // D / 8 chunks per row
@@ -424,7 +402,7 @@ __device__ __forceinline__ void mma_tf32_fresh(float (&d)[4], const uint32_t (&a
         "f"(0.f), "f"(0.f));
 }
 
-// ---- mbarriers and one-dimensional bulk copies (the RG-LRU ring) ----
+// ---- Hopper: mbarriers, bulk and TMA copies, wgmma (K3's ring, K1, K5) ----
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -468,6 +446,86 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
       "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
       "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
+}
+// TMA: the box at coordinates (c0, c1) of a 2-D `map` into dst, counted on bar.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                         int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+// The same for a 4-D map, coordinates innermost first.
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
+// wgmma descriptor of a K-major tile of 128-byte rows in the 128-byte swizzle
+// TMA writes (tile 1024-byte aligned): start address, stride 1024 bytes
+// between 8-row groups.  Steps of 32 bytes along K add 2 to the start address.
+__device__ __forceinline__ uint64_t kmajor_desc(const void* tile) {
+  return (uint64_t)((smem_u32(tile) & 0x3FFFF) >> 4) | (uint64_t)1 << 16 |
+         (uint64_t)(1024 >> 4) << 32 | (uint64_t)1 << 62;
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Wait until at most N of this warpgroup's committed wgmma groups are pending.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keep the compiler from moving accesses of registers across the wgmma
+// instructions and waits that read or write them asynchronously.
+template <int R>
+__device__ __forceinline__ void fence_regs(int (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+template <int R>
+__device__ __forceinline__ void fence_regs(uint32_t (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <typename T, int R, int C>
+__device__ __forceinline__ void fence_regs(T (&d)[R][C]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) fence_regs(d[i]);
+}
+template <typename T, int R, int C, int E>
+__device__ __forceinline__ void fence_regs(T (&d)[R][C][E]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) fence_regs(d[i]);
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// The driver's cuTensorMapEncodeTiled, from the libcuda the process has loaded.
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+    if (!lib) lib = dlopen("libcuda.so.1", RTLD_NOW);
+    return lib ? reinterpret_cast<EncodeTiled>(dlsym(lib, "cuTensorMapEncodeTiled")) : nullptr;
+  }();
+  return fn;
 }
 
 }  // namespace repro_torch

@@ -42,14 +42,14 @@
 // - Parity.  The gradients are held to the float64 plain version within
 //   2^-14·max|want| + 2^-7·|want| (chip_smoke.py phase 18).  S and dP are
 //   exact products of bf16 inputs, summed in chains of PARITY_QK_CHAIN = 8
-//   k16 steps as in K1.  P and dS are fp32 values; rounded once to bf16
+//   k16 steps as K1 on mma.sync took them.  P and dS are fp32 values; rounded once to bf16
 //   (PARITY_BWD_PARTS = 1) they put ~2^-9 of relative error into every term
 //   of a gradient's sum, and on phase 18's cases the gradients miss the
 //   limit by 9.9-20.8x.  In two parts (split_bf16) every case is at
 //   0.480-0.490 of it, the bf16 output's own half ulp; three parts give the
 //   same ratios and, chained, cost 4-8% more, so two ship.  Summing each k16 step
-//   from zero and adding it in IEEE fp32 (PARITY_BWD_FRESH = 1, as K1's
-//   P·V) against chaining every step into the accumulator, whose mma adds
+//   from zero and adding it in IEEE fp32 (PARITY_BWD_FRESH = 1, as K1 on
+//   mma.sync took P·V) against chaining every step into the accumulator, whose mma adds
 //   truncate: the same ratios at these sizes (dK and dV sum up to 16 heads
 //   x 4096 queries), and chaining is 5-25% faster, so it ships.  The fast
 //   exponentials (PARITY_IEEE_EXP = 0, the statistics and P alike) leave

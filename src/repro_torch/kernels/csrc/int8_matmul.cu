@@ -50,10 +50,7 @@
 // (cuTensorMapEncodeTiled, found in the already loaded driver with dlsym),
 // kept per operand for the calls that follow (make_map), and passed as
 // __grid_constant__ parameters.
-#include <cuda.h>
-#include <cuda_runtime.h>
-#include <dlfcn.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace repro_torch {
 namespace {
@@ -65,66 +62,6 @@ constexpr int CONSUMERS = 2;                     // warpgroups of 64 rows
 constexpr int THREADS = 128 * (CONSUMERS + 1);   // + the producer warpgroup
 constexpr int SMEM_BYTES = 1024 + STAGES * STAGE_BYTES + 2 * STAGES * 8;
 constexpr int ACC = BN / 2;                      // int32 sums a consumer thread holds
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-// Wait until the phase of parity `parity` has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  }
-}
-// TMA: the box at (c0 bytes of K, row c1) of `map` into dst, counted on bar.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                         int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
-      : "memory");
-}
-// wgmma descriptor of a K-major tile of 128-byte rows in the 128-byte swizzle
-// TMA writes: start address, stride 1024 bytes between 8-row groups.  Steps
-// of 32 bytes along K add 2 to the start address.
-__device__ __forceinline__ uint64_t desc(const void* tile) {
-  return (uint64_t)((smem_u32(tile) & 0x3FFFF) >> 4) | (uint64_t)1 << 16 |
-         (uint64_t)(1024 >> 4) << 32 | (uint64_t)1 << 62;
-}
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// Keep the compiler from moving accesses of the sums across the wgmma calls.
-template <int R>
-__device__ __forceinline__ void fence_regs(int (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
-}
 
 // d (+)= a * b: 64 rows of A (K-major, descriptor a) times 128 rows of B (K-major, descriptor b), 32 bytes of K, int32 sums; accumulate 0
 // overwrites d, so no other instruction defines the sums (which would
@@ -166,7 +103,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], CONSUMERS * 4);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
 
@@ -189,7 +126,8 @@ __global__ void __launch_bounds__(THREADS, 1)
       const int s = kt % STAGES;
       mbar_wait(&full[s], (kt / STAGES) & 1);
       const uint8_t* a = tiles + s * STAGE_BYTES + wg * 64 * BK;
-      const uint64_t da = desc(a), db = desc(tiles + s * STAGE_BYTES + A_BYTES);
+      const uint64_t da = kmajor_desc(a);
+      const uint64_t db = kmajor_desc(tiles + s * STAGE_BYTES + A_BYTES);
       fence_regs(acc);
       wgmma_fence();
 #pragma unroll
@@ -270,21 +208,6 @@ __global__ void __launch_bounds__(256)
     *reinterpret_cast<uint4*>(wt + (int64_t)n * Kp + k) =
         make_uint4(word[0], word[1], word[2], word[3]);
   }
-}
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// The driver's cuTensorMapEncodeTiled, from the libcuda the process has loaded.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
-    if (!lib) lib = dlopen("libcuda.so.1", RTLD_NOW);
-    return lib ? reinterpret_cast<EncodeTiled>(dlsym(lib, "cuTensorMapEncodeTiled")) : nullptr;
-  }();
-  return fn;
 }
 
 // Tensor map of a K-major (rows, Kp) int8 matrix, boxes of box_rows x BK

@@ -6,9 +6,10 @@ kernel ``repro.kernels.flash_attention.flash_attention``; the backward
 kernel (``csrc/flash_attention_bwd.cu``) computes dQ, dK and dV of the same
 function and replaces no TPU kernel (the reference takes the gradient from
 XLA's autodiff).  Each source says what bounds it on the H100 and how its
-design answers that: in bf16 both run their products on the tensor cores
-(``mma.sync``), the backward in two passes with P and dS fed to them in
-bf16 parts; in fp32 on the CUDA cores.  ``launches`` and ``launches_bwd``
+design answers that: in bf16 both run their products on the tensor cores,
+the forward on ``wgmma`` fed by TMA (its launch is :func:`plan`), the
+backward on ``mma.sync`` in two passes with P and dS fed to them in bf16
+parts; in fp32 on the CUDA cores.  ``launches`` and ``launches_bwd``
 count the calls (the backward's passes once), so a run can show that its
 main path went through them.  :class:`FlashAttention` ties the two together for
 autograd; :func:`plain_grad` is the backward's plain version.
@@ -18,7 +19,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -30,6 +31,15 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # keys per kv tile of each instantiation (BK and kv_tile<D> in the source)
 KV_TILE = {**{(torch.float32, d): 32 for d in HEAD_DIMS},
            **{(torch.bfloat16, d): 32 if d == 256 else 64 for d in HEAD_DIMS}}
+# The forward kernels' launch, as the source lays it out: fp32 blocks of 64
+# query rows on 256 threads (BQ, NTHREADS), each kv tile loaded, then used;
+# bf16 blocks of 128 rows (BQ_WG), two consumer warpgroups of 64 and the
+# producer's warpgroup, a ring of 3 K/V tiles (WG_STAGES), longest causal
+# rows first.
+BLOCK_ROWS = {torch.float32: 64, torch.bfloat16: 128}
+THREADS = {torch.float32: 256, torch.bfloat16: 384}
+STAGES = {torch.float32: 1, torch.bfloat16: 3}
+SMEM_LIMIT = 232448   # shared bytes a block may take on an H100 (227 KB)
 # rows of the backward's lse and D scratch are padded to a multiple of this
 # (kStatsRows in flash_attention_bwd.cu)
 STATS_ROWS = 64
@@ -40,6 +50,49 @@ launches_bwd = 0
 # The plain PyTorch version of the kernel: the CPU path, and the card-side
 # check of the kernel.
 plain = mha_reference
+
+
+class Plan(NamedTuple):
+    """A forward call's launch: a ``grid`` (q tiles, heads, sequences) of
+    blocks of ``threads``, each of ``rows`` query rows of one head of one
+    sequence, walking kv tiles of ``kv_tile`` keys through ``stages``
+    buffers in ``smem`` bytes of shared memory."""
+    grid: tuple
+    rows: int
+    kv_tile: int
+    stages: int
+    smem: int
+    threads: int
+    longest_first: bool
+
+    def block_rows(self, x: int) -> range:
+        """The query rows of the blocks at grid index x."""
+        tile = self.grid[0] - 1 - x if self.longest_first else x
+        return range(tile * self.rows, (tile + 1) * self.rows)
+
+    def kv_range(self, x: int, Sq: int, length: int, causal: bool, window: int) -> range:
+        """The keys the blocks at grid index x read: whole tiles from the
+        tile of the window's first key to the last key a row of the block
+        may see (``length`` keys live); the kernel masks the rest."""
+        rows = self.block_rows(x)
+        end = min(length, rows.stop, Sq) if causal else length
+        begin = max(0, rows.start - window + 1) if window > 0 else 0
+        begin -= begin % self.kv_tile
+        if begin >= end:
+            return range(begin, begin)
+        return range(begin, begin + -(-(end - begin) // self.kv_tile) * self.kv_tile)
+
+
+def plan(B: int, H: int, Sq: int, d: int, dtype: torch.dtype) -> Plan:
+    """The launch :func:`flash_attention` makes for q of (B, H, Sq, d)."""
+    rows, tile = BLOCK_ROWS[dtype], KV_TILE[dtype, d]
+    if dtype == torch.float32:   # Q, K and V at pitch d + 1, P at pitch BK + 1
+        smem = ((rows + 2 * tile) * (d + 1) + rows * (tile + 1)) * 4
+    else:   # 1024-byte alignment, Q, the ring of K and V, its mbarriers
+        stages = STAGES[dtype]
+        smem = 1024 + rows * d * 2 + 2 * stages * tile * d * 2 + 8 * (1 + 3 * stages)
+    return Plan((-(-Sq // rows), H, B), rows, tile, STAGES[dtype], smem, THREADS[dtype],
+                dtype == torch.bfloat16)
 
 
 @functools.cache

@@ -248,6 +248,35 @@ def test_flash_kernel_cross_attention_over_more_keys_than_queries(cuda, Sq, d, d
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("G", [1, 2, 7])
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+@pytest.mark.parametrize("case", ["causal", "cross", "window", "softcap", "ragged"])
+def test_flash_bf16_kernel_holds_one_ulp_of_float64(cuda, case, d, G):
+    """K1's bf16 kernel (wgmma) against the plain version in float64, within
+    one bf16 ulp (1e-5 + 2^-7·|want|, chip_smoke.py's limit), with G query
+    heads per kv head, Sq and Skv not multiples of any tile (the ragged
+    edges TMA fills with zeros): causal; not causal with Sq < Skv; a window
+    of 48; softcap 50; ragged lengths, rows past a length not compared.  Two
+    calls give the same bits."""
+    Sq, Skv, kw, lengths = {"causal": (203, 203, dict(causal=True), None),
+                            "cross": (77, 333, dict(causal=False), None),
+                            "window": (300, 300, dict(causal=True, window=48), None),
+                            "softcap": (150, 150, dict(causal=True, softcap=50.0), None),
+                            "ragged": (260, 260, dict(causal=True), (260, 131, 5))}[case]
+    B, K = 3, 2
+    tq, tk, tv = arrays(23, "bfloat16", (B, Sq, K * G, d), (B, Skv, K, d), (B, Skv, K, d))
+    tq, tk, tv = (t.to(cuda).transpose(1, 2) for t in (tq, tk, tv))
+    if lengths:
+        kw = dict(kw, lengths=torch.tensor(lengths, dtype=torch.int32, device=cuda))
+    got = fa.flash_attention(tq, tk, tv, **kw)
+    assert torch.equal(got, fa.flash_attention(tq, tk, tv, **kw))
+    want = fa.plain(tq, tk, tv, acc=torch.float64, **kw)
+    for b, n in enumerate(lengths or (Sq,) * B):
+        err = (got[b, :, :n].double() - want[b, :, :n]).abs()
+        assert float((err / (1e-5 + 2.0 ** -7 * want[b, :, :n].abs())).max()) <= 1.0
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("G", [1, 7])
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

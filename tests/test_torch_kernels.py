@@ -188,6 +188,91 @@ def test_split_plan_keeps_one_split_at_the_calibration_shapes(dtype):
             assert da.plan_splits(B, K, T, d, q.element_size()) == (1, seq)
 
 
+# ----------------------------------------------- K1's forward launch plan
+def _source_constants():
+    """The launch constants of csrc/flash_attention.cu, read from the source."""
+    import re
+    from repro_torch.kernels import _build
+    src = (_build.CSRC / "flash_attention.cu").read_text()
+    const = {name: int(val) for name, val in
+             re.findall(r"constexpr int (\w+) = (\d+);", src)}
+    const["BQ_WG"] = int(re.search(r"BQ_WG = (\d+) \* WG_ROWS", src)[1]) * const["WG_ROWS"]
+    const["WG_THREADS"] = int(re.search(r"WG_THREADS = (\d+) \* 128", src)[1]) * 128
+    big, small = re.search(r"kv_tile\(\) \{ return D == 256 \? (\d+) : (\d+); \}", src).groups()
+    const["kv_tile"] = {d: int(big) if d == 256 else int(small) for d in fa.HEAD_DIMS}
+    return const
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+def test_flash_plan_follows_the_source_and_fits_shared_memory(d, dtype):
+    """The wrapper's plan is the source's launch (rows a block, threads,
+    stages, kv tile; ``KV_TILE``, which chip_smoke.py's planted faults
+    read, is the plan's), and a block's shared memory fits the H100's
+    227 KB."""
+    c = _source_constants()
+    p = fa.plan(2, 8, 300, d, dtype)
+    assert p.kv_tile == fa.KV_TILE[dtype, d]
+    if dtype == torch.float32:
+        assert (p.rows, p.kv_tile, p.threads, p.longest_first) == (
+            c["BQ"], c["BK"], c["NTHREADS"], False)
+    else:
+        assert (p.rows, p.kv_tile, p.stages, p.threads, p.longest_first) == (
+            c["BQ_WG"], c["kv_tile"][d], c["WG_STAGES"], c["WG_THREADS"], True)
+    assert p.smem <= fa.SMEM_LIMIT
+    assert p.grid == (-(-300 // p.rows), 8, 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("arch", ["whisper-tiny", "recurrentgemma-9b", "granite-moe-3b-a800m",
+                                  "dbrx-132b", "gemma2-2b", "granite-3-2b", "granite-8b",
+                                  "yi-9b", "rwkv6-7b", "llava-next-34b"])
+def test_flash_plan_covers_every_row_once(arch, dtype):
+    """At each catalog arch's head shape, for the 32k prefill, a ragged 4700
+    and the 432-row cross-attention of whisper-tiny, every (sequence, head,
+    query row) falls in exactly one block, and no block lies past the
+    rows."""
+    from repro_torch.configs import SHAPES, get_config
+    cfg = get_config(arch)
+    assert cfg.head_dim in fa.HEAD_DIMS
+    for Sq in (SHAPES["prefill_32k"].seq_len, 4700, 432, 1):
+        p = fa.plan(3, cfg.num_heads, Sq, cfg.head_dim, dtype)
+        assert p.grid[1:] == (cfg.num_heads, 3)
+        seen = np.zeros(Sq, dtype=np.int64)
+        for x in range(p.grid[0]):
+            rows = p.block_rows(x)
+            assert rows.start < Sq
+            seen[rows.start:min(rows.stop, Sq)] += 1
+        assert (seen == 1).all(), (arch, Sq)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Sq,Skv,causal,window,length", [
+    (300, 300, True, 0, 300), (300, 300, True, 0, 131), (4700, 4700, True, 4096, 4700),
+    (700, 700, True, 48, 650), (432, 1500, False, 0, 1500), (77, 333, False, 0, 200),
+    (1, 1, True, 0, 1), (129, 129, True, 64, 5)])
+def test_flash_plan_reads_every_live_key(Sq, Skv, causal, window, length, dtype):
+    """Each block reads whole kv tiles holding every key a row of it may
+    see (below ``length``, causal, in the window), and skips the tiles
+    where none of its rows sees a key."""
+    d = 128
+    p = fa.plan(1, 1, Sq, d, dtype)
+    key = np.arange(Skv)
+    for x in range(p.grid[0]):
+        rows = np.arange(p.block_rows(x).start, min(p.block_rows(x).stop, Sq))
+        live = key[None, :] < length
+        if causal:
+            live = live & (key[None, :] <= rows[:, None])
+        if window:
+            live = live & (key[None, :] > rows[:, None] - window)
+        read = p.kv_range(x, Sq, length, causal, window)
+        assert read.start % p.kv_tile == 0 and len(read) % p.kv_tile == 0
+        seen = live.any(axis=0)
+        assert all(read.start <= j < read.stop for j in np.flatnonzero(seen))
+        for t0 in range(read.start, read.stop, p.kv_tile):
+            assert seen[t0:t0 + p.kv_tile].any(), (x, t0)
+
+
 def _held_ratio(got, want):
     """chip_smoke.py's one-bf16-ulp limit: max |got − want| / (1e-5 + 2^-7·|want|)."""
     return float(((got - want).abs() / (1e-5 + 2.0 ** -7 * want.abs())).max())
