@@ -10,7 +10,8 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 and the backward kernels of K1, K3 and K4 with nvcc for
                 sm_90a, in parallel, with ptxas's resource report (no
                 instantiation may spill, K3's bf16 and K4's N = 32 ones
-                included);
+                included), and HGMMA (wgmma) in the SASS of K1's bf16
+                kernel and of K1′'s two at every head size;
   3. kernels  — each kernel against its plain PyTorch version, element by
                 element, with planted faults that the check must reject, and
                 kernel, plain and library times (CUDA events) beside the
@@ -145,13 +146,15 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 training shapes (granite-3-2b, gemma2-2b local and global
                 with softcap 50, recurrentgemma-9b local at 16 query heads
                 per kv head, whisper-tiny's encoder and cross-attention,
-                llava-next-34b with lengths, the ~100M config in fp32)
-                against the plain version's gradient in float64 (see
-                BWD_ATOL_SHARE), the fp32 plain version against the same
-                limit, planted faults (dK without the group sum, the
-                softcap's derivative dropped, the causal mask shifted), two
-                calls bitwise equal, and times against SDPA's backward with
-                the first version's (FLASH_BWD_FIRST_MS) beside; K1 forward at granite's
+                llava-next-34b with lengths, the ~100M config in fp32),
+                given the forward's state from K1 (whose output keeps its
+                bits with or without it), against the plain version's
+                gradient in float64 (see BWD_ATOL_SHARE), the fp32 plain
+                version against the same limit, planted faults (dK without
+                the group sum, the softcap's derivative dropped, the causal
+                mask shifted), two calls bitwise equal, and the backward's
+                times against SDPA's backward with the first version's
+                (FLASH_BWD_FIRST_MS) beside; K1 forward at granite's
                 training shape; one train step of granite-3-2b at 4 layers
                 and gemma2-2b at 2 through the kernels against the plain
                 path and a float64-attention control (TRAIN_DRIFT), launch
@@ -644,6 +647,15 @@ def phase_build():
     print(f"[sass] flash_attention {json.dumps(k1)} serialized={len(serialized)}")
     require(len(k1) == 3 and all(ops.get("HGMMA", 0) > 0 for ops in k1.values()),
             f"K1's bf16 kernel runs wgmma at d 64, 128 and 256: {k1}")
+    # and K1′'s two bf16 kernels, at every head size
+    k1b = {fn: ops for fn, ops in
+           sass_ops(_build.BUILD_DIR / "libflash_attention_bwd.so").items() if "wgmma" in fn}
+    serialized = [line.strip() for line in
+                  (_build.BUILD_DIR / "libflash_attention_bwd.log").read_text().splitlines()
+                  if "wgmma.mma_async instructions are serialized" in line]
+    print(f"[sass] flash_attention_bwd {json.dumps(k1b)} serialized={len(serialized)}")
+    require(len(k1b) == 6 and all(ops.get("HGMMA", 0) > 0 for ops in k1b.values()),
+            f"K1′'s bf16 kernels run wgmma at d 64, 128 and 256: {k1b}")
 
 
 def sass_ops(lib: Path, ops=("HGMMA", "HMMA")) -> dict:
@@ -2366,7 +2378,14 @@ def flash_bwd_case(label: str, B: int, H: int, K: int, Sq: int, Skv: int, d: int
                                          window=window, softcap=softcap, lengths=lengths,
                                          q_scale=q_scale)
     lens = kw["lengths"]
-    got = fa.flash_attention_bwd(q, k, v, dout, **kw)
+    # the forward's state (bf16: the fp32 output and each row's lse); K1's
+    # output keeps its bits with or without it
+    out, *state = fa.flash_attention(q, k, v, return_stats=True, **kw)
+    stats_bitwise = torch.equal(out, fa.flash_attention(q, k, v, **kw))
+    require(stats_bitwise, f"K1's output at {label} has the same bits with and without "
+            "the backward's state")
+    del out
+    got = fa.flash_attention_bwd(q, k, v, dout, *state, **kw)
     torch.cuda.synchronize()
     want = flash_bwd_want(q, k, v, dout, **kw)
     err, ratio, parts = held_grads(got, want)
@@ -2380,7 +2399,9 @@ def flash_bwd_case(label: str, B: int, H: int, K: int, Sq: int, Skv: int, d: int
     faults = {}
     G = H // K
     if G > 1:   # dK of the first head of each group only
-        one = fa.flash_attention_bwd(q[:, ::G], k, v, dout[:, ::G], **kw)[1]
+        one = fa.flash_attention_bwd(
+            q[:, ::G], k, v, dout[:, ::G],
+            *fa.flash_attention(q[:, ::G], k, v, return_stats=True, **kw)[1:], **kw)[1]
         faults["dk_without_the_group_sum"] = (got[0], one, got[2])
     if softcap:
         faults["softcap_derivative_dropped"] = per_head_group(
@@ -2413,13 +2434,15 @@ def flash_bwd_case(label: str, B: int, H: int, K: int, Sq: int, Skv: int, d: int
     plain_mask = None if (not window and lens is None) else mask[:, None]
     library_ms, backend = sdpa_backward_ms(q, k, v, dout, plain_mask,
                                            causal and plain_mask is None)
-    again = fa.flash_attention_bwd(q, k, v, dout, **kw)
+    again = fa.flash_attention_bwd(q, k, v, dout, *state, **kw)
     require(all(torch.equal(a, b) for a, b in zip(got, again)),
             f"flash_attention_bwd {label}: two calls give the same bits")
     del again
+    # the backward alone, given the forward's state (as SDPA's is timed)
     res = dict(max_abs_err=err, limit_ratio=ratio, limit_ratio_dq_dk_dv=parts,
                plain_fp32_limit_ratio=control, fault_ratio=fault_ratio, bitwise_twice=True,
-               ms=cuda_ms(lambda: fa.flash_attention_bwd(q, k, v, dout, **kw), 3),
+               k1_bitwise_with_state=stats_bitwise,
+               ms=cuda_ms(lambda: fa.flash_attention_bwd(q, k, v, dout, *state, **kw), 3),
                ms_first_version=FLASH_BWD_FIRST_MS[label],
                plain_ms=plain_ms, library_ms=library_ms,
                library=f"SDPA backward ({backend}{', no softcap' if softcap else ''}"

@@ -20,19 +20,26 @@ and K4's forward on phase 3's inputs, their times in turns and whether
 their outputs have the first variant's bits (~2 min for four variants).
 
 ``--kernel flash_bwd`` builds K1's backward once per variant of its bf16
-parity switches (with no arguments: the shipped build and ``BWD_VARIANTS``:
-P and dS in 1, 2 and 3 bf16 parts, ``PARITY_BWD_PARTS``, each with the
-gradient products' k16 steps summed from zero or chained,
-``PARITY_BWD_FRESH``) and prints, per variant, ptxas's report and, on each
-of ``chip_smoke.py`` phase 18's K1′ cases, the limit ratio of dq, dk and dv
-against the float64 plain version (the float64 gradients computed once a
-case), whether two calls give the same bits, the time, taken twice (in the
-variants' order, then in reverse), and each pass's device time
-(``torch.profiler``); K1's forward is built beside it with the same
-switches, and its time on the case's inputs is printed with whether its
-output has the first variant's bits.  A variant ``NAME:SRC=DIR`` builds
-DIR's copy of the sources instead, with no switches set (a parent commit's,
-to time the two in turns in one call and to show K1's output unchanged).
+parity switches (with no arguments: the shipped build and ``BWD_VARIANTS``,
+each of its measures set otherwise alone: P and dS in 1 and 3 bf16 parts,
+``PARITY_BWD_PARTS``; the gradient products' k16 steps each summed from
+zero and added in IEEE fp32, ``PARITY_BWD_FRESH``; S and dP in wgmma
+chains of 8 k16 steps, ``PARITY_QK_CHAIN``; the IEEE exponentials,
+``PARITY_IEEE_EXP``) and prints, per variant, ptxas's report and the HGMMA
+count of each kernel, and, on each of ``chip_smoke.py`` phase 18's K1′
+cases, the limit ratio of dq, dk and dv against the float64 plain version
+(the float64 gradients computed once a case), whether two calls give the
+same bits, the backward's time given the forward's state, taken twice (in
+the variants' order, then in reverse), and each kernel's device time
+(``torch.profiler``); for the first variant also the limit ratio with D
+taken from K1's bf16 output instead of its fp32 one.  K1's forward is built
+beside it with the same switches, and its time on the case's inputs is
+printed with whether its output has the first variant's bits.  A variant
+``NAME:SRC=DIR`` builds DIR's copy of the sources instead, with no switches
+set, and calls them through the C entry points of a forward that keeps no
+state and a backward that sweeps for its own statistics (``legacy_flash*``):
+a parent commit's, to time the two in turns in one call and to show K1's
+output unchanged.
 
 ``--kernel wkv6`` builds K4 once per variant of its tf32 passes (with no
 arguments: the shipped 3 and the variants ``WKV_UNDONE``: 1 and 2 passes
@@ -100,11 +107,11 @@ UNDONE = {"pv_chained": {"PARITY_PV_FRESH": 0},
 # product, or on those that give the outputs alone
 WKV_UNDONE = {"one_pass": {"WKV_TF32_PASSES": 1}, "two_passes": {"WKV_TF32_PASSES": 2},
               "one_pass_output": {"WKV_OUT_TF32_PASSES": 1}}
-# K1's backward with P and dS in 1, 2 or 3 bf16 parts, summed from zero at
-# each k16 step or chained (the shipped build is one of them)
-BWD_VARIANTS = {f"parts{n}_{'fresh' if fresh else 'chained'}":
-                {"PARITY_BWD_PARTS": n, "PARITY_BWD_FRESH": fresh}
-                for n in (1, 2, 3) for fresh in (1, 0)}
+# K1's backward with each of its measures set otherwise than it ships (2
+# parts, chained, one chain of S and dP, the fast exponentials) alone
+BWD_VARIANTS = {"parts1": {"PARITY_BWD_PARTS": 1}, "parts3": {"PARITY_BWD_PARTS": 3},
+                "fresh_step": {"PARITY_BWD_FRESH": 1}, "qk_chains_8": {"PARITY_QK_CHAIN": 8},
+                "ieee_exp": {"PARITY_IEEE_EXP": 1}}
 # K4′ with fewer tf32 passes per product than it ships with
 WKV_BWD_UNDONE = {"bwd_one_pass": {"WKV_BWD_TF32_PASSES": 1},
                   "bwd_two_passes": {"WKV_BWD_TF32_PASSES": 2}}
@@ -180,6 +187,10 @@ def build(variants) -> dict:
         if "flash_attention" in KERNELS:  # which instruction K1's bf16 products run on
             regs["K1 sass"] = {fn: ops for fn, ops in cs.sass_ops(
                 variant_dir(name) / "libflash_attention.so").items() if "f32" not in fn}
+        if "flash_attention_bwd" in KERNELS:   # and K1′'s bf16 kernels'
+            regs["K1′ sass"] = {fn: ops for fn, ops in cs.sass_ops(
+                variant_dir(name) / "libflash_attention_bwd.so").items()
+                if "bf16" in fn or "wgmma" in fn}
     return report
 
 
@@ -328,44 +339,115 @@ def passes_ms(fn, reps: int = 3) -> dict:
             if e.device_time_total > 0}
 
 
+def legacy_flash(q, k, v, *, causal, window, softcap, lengths):
+    """K1 through the C entry point of a forward that keeps no state for
+    the backward, for a SRC variant built from such a source."""
+    import math
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+    fn = fa._lib().flash_attention_fwd
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_float,
+                                                                 ctypes.c_float, ctypes.c_void_p]
+    B, H, Sq, d = q.shape
+    out = torch.empty_like(q)
+    strides = (ctypes.c_longlong * 12)(*(q.stride()[:3] + k.stride()[:3] + v.stride()[:3]
+                                         + out.stride()[:3]))
+    _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                    None if lengths is None else lengths.data_ptr(), strides, B, H,
+                    k.shape[1], Sq, k.shape[2], d, fa.DTYPES[q.dtype], int(causal),
+                    int(window), float(softcap), 1.0 / math.sqrt(d),
+                    torch.cuda.current_stream().cuda_stream), "legacy flash_attention")
+    return out
+
+
+def legacy_flash_bwd(q, k, v, dout, *, causal, window, softcap, lengths):
+    """K1′ through the C entry point of a backward that sweeps for its own
+    statistics (lse and D scratch of 64-row pitch), for a SRC variant built
+    from such a source."""
+    import math
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+    fn = fa._lib_bwd().flash_attention_bwd
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9 + [ctypes.c_float,
+                                                                  ctypes.c_float, ctypes.c_void_p]
+    B, H, Sq, d = q.shape
+    if dout.stride(-1) != 1 or any(st * 2 % 16 for st in dout.stride()[:-1]):
+        dout = dout.contiguous()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    stats = torch.empty((2, B, H, -(-Sq // 64) * 64), dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_longlong * 21)(*(st for t in (q, k, v, dout, dq, dk, dv)
+                                         for st in t.stride()[:3]))
+    _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), dq.data_ptr(),
+                    dk.data_ptr(), dv.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(),
+                    None if lengths is None else lengths.data_ptr(), strides, B, H,
+                    k.shape[1], Sq, k.shape[2], d, fa.DTYPES[q.dtype], int(causal),
+                    int(window), float(softcap), 1.0 / math.sqrt(d),
+                    torch.cuda.current_stream().cuda_stream), "legacy flash_attention_bwd")
+    return dq, dk, dv
+
+
 def bwd_cases(variants) -> dict:
     """Per variant, on each of phase 18's K1′ cases: the limit ratio of dq,
     dk and dv against the float64 plain version, whether two calls give the
-    same bits, the time (the variants in order, then in reverse) and each
-    pass's; K1's forward on the same inputs, its time and whether it has
-    the first variant's bits."""
+    same bits, the backward's time given the forward's state (the variants
+    in order, then in reverse) and each kernel's; K1's forward on the same
+    inputs, its time and whether it has the first variant's bits; for the
+    first variant, the limit ratio with D from K1's bf16 output.  A SRC
+    variant runs through the parent's entry points (``legacy_flash*``)."""
     import torch
     from repro_torch.kernels import flash_attention as fa
+
+    def runners(name, q, k, v, kw):
+        """(forward, backward of dout) of variant ``name`` on these inputs."""
+        if "SRC" in variants[name]:
+            return (lambda: legacy_flash(q, k, v, **kw),
+                    lambda dout: legacy_flash_bwd(q, k, v, dout, **kw))
+        state = fa.flash_attention(q, k, v, return_stats=True, **kw)[1:]
+        return (lambda: fa.flash_attention(q, k, v, **kw),
+                lambda dout: fa.flash_attention_bwd(q, k, v, dout, *state, **kw))
+
     out = {name: {} for name in variants}
+    first_name = next(iter(variants))
     for cases in cs.FLASH_BWD_CASES.values():
         for label, case in cases:
             q, k, v, dout, kw = cs.flash_bwd_inputs(**case)
             want = cs.flash_bwd_want(q, k, v, dout, **kw)
             first = None   # K1's output from the first variant's build
+            run = {}
             for name in variants:
                 use(name)
-                got = fa.flash_attention_bwd(q, k, v, dout, **kw)
-                again = fa.flash_attention_bwd(q, k, v, dout, **kw)
+                fwd, bwd = run[name] = runners(name, q, k, v, kw)
+                got, again = bwd(dout), bwd(dout)
                 _, ratio, parts = cs.held_grads(got, want)
-                fwd = fa.flash_attention(q, k, v, **kw)
-                first = fwd if first is None else first
-                out[name][label] = dict(
+                o = fwd()
+                first = o if first is None else first
+                rec = out[name][label] = dict(
                     limit_ratio=ratio, limit_ratio_dq_dk_dv=parts,
                     bitwise_twice=all(torch.equal(a, b) for a, b in zip(got, again)),
-                    k1_bitwise_first=torch.equal(fwd, first),
-                    k1_ms=cs.cuda_ms(lambda: fa.flash_attention(q, k, v, **kw), 3))
-                del got, again, fwd
+                    k1_bitwise_first=torch.equal(o, first),
+                    k1_ms=cs.cuda_ms(fwd, 3))
+                if name == first_name and q.dtype == torch.bfloat16 \
+                        and "SRC" not in variants[name]:
+                    o16 = o.float().contiguous()   # D from the bf16 output
+                    lse = fa.flash_attention(q, k, v, return_stats=True, **kw)[2]
+                    rec["limit_ratio_d_from_bf16_output"] = cs.held_grads(
+                        fa.flash_attention_bwd(q, k, v, dout, o16, lse, **kw), want)[1]
+                    del o16, lse
+                del got, again, o
             del want, first
             for order in (list(variants), list(variants)[::-1]):
                 for name in order:
                     use(name)
-                    out[name][label].setdefault("ms", []).append(
-                        cs.cuda_ms(lambda: fa.flash_attention_bwd(q, k, v, dout, **kw), 3))
+                    bwd = run[name][1]
+                    out[name][label].setdefault("ms", []).append(cs.cuda_ms(lambda: bwd(dout), 3))
             for name in variants:
                 use(name)
-                out[name][label]["passes_ms"] = passes_ms(
-                    lambda: fa.flash_attention_bwd(q, k, v, dout, **kw))
+                bwd = run[name][1]
+                out[name][label]["passes_ms"] = passes_ms(lambda: bwd(dout))
                 print(f"[case] {label} {name} {json.dumps(out[name][label])}", flush=True)
+            del run
             torch.cuda.empty_cache()
     for name in variants:
         out[name]["worst_limit_ratio"] = max(c["limit_ratio"] for c in out[name].values())

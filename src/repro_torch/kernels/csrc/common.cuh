@@ -1,8 +1,9 @@
 // Helpers shared by the kernels: element conversion, tile loads, the PTX
 // wrappers (cp.async, ldmatrix, mma.sync) of the tensor-core attention
 // kernels, the tf32 products of the WKV kernels, and the Hopper wrappers
-// (mbarriers, bulk and TMA copies, wgmma descriptors and groups, the
-// driver's tensor-map encoder) of the RG-LRU ring, K1 and K5.
+// (mbarriers, bulk and TMA copies, wgmma descriptors, products and groups,
+// named barriers, the driver's tensor-map encoder and K1's head maps) of
+// the RG-LRU ring, K1, K1′ and K5.
 #pragma once
 
 #include <cuda.h>
@@ -11,9 +12,12 @@
 #include <dlfcn.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 namespace repro_torch {
 
 constexpr float kNegInf = -1e30f;
+constexpr float kNoKey = 1e30f;  // the log-sum-exp of a row with no live key: P = 0
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -128,7 +132,7 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// d = a * b, from zero: a chain of one product (see qk_step).
+// d = a * b, from zero: a chain of one product (see qk_mma).
 __device__ __forceinline__ void mma_bf16_fresh(float (&d)[4], const uint32_t (&a)[4],
                                                uint32_t b0, uint32_t b1) {
   asm volatile(
@@ -197,7 +201,8 @@ __device__ __forceinline__ void pipeline(int ntiles, Issue&& issue, Compute&& co
 //   accumulator before the sum is added to the scores in IEEE fp32.  The
 //   tensor cores' fp32 accumulation is not IEEE: each mma truncates its sum
 //   toward zero, so a long chain drifts; 1 starts every mma from zero.  K1's
-//   wgmma build takes at most two chains a tile.
+//   and K1′'s wgmma builds take at most two chains a tile (K1′ for S and dP
+//   alike).
 // - PARITY_PV_FRESH: 1 sums each k16 step of P·V from zero and adds it to
 //   the accumulator in IEEE fp32; 0 chains every step into the accumulator
 //   (588 mma a 4700-key row).  K1 reads it as the k16 steps a fresh sum
@@ -209,8 +214,9 @@ __device__ __forceinline__ void pipeline(int ntiles, Issue&& issue, Compute&& co
 // - PARITY_BWD_PARTS: bf16 parts of P and dS in K1's backward's gradient
 //   products dV += Pᵀ·dO, dK += dSᵀ·Q and dQ += dS·K, 1 (rounded once), 2
 //   or 3.
-// - PARITY_BWD_FRESH: 1 sums each k16 step of those products from zero and
-//   adds it to the accumulator in IEEE fp32; 0 chains every step into it.
+// - PARITY_BWD_FRESH: F > 0 sums chains of F k16 steps of those products
+//   from zero (wgmma groups with scale-d 0) and adds each to the
+//   accumulator in IEEE fp32 (1: every step); 0 chains every step into it.
 #ifndef PARITY_QK_CHAIN
 #define PARITY_QK_CHAIN 1
 #endif
@@ -279,8 +285,7 @@ __device__ __forceinline__ void qk_mma(float (&s)[4], float (&u)[4], int step,
 }
 
 // acc += (P in NP bf16 parts, smallest first) · B for one k16 step of
-// P·V, from zero and added in IEEE fp32 (FRESH) or chained.  K2 takes
-// PARITY_P_PARTS and PARITY_PV_FRESH; K1's backward its own switches.
+// P·V, from zero and added in IEEE fp32 (FRESH) or chained (K2).
 template <int NP = PARITY_P_PARTS, bool FRESH = (PARITY_PV_FRESH != 0), typename PartA,
           typename PartB>
 __device__ __forceinline__ void pv_mma(float (&acc)[4], PartA&& a, PartB&& b) {
@@ -294,74 +299,6 @@ __device__ __forceinline__ void pv_mma(float (&acc)[4], PartA&& a, PartB&& b) {
   } else {
 #pragma unroll
     for (int i = 0; i < NP; ++i) mma_bf16(acc, a(i), b(i, 0), b(i, 1));
-  }
-}
-
-// Hide x's value from the compiler where the step helpers below use it:
-// their unrolled ldmatrix addresses, all derived from the lane, are then
-// computed where they are used, not hoisted out of the tile loop into
-// registers, which at d = 256 pushed K1 on mma.sync past 255 registers
-// into spills.
-__device__ __forceinline__ void opaque(int& x) { asm volatile("mov.b32 %0, %0;\n" : "+r"(x)); }
-
-// S = Q · Kᵀ for one warp: 16 query rows from row q_row of a swizzled bf16
-// tile (D columns) against NT·8 keys from row key0 of another, fp32 out in
-// the accumulator layout of mma_bf16 (s[n] holds keys 8n..8n+7).
-template <int NT, int D>
-__device__ __forceinline__ void qk_step(float (&s)[NT][4], const __nv_bfloat16* q, int q_row,
-                                        const __nv_bfloat16* k, int key0, int lane) {
-  constexpr int CPR = D / 8;
-  opaque(lane);
-  float u[NT][4];  // the running chains (PARITY_QK_CHAIN)
-#pragma unroll
-  for (int n = 0; n < NT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t qa[4];
-    ldmatrix_x4(qa, q + swz<CPR, 8>(q_row + (lane & 15), 2 * kk + (lane >> 4)));
-#pragma unroll
-    for (int np = 0; np < NT / 2; ++np) {
-      uint32_t kb[4];  // keys 16np..+7 then +8..+15, each as d 16kk..+7 and +8..+15
-      ldmatrix_x4(kb, k + swz<CPR, 8>(key0 + 16 * np + (lane & 7) + ((lane >> 4) << 3),
-                                      2 * kk + ((lane >> 3) & 1)));
-      qk_mma<D / 16>(s[2 * np], u[2 * np], kk, qa, kb[0], kb[1]);
-      qk_mma<D / 16>(s[2 * np + 1], u[2 * np + 1], kk, qa, kb[2], kb[3]);
-    }
-  }
-}
-
-// acc += P · V for one warp: P the exp'd scores s (16 rows x NT·8 keys, in
-// registers: the accumulator fragments of two key tiles are the A fragment
-// of one k16 step), in NP bf16 parts (split_bf16); V the NT·8 rows from key0
-// of a swizzled bf16 tile, read transposed by ldmatrix (pv_mma sums the
-// parts, FRESH as it says).  K1's backward runs its gradient products
-// through it: dV += Pᵀ·dO, dK += dSᵀ·Q and dQ += dS·K.
-template <int NT, int NO, int NP = PARITY_P_PARTS, bool FRESH = (PARITY_PV_FRESH != 0)>
-__device__ __forceinline__ void pv_step(const float (&s)[NT][4], float (&acc)[NO][4],
-                                        const __nv_bfloat16* v, int key0, int lane) {
-  constexpr int CPR = NO;  // D / 8 chunks per row
-  opaque(lane);
-#pragma unroll
-  for (int ks = 0; ks < NT / 2; ++ks) {
-    uint32_t pa[NP][4], part[NP];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {  // A registers: rows g, g + 8 of keys 2t4.., then + 8
-      const float* x = s[2 * ks + (r >> 1)] + 2 * (r & 1);
-      split_bf16<NP>(x[0], x[1], part);
-#pragma unroll
-      for (int i = 0; i < NP; ++i) pa[i][r] = part[i];
-    }
-    const int key = key0 + 16 * ks + (lane & 7) + (((lane >> 3) & 1) << 3);
-#pragma unroll
-    for (int j = 0; j < NO / 2; ++j) {
-      uint32_t vb[4];  // d 16j..+7 as keys 0-7 and 8-15, then d +8..+15
-      ldmatrix_x4_trans(vb, v + swz<CPR, 8>(key, 2 * j + (lane >> 4)));
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-        pv_mma<NP, FRESH>(acc[2 * j + h],
-                          [&](int i) -> const uint32_t(&)[4] { return pa[i]; },
-                          [&](int, int e) { return vb[2 * h + e]; });
-    }
   }
 }
 
@@ -526,6 +463,124 @@ inline EncodeTiled encode_tiled() {
     return lib ? reinterpret_cast<EncodeTiled>(dlsym(lib, "cuTensorMapEncodeTiled")) : nullptr;
   }();
   return fn;
+}
+
+// ---- wgmma products, named barriers and tensor maps (K1 and K1′ on wgmma) ----
+
+// d (+)= a·b, 64 rows by N columns by 16, bf16 in and fp32 sums out: ss with
+// A and B from shared memory (K-major descriptors), rs with A from registers
+// (the mma.sync A fragment of each warp's 16 rows) and B MN-major.  acc 0
+// starts d from zero.
+template <int N>
+__device__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t b, int acc);
+template <int N>
+__device__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b, int acc);
+
+template <>
+__device__ __forceinline__ void wgmma_ss<32>(float (&d)[16], uint64_t a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32], const uint32_t (&a)[4], uint64_t b,
+                                             int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+}
+
+// Descriptor of an MN-major B operand: 16 keys (K) by 64 columns (N) of a V
+// tile as TMA wrote it, a key a 128-byte swizzled row, 8-key groups 1024
+// bytes apart.  One 64-column atom: the leading offset is never stepped (set
+// to the same 1024).
+__device__ __forceinline__ uint64_t mn_desc(const void* tile) {
+  return (uint64_t)((smem_u32(tile) & 0x3FFFF) >> 4) | (uint64_t)(1024 >> 4) << 16 |
+         (uint64_t)(1024 >> 4) << 32 | (uint64_t)1 << 62;
+}
+
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
+}
+
+// Tensor map of a bf16 operand of D columns laid out (B, S, heads, D) by its
+// element strides (the head dimension contiguous): boxes of 64 columns (one
+// 128-byte swizzle row) by `rows` rows of one head of one sequence; rows
+// past S read as zeros.  A dimension of extent 1 is never stepped, so its
+// stride, whatever the view holds, is given as D.  A map is a function of
+// these numbers alone, so the last MAP_CACHE that this host thread encoded
+// are kept and reused: a model calls with the same shapes layer after
+// layer, and PyTorch's caching allocator hands the same addresses back
+// (K1's forward takes 3 maps a call, its backward 8).
+struct MapEntry {
+  CUtensorMap map;
+  const void* ptr;
+  int64_t key[8];
+};
+constexpr int MAP_CACHE = 32;
+inline thread_local MapEntry map_cache[MAP_CACHE];
+inline thread_local int map_next = 0;
+
+inline bool head_map(CUtensorMap* map, const void* ptr, int D, int S, int heads, int B,
+                     int64_t ss, int64_t sh, int64_t sb, int rows) {
+  const int64_t key[8] = {D, S, heads, B, ss, sh, sb, rows};
+  for (const MapEntry& e : map_cache)
+    if (e.ptr == ptr && std::equal(key, key + 8, e.key)) {
+      *map = e.map;
+      return true;
+    }
+  const EncodeTiled fn = encode_tiled();
+  if (!fn) return false;
+  auto bytes = [&](int64_t stride, int extent) {
+    return (cuuint64_t)((extent == 1 ? D : stride) * 2);
+  };
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)std::max(S, 1), (cuuint64_t)heads,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {bytes(ss, std::max(S, 1)), bytes(sh, heads), bytes(sb, B)};
+  const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  if (fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
+         elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+         CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return false;
+  MapEntry& e = map_cache[map_next];
+  e.map = *map;
+  e.ptr = ptr;
+  std::copy(key, key + 8, e.key);
+  map_next = (map_next + 1) % MAP_CACHE;
+  return true;
 }
 
 }  // namespace repro_torch

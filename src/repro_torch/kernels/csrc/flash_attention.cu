@@ -22,7 +22,7 @@
 //   thread of which issues every copy.  setmaxnreg moves registers from the
 //   producer (24) to the consumers (240).
 // - TMA, from tensor maps built on the host over the model's strided (B, S,
-//   heads, d) views (make_map, cached) and passed as __grid_constant__
+//   heads, d) views (head_map, cached) and passed as __grid_constant__
 //   parameters: Q once, then K and V tiles of 64 keys (32 at d = 256) into
 //   a ring of 3 stages, in boxes of 64 columns, one 128-byte swizzle row,
 //   as wgmma reads them.  Rows past Sq or Skv arrive as zeros.  Full
@@ -58,6 +58,10 @@
 // - Registers: O is d/2 fp32 a thread (128 at d = 256); one fresh P·V
 //   fragment of 32, so a tile's slices after the first wait for the one
 //   before, and the last retires during the softmax.
+// - The backward's state, when asked (flash_attention_bwd.cu): the
+//   epilogue also writes each row's log-sum-exp m + log l and the output
+//   before its bf16 rounding, in fp32, from the same registers; the bf16
+//   output keeps its bits.
 //
 // fp32 (flash_f32_kernel) keeps IEEE FMA products: 32-key kv tiles converted
 // into padded fp32 shared-memory tiles (conflict-free column reads), 2 rows
@@ -69,8 +73,6 @@
 #ifndef PARITY_PV_FRESH
 #define PARITY_PV_FRESH 4
 #endif
-#include <algorithm>
-
 #include "common.cuh"
 
 namespace repro_torch {
@@ -85,6 +87,12 @@ struct FlashArgs {
   const void* k;
   const void* v;
   void* o;
+  // bf16, when asked (the backward's state; else null): each row's
+  // log-sum-exp of the scaled, capped scores, (B, H, stats_pitch), and the
+  // output before its rounding, (B, H, Sq, d) fp32
+  float* lse;
+  float* o32;
+  int stats_pitch;
   const int* lengths;  // (B,) or null
   int64_t q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss;
   int H, K, Sq, Skv, causal, window;
@@ -229,74 +237,6 @@ struct WgTiles {
   static constexpr int BARS = 1 + 3 * WG_STAGES; // Q; K full, V full and empty a stage
   static constexpr int SMEM = 1024 + Q_BYTES + 2 * WG_STAGES * KV_BYTES + 8 * BARS;
 };
-
-// d (+)= a·b, 64 rows by N columns by 16, bf16 in and fp32 sums out: ss with
-// A and B from shared memory (K-major descriptors), rs with A from registers
-// (the mma.sync A fragment of each warp's 16 rows) and B MN-major.  acc 0
-// starts d from zero.
-template <int N>
-__device__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t b, int acc);
-template <int N>
-__device__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b, int acc);
-
-template <>
-__device__ __forceinline__ void wgmma_ss<32>(float (&d)[16], uint64_t a, uint64_t b, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
-      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "l"(a), "l"(b), "r"(acc));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t a, uint64_t b, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(acc));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32], const uint32_t (&a)[4], uint64_t b,
-                                             int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
-}
-
-// Descriptor of an MN-major B operand: 16 keys (K) by 64 columns (N) of a V
-// tile as TMA wrote it, a key a 128-byte swizzled row, 8-key groups 1024
-// bytes apart.  One 64-column atom: the leading offset is never stepped (set
-// to the same 1024).
-__device__ __forceinline__ uint64_t mn_desc(const void* tile) {
-  return (uint64_t)((smem_u32(tile) & 0x3FFFF) >> 4) | (uint64_t)(1024 >> 4) << 16 |
-         (uint64_t)(1024 >> 4) << 32 | (uint64_t)1 << 62;
-}
-
-__device__ __forceinline__ void named_sync(int id) {
-  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
-}
-__device__ __forceinline__ void named_arrive(int id) {
-  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
-}
 
 // S = Q·Kᵀ for one warpgroup: its 64 rows of the Q tile q against the BKV
 // keys of the K tile k, in chains of PARITY_QK_CHAIN k16 steps, each from
@@ -617,20 +557,27 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
       }
     }
     bf16* O = static_cast<bf16*>(a.o) + b * a.o_sb + h * a.o_sh;
+    const int64_t head = (int64_t)b * a.H + h;
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 1);
       l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 2);
       const int qi = w0 + g + 8 * hh;
+      // every row of the block, to the pitch: a row with no key P = 0
+      if (a.lse && t4 == 0)
+        a.lse[head * a.stats_pitch + qi] = l[hh] > 0.f ? m[hh] + logf(l[hh]) : kNoKey;
       if (qi >= a.Sq) continue;
       const float inv = l[hh] > 0.f ? 1.f / l[hh] : 0.f;  // a row with no key → 0
       bf16* dst = O + (int64_t)qi * a.o_ss + 2 * t4;
+      float* dst32 = a.o32 ? a.o32 + (head * a.Sq + qi) * D + 2 * t4 : nullptr;
 #pragma unroll
       for (int c = 0; c < NS; ++c)
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
-          *reinterpret_cast<__nv_bfloat162*>(dst + 64 * c + 8 * j) = __floats2bfloat162_rn(
-              acc[c][4 * j + 2 * hh] * inv, acc[c][4 * j + 2 * hh + 1] * inv);
+        for (int j = 0; j < 8; ++j) {
+          const float x0 = acc[c][4 * j + 2 * hh] * inv, x1 = acc[c][4 * j + 2 * hh + 1] * inv;
+          *reinterpret_cast<__nv_bfloat162*>(dst + 64 * c + 8 * j) = __floats2bfloat162_rn(x0, x1);
+          if (dst32) *reinterpret_cast<float2*>(dst32 + 64 * c + 8 * j) = make_float2(x0, x1);
+        }
     }
   }
 }
@@ -646,60 +593,13 @@ cudaError_t launch_f32(const FlashArgs& a, int B, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// Tensor map of a bf16 operand of D columns laid out (B, S, heads, D) by its
-// element strides (the head dimension contiguous): boxes of 64 columns (one
-// 128-byte swizzle row) by `rows` rows of one head of one sequence; rows
-// past S read as zeros.  A dimension of extent 1 is never stepped, so its
-// stride, whatever the view holds, is given as D.  A map is a function of
-// these numbers alone, so the last MAP_CACHE that this host thread encoded
-// are kept and reused: a model calls with the same shapes layer after
-// layer, and PyTorch's caching allocator hands the same addresses back.
-struct MapEntry {
-  CUtensorMap map;
-  const void* ptr;
-  int64_t key[8];
-};
-constexpr int MAP_CACHE = 16;
-thread_local MapEntry map_cache[MAP_CACHE];
-thread_local int map_next = 0;
-
-bool make_map(CUtensorMap* map, const void* ptr, int D, int S, int heads, int B, int64_t ss,
-              int64_t sh, int64_t sb, int rows) {
-  const int64_t key[8] = {D, S, heads, B, ss, sh, sb, rows};
-  for (const MapEntry& e : map_cache)
-    if (e.ptr == ptr && std::equal(key, key + 8, e.key)) {
-      *map = e.map;
-      return true;
-    }
-  const EncodeTiled fn = encode_tiled();
-  if (!fn) return false;
-  auto bytes = [&](int64_t stride, int extent) {
-    return (cuuint64_t)((extent == 1 ? D : stride) * 2);
-  };
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)max(S, 1), (cuuint64_t)heads,
-                              (cuuint64_t)B};
-  const cuuint64_t strides[3] = {bytes(ss, max(S, 1)), bytes(sh, heads), bytes(sb, B)};
-  const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  if (fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
-         elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-         CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-    return false;
-  MapEntry& e = map_cache[map_next];
-  e.map = *map;
-  e.ptr = ptr;
-  std::copy(key, key + 8, e.key);
-  map_next = (map_next + 1) % MAP_CACHE;
-  return true;
-}
-
 template <int D>
 cudaError_t launch_wgmma(const FlashArgs& a, int B, cudaStream_t stream) {
   using Tiles = WgTiles<D>;
   CUtensorMap tq, tk, tv;
-  if (!make_map(&tq, a.q, D, a.Sq, a.H, B, a.q_ss, a.q_sh, a.q_sb, BQ_WG) ||
-      !make_map(&tk, a.k, D, a.Skv, a.K, B, a.k_ss, a.k_sh, a.k_sb, Tiles::BKV) ||
-      !make_map(&tv, a.v, D, a.Skv, a.K, B, a.v_ss, a.v_sh, a.v_sb, Tiles::BKV))
+  if (!head_map(&tq, a.q, D, a.Sq, a.H, B, a.q_ss, a.q_sh, a.q_sb, BQ_WG) ||
+      !head_map(&tk, a.k, D, a.Skv, a.K, B, a.k_ss, a.k_sh, a.k_sb, Tiles::BKV) ||
+      !head_map(&tv, a.v, D, a.Skv, a.K, B, a.v_ss, a.v_sh, a.v_sb, Tiles::BKV))
     return cudaErrorInvalidValue;
   static const cudaError_t attr = cudaFuncSetAttribute(
       flash_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, Tiles::SMEM);
@@ -731,15 +631,19 @@ cudaError_t launch_d(const FlashArgs& a, int B, int d, int dtype, cudaStream_t s
 
 // strides: 12 element strides (b, head, seq) of q, k, v, out in that order;
 // the head dimension must be contiguous and rows 16-byte aligned.
-// dtype: 0 = float32, 1 = bfloat16.
+// dtype: 0 = float32, 1 = bfloat16.  o32 and lse (bf16 only, both or
+// neither): the backward's state, (B, H, Sq, d) and (B, H, ceil(Sq / 128)
+// · 128) fp32, contiguous; out keeps its bits either way.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                                   const int* lengths, const long long* strides, int B,
-                                   int H, int K, int Sq, int Skv, int d, int dtype,
-                                   int causal, int window, float softcap, float sm_scale,
-                                   void* stream) {
+                                   float* o32, float* lse, const int* lengths,
+                                   const long long* strides, int B, int H, int K, int Sq,
+                                   int Skv, int d, int dtype, int causal, int window,
+                                   float softcap, float sm_scale, void* stream) {
   using namespace repro_torch;
+  if ((o32 || lse) && (dtype != 1 || !o32 || !lse)) return (int)cudaErrorInvalidValue;
   FlashArgs a;
   a.q = q; a.k = k; a.v = v; a.o = o; a.lengths = lengths;
+  a.o32 = o32; a.lse = lse; a.stats_pitch = (Sq + BQ_WG - 1) / BQ_WG * BQ_WG;
   a.q_sb = strides[0]; a.q_sh = strides[1]; a.q_ss = strides[2];
   a.k_sb = strides[3]; a.k_sh = strides[4]; a.k_ss = strides[5];
   a.v_sb = strides[6]; a.v_sh = strides[7]; a.v_ss = strides[8];

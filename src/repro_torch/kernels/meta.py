@@ -7,7 +7,10 @@ computes nothing; ``SCRATCH`` gives the bytes of the scratch the wrapper
 holds beside them during the call, so a tracker of live bytes sees the
 card's peak.  The backward kernels K1′, K3′
 and K4′ are custom ops too, tied to their forwards by ``register_autograd``,
-so a meta train step differentiates through them.
+so a meta train step differentiates through them.  K1 under a gradient is
+``flash_attention_train``, which also returns the state K1′ takes (the
+fp32 output and each row's lse), saved for the backward as the card's
+``FlashAttention`` saves it.
 
 Each op carries its formula from ``kernels/costs.py``: ``FlopCounterMode``
 reads the operations through ``register_flop_formula``, and ``COSTS`` gives
@@ -56,16 +59,35 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, causal: bool, window: int,
     return torch.empty_like(q)
 
 
+def _flash_state(q: Tensor) -> Tuple[Tensor, Tensor]:
+    """The forward's state for K1′ (``flash_attention(..., return_stats=True)``):
+    bf16 the fp32 output and each row's lse; fp32, whose backward takes
+    none, empty."""
+    B, H, Sq, d = q.shape
+    if q.dtype == torch.float32:
+        return (torch.empty(0, dtype=torch.float32, device=q.device),) * 2
+    return (torch.empty((B, H, Sq, d), dtype=torch.float32, device=q.device),
+            torch.empty((B, H, _fa.stats_pitch(Sq)), dtype=torch.float32, device=q.device))
+
+
+@_op("flash_attention_train")
+def flash_attention_train(q: Tensor, k: Tensor, v: Tensor, causal: bool, window: int,
+                          softcap: float, lengths: Optional[Tensor]
+                          ) -> Tuple[Tensor, Tensor, Tensor]:
+    """K1 when a gradient is wanted: the output and the state it keeps."""
+    return (torch.empty_like(q), *_flash_state(q))
+
+
 @_op("flash_attention_bwd")
-def flash_attention_bwd(q: Tensor, k: Tensor, v: Tensor, dout: Tensor, causal: bool,
-                        window: int, softcap: float, lengths: Optional[Tensor]
-                        ) -> Tuple[Tensor, Tensor, Tensor]:
+def flash_attention_bwd(q: Tensor, k: Tensor, v: Tensor, dout: Tensor, out32: Tensor,
+                        lse: Tensor, causal: bool, window: int, softcap: float,
+                        lengths: Optional[Tensor]) -> Tuple[Tensor, Tensor, Tensor]:
     return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
 
 
 def _flash_bwd_scratch(q, *rest) -> int:
     B, H, Sq, _ = q.shape
-    return 4 * 2 * B * H * -(-Sq // _fa.STATS_ROWS) * _fa.STATS_ROWS   # lse and D
+    return 4 * 2 * B * H * _fa.stats_pitch(Sq)                        # D and an lse
 
 
 def _flash_cost(fn: Callable) -> Callable:
@@ -77,19 +99,28 @@ def _flash_cost(fn: Callable) -> Callable:
     return cost
 
 
+def _flash_train_cost(q, *rest) -> costs.Cost:
+    """K1's formula, and the state written beside its output."""
+    c = _flash_cost(costs.flash_attention)(q, *rest)
+    return c._replace(bytes=c.bytes + sum(t.nbytes for t in _flash_state(q)))
+
+
 def _flash_setup(ctx, inputs, output):
     q, k, v, causal, window, softcap, lengths = inputs
-    ctx.save_for_backward(q, k, v, lengths)
+    _, out32, lse = output
+    ctx.save_for_backward(q, k, v, lengths, out32, lse)
+    ctx.mark_non_differentiable(out32, lse)
+    ctx.set_materialize_grads(False)   # no zeros made for the state's gradients
     ctx.opts = (causal, window, softcap)
 
 
-def _flash_backward(ctx, dout):
-    q, k, v, lengths = ctx.saved_tensors
-    return (*flash_attention_bwd(q, k, v, dout, *ctx.opts, lengths),
+def _flash_backward(ctx, dout, d_out32, d_lse):
+    q, k, v, lengths, out32, lse = ctx.saved_tensors
+    return (*flash_attention_bwd(q, k, v, dout, out32, lse, *ctx.opts, lengths),
             None, None, None, None)
 
 
-flash_attention.register_autograd(_flash_backward, setup_context=_flash_setup)
+flash_attention_train.register_autograd(_flash_backward, setup_context=_flash_setup)
 
 
 # ---- K2 ----------------------------------------------------------------------
@@ -193,6 +224,7 @@ wkv6.register_autograd(_wkv_backward, setup_context=_save_inputs)
 # op → cost(*the op's arguments) → costs.Cost
 COSTS: Dict[object, Callable] = {
     torch.ops.repro_torch.flash_attention: _flash_cost(costs.flash_attention),
+    torch.ops.repro_torch.flash_attention_train: _flash_train_cost,
     torch.ops.repro_torch.flash_attention_bwd: _flash_cost(costs.flash_attention_bwd),
     torch.ops.repro_torch.decode_attention: _decode_cost,
     torch.ops.repro_torch.rglru_scan: _by_first_operand(costs.rglru_scan),

@@ -181,6 +181,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     if _sharded(q, k, v, lengths):
         return _flash_sharded(q, k, v, causal, window, softcap, lengths)
     if q.is_meta:
+        if _wants_grad(q, k, v):   # the state K1′ takes, kept for the backward
+            return _meta.flash_attention_train(q, k, v, causal, window, softcap, lengths)[0]
         return _meta.flash_attention(q, k, v, causal, window, softcap, lengths)
     if not q.is_cuda:
         return _fa.plain(q, k, v, causal=causal, window=window, softcap=softcap,

@@ -197,7 +197,9 @@ def _kernel_calls(grad: bool):
     out = [("flash_attention", (q, k, v),
             lambda q, k, v: ops.flash_attention(q, k, v, window=16, softcap=50.0),
             [costs.flash_attention(B, H, K, S, S, d, 2, window=16, softcap=50.0)]
-            + ([costs.flash_attention_bwd(B, H, K, S, S, d, 2, window=16, softcap=50.0)]
+            + ([costs.flash_attention_bwd(B, H, K, S, S, d, 2, window=16, softcap=50.0),
+                # the state K1 writes for K1′: the fp32 output and each row's lse
+                costs.Cost(0.0, 4.0 * B * H * (S * d + fa.stats_pitch(S)), 0.0, "bf16")]
                if grad else [])),
            ("rglru_scan", (a, b, s0), ops.rglru_scan,
             [costs.rglru_scan(B, S, R, 4)] + ([costs.rglru_scan_bwd(B, S, R, 4)] if grad else [])),

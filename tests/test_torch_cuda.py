@@ -766,6 +766,12 @@ def test_generated_job_on_the_card_stays_ieee_fp32_where_tf32_is_allowed(family,
 BWD_ATOL_SHARE = 2.0 ** -14    # chip_smoke.py's limit on K1's backward
 
 
+def flash_bwd(q, k, v, dout, **opts):
+    """K1′ on the forward's state from K1 on the same inputs."""
+    state = fa.flash_attention(q, k, v, return_stats=True, **opts)[1:]
+    return fa.flash_attention_bwd(q, k, v, dout, *state, **opts)
+
+
 def held_grads(got, want):
     """Worst ratio of |got − want| to 2^-14·max|want| + 2^-7·|want| over
     (dq, dk, dv)."""
@@ -794,15 +800,16 @@ def test_flash_backward_matches_plain_grad(cuda, d, dtype, opts):
         opts["lengths"] = torch.tensor(lens, dtype=torch.int32, device=cuda)
         for b, n in enumerate(lens):   # rows past a length carry no loss
             do[b, :, n:] = 0
+    state = fa.flash_attention(tq, tk, tv, return_stats=True, **opts)[1:]
     n0 = fa.launches_bwd
-    got = fa.flash_attention_bwd(tq, tk, tv, do, **opts)
+    got = fa.flash_attention_bwd(tq, tk, tv, do, *state, **opts)
     torch.cuda.synchronize()
     assert fa.launches_bwd == n0 + 1
     want = fa.plain_grad(tq, tk, tv, do, acc=torch.float64, **opts)
     assert all(g.dtype == TORCH_DT[dtype] and g.shape == w.shape for g, w in zip(got, want))
     assert held_grads(got, want) <= 1.0
-    one_head = fa.flash_attention_bwd(tq[:, ::H // K].contiguous(), tk, tv,
-                                      do[:, ::H // K].contiguous(), **opts)[1]
+    one_head = flash_bwd(tq[:, ::H // K].contiguous(), tk, tv, do[:, ::H // K].contiguous(),
+                         **opts)[1]
     assert held_grads((got[0], one_head, got[2]), want) > 10.0
 
 
@@ -819,9 +826,34 @@ def test_flash_attention_autograd_runs_both_kernels(cuda):
     out = ops.flash_attention(tq, tk, tv, causal=True, softcap=30.0)
     grads = torch.autograd.grad(out, (tq, tk, tv), do.detach())
     assert (fa.launches, fa.launches_bwd) == (n0 + 1, m0 + 1)
-    want = fa.flash_attention_bwd(tq.detach(), tk.detach(), tv.detach(), do.detach(),
-                                  causal=True, softcap=30.0)
+    want = flash_bwd(tq.detach(), tk.detach(), tv.detach(), do.detach(), causal=True,
+                     softcap=30.0)
     assert all(torch.equal(g, w) for g, w in zip(grads, want))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+def test_flash_forward_keeps_its_bits_with_the_backward_state(cuda, d):
+    """K1's bf16 output is the same bits with and without the state it
+    hands the backward, and that state is its output before the bf16
+    rounding (the bf16 output is its rounding) and each row's log-sum-exp
+    (1e30 on rows with no live key)."""
+    B, H, K, S = 2, 8, 2, 300
+    tq, tk, tv = (t.to(cuda) for t in arrays(14, "bfloat16", (B, H, S, d), (B, K, S, d),
+                                             (B, K, S, d)))
+    opts = dict(causal=True, window=100, softcap=30.0,
+                lengths=torch.tensor([300, 0], dtype=torch.int32, device=cuda))
+    out, out32, lse = fa.flash_attention(tq, tk, tv, return_stats=True, **opts)
+    assert torch.equal(out, fa.flash_attention(tq, tk, tv, **opts))
+    assert torch.equal(out32.to(torch.bfloat16), out)
+    assert lse.shape == (B, H, fa.stats_pitch(S)) and out32.shape == (B, H, S, d)
+    assert bool((lse[1] == 1e30).all())
+    s = (tq[:1].double() @ tk[:1].double().repeat_interleave(H // K, 1).transpose(-1, -2)
+         / d ** 0.5)
+    s = 30.0 * torch.tanh(s / 30.0)
+    i, j = torch.arange(S, device=cuda)[:, None], torch.arange(S, device=cuda)[None, :]
+    s = torch.where((j <= i) & (j > i - 100), s, -torch.inf)
+    assert torch.allclose(lse[0, :, :S].double(), torch.logsumexp(s, -1), rtol=0, atol=1e-4)
 
 
 @pytest.mark.gpu
@@ -855,15 +887,15 @@ def test_flash_backward_at_training_shapes(cuda, B, H, K, Sq, Skv, causal):
     d = 64
     tq, tk, tv, do = (t.to(cuda) for t in arrays(9, "bfloat16", (B, H, Sq, d), (B, K, Skv, d),
                                                  (B, K, Skv, d), (B, H, Sq, d)))
-    got = fa.flash_attention_bwd(tq, tk, tv, do, causal=causal)
+    got = flash_bwd(tq, tk, tv, do, causal=causal)
     if H > K:
         G = H // K
-        fault = (got[0], fa.flash_attention_bwd(tq[:, ::G].contiguous(), tk, tv,
-                                                do[:, ::G].contiguous(), causal=causal)[1],
+        fault = (got[0], flash_bwd(tq[:, ::G].contiguous(), tk, tv, do[:, ::G].contiguous(),
+                                   causal=causal)[1],
                  got[2])
     else:
         cut = torch.full((B,), Sq, dtype=torch.int32, device=cuda)
-        fault = fa.flash_attention_bwd(tq, tk, tv, do, causal=causal, lengths=cut)
+        fault = flash_bwd(tq, tk, tv, do, causal=causal, lengths=cut)
     for b in range(B):
         want = fa.plain_grad(tq[b:b + 1], tk[b:b + 1], tv[b:b + 1], do[b:b + 1],
                              acc=torch.float64, causal=causal)
@@ -884,18 +916,20 @@ def test_flash_backward_is_bitwise_deterministic(cuda, d, dtype):
                                                  (B, K, S, d), (B, H, S, d)))
     opts = dict(causal=True, window=100, softcap=30.0,
                 lengths=torch.tensor([300, 171], dtype=torch.int32, device=cuda))
-    first = fa.flash_attention_bwd(tq, tk, tv, do, **opts)
-    second = fa.flash_attention_bwd(tq, tk, tv, do, **opts)
+    state = fa.flash_attention(tq, tk, tv, return_stats=True, **opts)[1:]
+    first = fa.flash_attention_bwd(tq, tk, tv, do, *state, **opts)
+    second = fa.flash_attention_bwd(tq, tk, tv, do, *state, **opts)
     assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("window", [32, 64, 0])
 def test_flash_backward_d256_window_on_tile_edges(cuda, window):
-    """d = 256 in bf16 (the instantiation whose dK/dV pass splits a warp
-    pair into a dV and a dK warp), 16 query heads on one kv head, a window
-    on a tile boundary of both passes (32 and 64 keys) and ragged lengths,
-    held to the float64 plain version at chip_smoke.py phase 18's limit."""
+    """d = 256 in bf16 (the instantiation with 32-key tiles in the dQ
+    kernel and 32-row query tiles in the dK/dV kernel), 16 query heads on
+    one kv head, a window on a tile boundary of both kernels (32 and 64) and
+    ragged lengths, held to the float64 plain version at chip_smoke.py
+    phase 18's limit."""
     B, H, K, S, d = 3, 16, 1, 260, 256
     tq, tk, tv, do = (t.to(cuda) for t in arrays(13, "bfloat16", (B, H, S, d), (B, K, S, d),
                                                  (B, K, S, d), (B, H, S, d)))
@@ -904,7 +938,7 @@ def test_flash_backward_d256_window_on_tile_edges(cuda, window):
         do[b, :, n:] = 0
     opts = dict(causal=True, window=window,
                 lengths=torch.tensor(lens, dtype=torch.int32, device=cuda))
-    got = fa.flash_attention_bwd(tq, tk, tv, do, **opts)
+    got = flash_bwd(tq, tk, tv, do, **opts)
     want = fa.plain_grad(tq, tk, tv, do, acc=torch.float64, **opts)
     assert held_grads(got, want) <= 1.0
     assert all(float(g[b, :, n:].abs().max()) == 0.0

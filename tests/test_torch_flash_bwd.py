@@ -3,16 +3,19 @@
 ``twin_grad`` below is a plain-PyTorch twin of ``flash_attention_bwd.cu``'s
 bf16 path, with no CUDA: it follows the kernel's decomposition, not the
 autograd one.
-- lse and D = sum_j P_ij dP_ij come from an online sweep over steps of the
-  kernel's statistics step (32 keys, 16 at d = 256), from S
-  and dP summed in fp32 (the products of bf16 inputs are exact in fp32).
+- lse and the fp32 output come from the forward (``forward_state``: K1's
+  online softmax over its kv tiles, 64 keys, 32 at d = 256), and D =
+  rowsum(dO ∘ O) from that fp32 output, as the dQ kernel's prologue takes
+  it; S and dP are summed in fp32 (the products of bf16 inputs are exact
+  in fp32).
 - P = exp(s - lse) and dS = P (dP - D) times the softcap's derivative are
   fp32 values that enter the gradient products in ``PARITY_BWD_PARTS`` bf16
   parts, as ``split_bf16`` makes them.
 - dQ += dS·K over k16 steps of keys; dV += Pᵀ·dO and dK += dSᵀ·Q over the G
   query heads of a kv head, one after the other, and k16 steps of queries.
-  Each step's parts are summed in fp32 from zero, smallest first, and added
-  to the accumulator (``PARITY_BWD_FRESH``), or chained into it.
+  Each chain of ``PARITY_BWD_FRESH`` steps has its parts summed in fp32 from
+  zero, smallest first, and is added to the accumulator, or (0) every step
+  is chained into it.
 The switches are read from the kernel's source, so the twin follows what
 ships.  The tensor cores' truncating sums are not modelled: ``parity_probe.py
 --kernel flash_bwd`` measures those on the card.
@@ -25,7 +28,9 @@ The tests hold the twin
   (``fa.plain_grad``) within ``chip_smoke.py`` phase 18's limit,
   2^-14·max|want| + 2^-7·|want| per entry;
 - and show that P and dS rounded once to bf16 (one part) exceed that limit,
-  which is why the kernel splits them.
+  which is why the kernel splits them, and that D taken from the forward's
+  bf16 output exceeds it, which is why the forward hands over its output in
+  fp32.
 Inputs are bf16 values made from numpy seeds, at small sizes (S ≤ 256, d in
 {64, 128, 256}, G in {1, 4}), causal, windowed, softcapped, ragged and
 cross-shaped (Sq ≠ Skv).
@@ -49,7 +54,7 @@ CSRC = Path(fa.__file__).resolve().parent / "csrc"
 FP32_TOL = 1e-5
 BWD_ATOL_SHARE = 2.0 ** -14    # chip_smoke.py phase 18's limit
 RTOL = 2.0 ** -7
-STATS_STEP = {64: 32, 128: 32, 256: 16}   # keys a statistics step (QTiles<D>::KS)
+FWD_TILE = {64: 64, 128: 64, 256: 32}   # keys a kv tile of K1's bf16 forward (kv_tile<D>)
 K16 = 16
 
 
@@ -76,7 +81,7 @@ def one_thread():
 
 
 PARTS = shipped_switch("PARITY_BWD_PARTS")
-FRESH = bool(shipped_switch("PARITY_BWD_FRESH"))
+FRESH = shipped_switch("PARITY_BWD_FRESH")   # k16 steps a fresh chain; 0 chained
 
 
 def bf16_parts(x, n):
@@ -91,18 +96,20 @@ def bf16_parts(x, n):
     return parts[::-1]
 
 
-def step_product(acc, a, b, parts, fresh):
-    """acc + a·b for one k16 step, a fp32 in ``parts`` bf16 parts, b bf16
-    values, each part's product summed in fp32: from zero and then added
-    (fresh), or chained into acc."""
-    split = bf16_parts(a, parts)
-    if fresh:
-        t = split[0] @ b
-        for part in split[1:]:
-            t = t + part @ b
-        return acc + t
-    for part in split:
-        acc = acc + part @ b
+def chain_product(acc, a, b, parts, fresh):
+    """acc + a·b over the k16 steps of a's last dimension (b's rows), a
+    fp32 in ``parts`` bf16 parts, b bf16 values, each part's product summed
+    in fp32: in chains of ``fresh`` steps from zero, each then added, or
+    (0) every step chained into acc."""
+    steps = -(-a.shape[-1] // K16)
+    span = fresh or steps
+    for c0 in range(0, steps, span):
+        t = acc if not fresh else torch.zeros_like(acc)
+        for j in range(c0, min(c0 + span, steps)):
+            cols = slice(j * K16, (j + 1) * K16)
+            for part in bf16_parts(a[..., cols], parts):
+                t = t + part @ b[..., cols, :]
+        acc = t if not fresh else acc + t
     return acc
 
 
@@ -119,53 +126,67 @@ def live_mask(B, Sq, Skv, causal, window, lengths):
     return mask
 
 
+def forward_state(q, k, v, *, causal=True, window=0, softcap=0.0, lengths=None):
+    """(out32, lse) as K1's bf16 forward hands them to the backward: the
+    online softmax over its kv tiles (the running max and sum, the output
+    rescaled where the max moved), each row's m + log l (1e30 for a row with
+    no live key) and the output before its bf16 rounding, in fp32."""
+    B, H, Sq, d = q.shape
+    G = H // k.shape[1]
+    kx, vx = k.repeat_interleave(G, 1), v.repeat_interleave(G, 1)
+    live = live_mask(B, Sq, k.shape[2], causal, window, lengths)[:, None]
+    s = q @ kx.transpose(-1, -2) / math.sqrt(d)
+    sc = softcap * torch.tanh(s / softcap) if softcap > 0 else s
+    m = torch.full((B, H, Sq), -math.inf)
+    l, acc = torch.zeros_like(m), torch.zeros_like(q)
+    tile = FWD_TILE[d]
+    for k0 in range(0, k.shape[2], tile):
+        x = torch.where(live[..., k0:k0 + tile], sc[..., k0:k0 + tile], -math.inf)
+        m_new = torch.maximum(m, x.amax(-1))
+        m_use = torch.where(m_new > -math.inf, m_new, 0.0)
+        alpha = torch.exp(m - m_use)
+        p = torch.exp(x - m_use[..., None])
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + p @ vx[..., k0:k0 + tile, :]
+        m = m_new
+    lse = torch.where(l > 0, m + torch.log(l), 1e30)
+    out32 = torch.where(l[..., None] > 0, acc / l[..., None], 0.0)
+    return out32, lse
+
+
 def twin_grad(q, k, v, dout, *, causal=True, window=0, softcap=0.0, lengths=None,
-              parts=PARTS, fresh=FRESH):
+              parts=PARTS, fresh=FRESH, out=None):
     """(dq, dk, dv) as the bf16 kernel computes them, before it rounds them
     to bf16: q, dout (B, H, Sq, d) and k, v (B, K, Skv, d) fp32 tensors of
-    bf16 values."""
+    bf16 values.  D from ``out`` where given (the forward's output as some
+    other rounding leaves it), else from the forward's fp32 output."""
     B, H, Sq, d = q.shape
     K, Skv = k.shape[1], k.shape[2]
     G = H // K
     scale = 1.0 / math.sqrt(d)
     kx, vx = k.repeat_interleave(G, 1), v.repeat_interleave(G, 1)
     live = live_mask(B, Sq, Skv, causal, window, lengths)[:, None]
+    out32, lse = forward_state(q, k, v, causal=causal, window=window, softcap=softcap,
+                               lengths=lengths)
+    # the dQ kernel's prologue: D = rowsum(dO ∘ O)
+    delta = (dout * (out32 if out is None else out)).sum(-1)
     s = q @ kx.transpose(-1, -2) * scale
     sc = softcap * torch.tanh(s / softcap) if softcap > 0 else s
     dp = dout @ vx.transpose(-1, -2)
-    # pass 1, sweep 1: lse and D online over statistics steps
-    m = torch.full((B, H, Sq), -math.inf)
-    l, pd = torch.zeros_like(m), torch.zeros_like(m)
-    step = STATS_STEP[d]
-    for k0 in range(0, Skv, step):
-        x = torch.where(live[..., k0:k0 + step], sc[..., k0:k0 + step], -math.inf)
-        m_new = torch.maximum(m, x.amax(-1))
-        ok = m_new > -math.inf
-        m_use = torch.where(ok, m_new, 0.0)
-        alpha = torch.exp(m - m_use)
-        p = torch.exp(x - m_use[..., None])
-        l = torch.where(ok, l * alpha + p.sum(-1), l)
-        pd = torch.where(ok, pd * alpha + (p * dp[..., k0:k0 + step]).sum(-1), pd)
-        m = torch.where(ok, m_new, m)
-    lse = torch.where(l > 0, m + torch.log(l), 1e30)
-    delta = torch.where(l > 0, pd / l, 0.0)
     p = torch.where(live, torch.exp(sc - lse[..., None]), 0.0)
     ds = p * (dp - delta[..., None])
     if softcap > 0:
         ds = ds * (1.0 - (sc / softcap) ** 2)
-    # pass 1, sweep 2: dQ over k16 steps of keys
-    dq = torch.zeros_like(q)
-    for j0 in range(0, Skv, K16):
-        dq = step_product(dq, ds[..., j0:j0 + K16], kx[..., j0:j0 + K16, :], parts, fresh)
-    # pass 2: dK and dV, the G heads of a kv head one after the other
+    # the dQ kernel: dQ over k16 steps of keys
+    dq = chain_product(torch.zeros_like(q), ds, kx, parts, fresh)
+    # the dK/dV kernel: the G heads of a kv head one after the other, each
+    # over k16 steps of queries
     p, ds = (t.reshape(B, K, G, Sq, Skv).transpose(-1, -2) for t in (p, ds))
     qg, og = (t.reshape(B, K, G, Sq, d) for t in (q, dout))
     dk, dv = torch.zeros_like(k), torch.zeros_like(v)
     for g in range(G):
-        for i0 in range(0, Sq, K16):
-            rows = slice(i0, i0 + K16)
-            dv = step_product(dv, p[:, :, g, :, rows], og[:, :, g, rows], parts, fresh)
-            dk = step_product(dk, ds[:, :, g, :, rows], qg[:, :, g, rows], parts, fresh)
+        dv = chain_product(dv, p[:, :, g], og[:, :, g], parts, fresh)
+        dk = chain_product(dk, ds[:, :, g], qg[:, :, g], parts, fresh)
     return dq * scale, dk * scale, dv
 
 
@@ -225,8 +246,8 @@ def rounded(grads):
 
 
 def test_switches_are_read_from_the_source():
-    assert PARTS in (1, 2, 3) and isinstance(FRESH, bool)
-    assert shipped_switch("PARITY_QK_CHAIN") == 8
+    assert PARTS in (1, 2, 3) and FRESH >= 0
+    assert shipped_switch("PARITY_QK_CHAIN") == 16
 
 
 @pytest.mark.parametrize("name", list(CASES))
@@ -277,3 +298,20 @@ def test_bf16_parts_rebuild_the_value():
         assert torch.equal(parts[-1], x.to(torch.bfloat16).float())
         total = sum(p.double() for p in parts)
         assert float(((total - x.double()).abs() / x.double().abs()).max()) <= tol
+
+
+@pytest.mark.parametrize("name", list(CASES))
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+def test_delta_from_bf16_output_exceeds_the_chip_limit(d, name):
+    """D = rowsum(dO ∘ O) from the forward's output rounded to bf16, where
+    the kernel takes the fp32 one, exceeds phase 18's limit at 4 query
+    heads per kv head, where the shipped D keeps within it: dQ_i = Σ_j
+    dS_ij k_j cancels (each row of dS sums to zero), and an error e in D_i
+    moves it by −e·(P·K)_i, which does not.  The reason the forward hands
+    its output over in fp32."""
+    q, k, v, dout, opts = case(name, d, 4)
+    want = fa.plain_grad(q, k, v, dout, acc=torch.float64, **opts)
+    out16 = forward_state(q, k, v, **opts)[0].to(torch.bfloat16).float()
+    rounded_d = limit_ratio(rounded(twin_grad(q, k, v, dout, out=out16, **opts)), want)
+    shipped = limit_ratio(rounded(twin_grad(q, k, v, dout, **opts)), want)
+    assert rounded_d > 1.0 and shipped <= 1.0, (rounded_d, shipped)

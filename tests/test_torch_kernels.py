@@ -273,6 +273,72 @@ def test_flash_plan_reads_every_live_key(Sq, Skv, causal, window, length, dtype)
             assert seen[t0:t0 + p.kv_tile].any(), (x, t0)
 
 
+# --------------------------------------------- K1′'s bf16 launch plan
+def _bwd_source_constants():
+    """The bf16 launch constants of csrc/flash_attention_bwd.cu, from the source."""
+    import re
+    from repro_torch.kernels import _build
+    src = (_build.CSRC / "flash_attention_bwd.cu").read_text()
+    const = {name: int(val) for name, val in re.findall(r"constexpr int (\w+) = (\d+);", src)}
+    const["WG_THREADS"] = int(re.search(r"WG_THREADS = (\d+) \* 128", src)[1]) * 128
+    dq = re.search(r"struct DqTiles \{(.*?)\};", src, re.S)[1]
+    dkv = re.search(r"struct DkvTiles \{(.*?)\};", src, re.S)[1]
+    const["dq_rows"] = int(re.search(r"BQ = (\d+) \* WG_ROWS", dq)[1]) * const["WG_ROWS"]
+    for name, body, field, at in (("dq_kv_tile", dq, "BKV", 256), ("dkv_q_tile", dkv, "BQ", 256),
+                                  ("dkv_keys", dkv, "BKV", 64)):
+        one, other = re.search(field + f" = D == {at}" + r" \? (\d+) : (\d+);", body).groups()
+        const[name] = {d: int(one) if d == at else int(other) for d in fa.HEAD_DIMS}
+    return const
+
+
+# phase 18's bf16 K1′ cases (B, H, K, Sq, Skv, d), and a cross shape with
+# ragged tiles
+BWD_SHAPES = {"granite-3-2b": (4, 32, 8, 2048, 2048, 64),
+              "gemma2-2b": (2, 8, 4, 4700, 4700, 256),
+              "recurrentgemma-9b": (2, 16, 1, 4096, 4096, 256),
+              "whisper-tiny encoder": (4, 6, 6, 1500, 1500, 64),
+              "whisper-tiny cross-attention": (4, 6, 6, 432, 1500, 64),
+              "llava-next-34b": (4, 56, 8, 3392, 3392, 128),
+              "cross 77 x 333": (2, 4, 2, 77, 333, 128)}
+
+
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+def test_flash_plan_bwd_follows_the_source_and_fits_shared_memory(d):
+    """The backward's plan is the source's two launches (rows and keys a
+    block, tiles, stages, threads), the lse and D pitch a whole number of
+    tiles, and each block's shared memory fits the H100's 227 KB."""
+    c = _bwd_source_constants()
+    p = fa.plan_bwd(2, 8, 4, 300, 500, d)
+    assert (p.dq_rows, p.dq_kv_tile, p.dkv_keys, p.dkv_q_tile, p.stages, p.threads) == (
+        c["dq_rows"], c["dq_kv_tile"][d], c["dkv_keys"][d], c["dkv_q_tile"][d], c["STAGES"],
+        c["WG_THREADS"])
+    assert fa.STATS_ROWS == c["kStatsRows"]
+    assert fa.STATS_ROWS % p.dq_rows == 0 and fa.STATS_ROWS % p.dkv_q_tile == 0
+    assert max(p.dq_smem, p.dkv_smem) <= fa.SMEM_LIMIT
+    assert p.dq_grid == (8, 2, -(-300 // p.dq_rows))
+    assert p.dkv_grid == (4, 2, -(-500 // p.dkv_keys))
+
+
+@pytest.mark.parametrize("case", list(BWD_SHAPES))
+def test_flash_plan_bwd_covers_every_row_and_key_once(case):
+    """At phase 18's shapes and a cross shape, every (sequence, head, query
+    row) falls in exactly one dQ block and every (sequence, kv head, key)
+    in exactly one dK/dV block, no block past the rows or keys, and each
+    head's query rows and keys reach the lse and D pitch."""
+    B, H, K, Sq, Skv, d = BWD_SHAPES[case]
+    p = fa.plan_bwd(B, H, K, Sq, Skv, d)
+    assert p.dq_grid[:2] == (H, B) and p.dkv_grid[:2] == (K, B)
+    for n, blocks, span in ((Sq, p.dq_grid[2], p.dq_block_rows),
+                            (Skv, p.dkv_grid[2], p.dkv_block_keys)):
+        seen = np.zeros(n, dtype=np.int64)
+        for z in range(blocks):
+            rows = span(z)
+            assert rows.start < n
+            seen[rows.start:min(rows.stop, n)] += 1
+        assert (seen == 1).all(), case
+    assert max(p.dq_block_rows(0).stop, p.dq_grid[2] * p.dq_rows) == fa.stats_pitch(Sq)
+
+
 def _held_ratio(got, want):
     """chip_smoke.py's one-bf16-ulp limit: max |got − want| / (1e-5 + 2^-7·|want|)."""
     return float(((got - want).abs() / (1e-5 + 2.0 ** -7 * want.abs())).max())
