@@ -11,7 +11,9 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 sm_90a, in parallel, with ptxas's resource report (no
                 instantiation may spill, K3's bf16 and K4's N = 32 ones
                 included), and HGMMA (wgmma) in the SASS of K1's bf16
-                kernel and of K1′'s two at every head size;
+                kernel and of K1′'s two at every head size, and of K4's bf16
+                kernel at N = 64 (its output and segment passes), none
+                serialized;
   3. kernels  — each kernel against its plain PyTorch version, element by
                 element, with planted faults that the check must reject, and
                 kernel, plain and library times (CUDA events) beside the
@@ -34,11 +36,13 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 chooses; the plan is printed), its faults including the
                 state carried across one stage boundary dropped; K4 at
                 rwkv6-7b's prefill
-                shapes (H=64 heads of 64, bf16 r/k/v), held to its plain
+                shapes (H=64 heads of 64, bf16 r/k/v: the wgmma kernel in
+                one segment, and at one prompt in two), held to its plain
                 version computed in float64, its output within one bf16 ulp
                 plus a bound on its chunked arithmetic and its final fp32
-                state within that bound (see wkv_atol), planted faults
-                including a segment started from a zero state; K3 again
+                state within that bound (see wkv_atol), the same bits on a
+                second call, planted faults including the state carried into
+                a segment (or, in one segment, into a chunk) dropped; K3 again
                 with bf16 a/b/seq (bitwise, its B = 1 time beside) and K4
                 again at the calibration's shape (B=4, S=256, H=2 heads of
                 N=32), each with the same limits;
@@ -317,7 +321,10 @@ ATOL = 1e-5
 # than the plain recurrence, so it is held to the plain version computed in
 # float64 (``acc``), entry by entry, with limits from its own arithmetic
 # (u = 2^-24, the unit roundoff of fp32; T = 32 steps a chunk, N the head
-# size, C = ceil(S / T) chunks):
+# size, C = ceil(S / T) chunks).  They were derived for the tf32 kernel
+# (chunks of 32) and hold the wgmma kernel (bf16 at N = 64, chunks of 64)
+# as they stand: T stays 32 (WKV_LIMIT_T), and the segments' term follows
+# the plan of the kernel the call launches (``wk.forward_plan``):
 # - A decay factor: the decays of r, of k and A's pairwise ones are running
 #   products of at most T - 1 factors e^{w} (expf ≤ 2 ulp = 4u, each
 #   product rounded u), ≤ 5Tu; each product with r or k adds u.
@@ -354,6 +361,7 @@ ATOL = 1e-5
 # through the output check.  Planted faults show the limits still reject a
 # wrong kernel.
 UNIT = 2.0 ** -24   # u, the unit roundoff of fp32, in K4's limits above
+WKV_LIMIT_T = 32    # T in K4's limits above, whatever the kernel's chunk
 # Full-width model, kernel path against plain path on the same weights.
 # With fp32 activations the two differ only in fp32 summation order inside
 # the kernels (attention; the WKV kernel's chunked tf32 products, within a
@@ -491,10 +499,11 @@ def wkv_atol(r, k, v, logw, u, s0):
     import torch
     from repro_torch.kernels import wkv6 as wk
     B, S, H, N = r.shape
-    T, unit = wk.CHUNK, UNIT
+    T, unit = WKV_LIMIT_T, UNIT
     mag, _ = wk.plain(r.double().abs(), k.double().abs(), v.double().abs(), logw, u.abs(),
                       s0.abs(), acc=torch.float64)
-    C, (_, Lc) = -(-S // T), wk.plan_segments(B, H, S)
+    _, segment, chunk = wk.forward_plan(B, H, S, N, r.dtype)
+    C, Lc = -(-S // T), segment * chunk // T      # the segments in chunks of T
 
     def chunked(x):  # (B, C, T, H, N) in float64, zeros past S
         x = torch.nn.functional.pad(x.double(), (0, 0, 0, 0, 0, C * T - S))
@@ -656,6 +665,17 @@ def phase_build():
     print(f"[sass] flash_attention_bwd {json.dumps(k1b)} serialized={len(serialized)}")
     require(len(k1b) == 6 and all(ops.get("HGMMA", 0) > 0 for ops in k1b.values()),
             f"K1′'s bf16 kernels run wgmma at d 64, 128 and 256: {k1b}")
+    # and K4's bf16 kernel at N = 64, its output pass and its segment pass,
+    # with no wgmma serialized
+    k4 = {fn: ops for fn, ops in sass_ops(_build.BUILD_DIR / "libwkv6.so").items()
+          if "wgmma" in fn}
+    serialized = [line.strip() for line in
+                  (_build.BUILD_DIR / "libwkv6.log").read_text().splitlines()
+                  if "wgmma.mma_async instructions are serialized" in line]
+    print(f"[sass] wkv6 {json.dumps(k4)} serialized={len(serialized)}")
+    require(len(k4) == 2 and all(ops.get("HGMMA", 0) > 0 for ops in k4.values())
+            and not serialized, f"K4's bf16 kernel runs wgmma, none serialized: {k4} "
+            f"{serialized}")
 
 
 def sass_ops(lib: Path, ops=("HGMMA", "HMMA")) -> dict:
@@ -664,11 +684,24 @@ def sass_ops(lib: Path, ops=("HGMMA", "HMMA")) -> dict:
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
                           check=True).stdout
+    def kernel_name(line):
+        """The length-prefixed name in ``line`` that ends in _kernel, with
+        its template arguments: of the candidates (a hash's digits may run
+        into the length), the shortest."""
+        names = []
+        for m in re.finditer(r"\d+", line):
+            for k in range(m.start(), m.end()):   # the length, a suffix of the digits
+                end = m.end() + int(line[k:m.end()])
+                name = line[m.end():end]
+                if name.endswith("_kernel") and re.match(r"[A-Za-z_]", name):
+                    args = re.match(r"I\w*?E", line[end:])
+                    names.append(name + (args[0] if args else ""))
+        return min(names, key=len) if names else None
     counts, fn = {}, None
     for line in sass.splitlines():
-        m = re.search(r"Function : \w*?_cu_[0-9a-f]{8}\d+(\w+?_kernel)(I\w*?E)?", line)
-        if m:
-            fn = counts.setdefault(m[1] + (m[2] or ""), {})
+        if "Function : " in line:
+            name = kernel_name(line)
+            fn = counts.setdefault(name, {}) if name else None
         elif fn is not None:
             for op in ops:
                 if f" {op}." in line or f" {op} " in line:
@@ -1010,11 +1043,14 @@ def wkv6_inputs(B: int, S: int, H: int, N: int, prompts):
     return r, k, v, logw, u, s0
 
 
-def wkv6_case(label: str, B: int, S: int, H: int, N: int, prompts, fault_step: int):
+def wkv6_case(label: str, B: int, S: int, H: int, N: int, prompts, fault_step: int,
+              segments: int):
     """K4 at B ragged prompts of lengths ``prompts`` padded to S, H heads of
     N, bf16 r/k/v with k=0 and logw=0 on pad steps as the model gives them,
-    logw = −exp(·), u and s0 in fp32: rwkv6-7b's prefill (H=64, N=64) and
-    the calibration's shape (H=2, N=32)."""
+    logw = −exp(·), u and s0 in fp32: rwkv6-7b's prefill (H=64, N=64: the
+    wgmma kernel in one segment, and at one prompt in two) and the
+    calibration's shape (H=2, N=32: the tf32 kernel in segments of one
+    chunk).  ``segments``: the plan the call must take."""
     import torch
     from repro_torch.kernels import wkv6 as wk
     args = wkv6_inputs(B, S, H, N, prompts)
@@ -1026,21 +1062,28 @@ def wkv6_case(label: str, B: int, S: int, H: int, N: int, prompts, fault_step: i
     require(all(bool(torch.isfinite(x.float()).all()) for x in got), "wkv6 output finite")
     require(ratio <= 1.0, f"wkv6 {label} max|err| {err}, output {out_ratio}x and state "
             f"{state_ratio}x the limit")
+    again = wk.wkv6(*args)
+    require(all(torch.equal(x, y) for x, y in zip(got, again)),
+            f"wkv6 {label} gives the same bits twice")
+    del again
     # planted faults: one valid step of the longest prompt skipped (k=0 and
     # logw=0 there, so S_t = S_{t-1}); the bonus-u term dropped; and the
-    # longest prompt's second segment started from a zero state (k=0 and
-    # e^{logw} = 0 on the first segment's last step: e^{-200} is 0 in fp32)
-    P, Lc = wk.plan_segments(B, H, S)
-    require(P > 1, f"wkv6 {label} splits the sequence ({P} segments)")
+    # longest prompt's state dropped where the kernel carries it (k=0 and
+    # e^{logw} = 0 on the step before: e^{-200} is 0 in fp32): into its
+    # second segment where the plan cuts segments, else into its middle
+    # chunk
+    P, Lc, chunk = wk.forward_plan(B, H, S, N, r.dtype)
+    require(P == segments, f"wkv6 {label} in {segments} segments, planned {P}")
+    cut = Lc * chunk if P > 1 else chunk * (-(-S // chunk) // 2)
     k_f, w_f = k.clone(), logw.clone()
     k_f[0, fault_step], w_f[0, fault_step] = 0.0, 0.0
     k_z, w_z = k.clone(), logw.clone()
-    k_z[0, Lc * 32 - 1], w_z[0, Lc * 32 - 1] = 0.0, -200.0
+    k_z[0, cut - 1], w_z[0, cut - 1] = 0.0, -200.0
     fault_ratio = {"one_step_skipped": held_wkv(wk.wkv6(r, k_f, v, w_f, u, s0), want,
                                                 atols)[1],
                    "bonus_u_dropped": held_wkv(
                        wk.wkv6(r, k, v, logw, torch.zeros_like(u), s0), want, atols)[1],
-                   "segment_state_dropped": held_wkv(
+                   ("segment_state_dropped" if P > 1 else "chunk_state_dropped"): held_wkv(
                        wk.wkv6(r, k_z, v, w_z, u, s0), want, atols)[1]}
     require(all(r_ > 1.0 for r_ in fault_ratio.values()),
             f"wkv6 {label} check rejects planted faults {fault_ratio}")
@@ -1050,7 +1093,7 @@ def wkv6_case(label: str, B: int, S: int, H: int, N: int, prompts, fault_step: i
                state_ratio=state_ratio, fault_ratio=fault_ratio,
                state_max_abs_err=float((got[1] - want[1]).abs().max()),
                # reported, not held: the output against ATOL + RTOL alone
-               ulp_only_ratio=held(got[0], want[0])[1], segments=[P, Lc],
+               ulp_only_ratio=held(got[0], want[0])[1], segments=[P, Lc], chunk=chunk,
                # beside the bound: the time its bytes alone take
                bytes_ms=cost.bytes / PEAK_BYTES * 1e3,
                ms=cuda_ms(lambda: wk.wkv6(*args), 20),
@@ -1684,8 +1727,8 @@ def held_on_grid(tag: str, batches, seqs) -> dict:
                         require(torch.equal(got, i8.plain(*args)),
                                 f"[{tag}] {where} bitwise equal to int8_matmul_exact")
                     elif name == "wkv6":
-                        B, S, H, _ = args[0].shape
-                        plan = wk.plan_segments(B, H, S)
+                        B, S, H, N = args[0].shape
+                        plan = wk.forward_plan(B, H, S, N, args[0].dtype)
                         err, ratio, parts = held_wkv(got, wkv_want(*args), wkv_atol(*args))
                         require(ratio <= 1.0, f"[{tag}] {where} segments {plan} output and "
                                               f"state {parts}x wkv_atol (max|err| {err})")
@@ -2653,13 +2696,13 @@ def reference_wkv(r, k, v, logw, u, state0, chunk: int = 32):
 
 
 def chunked_wkv(r, k, v, logw, u, state0):
-    """K4's chunked decomposition in plain PyTorch fp32, cut into segments as
-    the kernel plans the call."""
+    """K4's chunked decomposition in plain PyTorch fp32, in the chunks and
+    segments of the kernel the call launches."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import wkv6 as wk
-    B, S, H, _ = r.shape
-    return ref.wkv6_chunked_reference(r, k, v, logw, u, state0,
-                                      segments=wk.plan_segments(B, H, S)[0])
+    B, S, H, N = r.shape
+    P, _, chunk = wk.forward_plan(B, H, S, N, r.dtype)
+    return ref.wkv6_chunked_reference(r, k, v, logw, u, state0, chunk=chunk, segments=P)
 
 
 def imprecise_wkv(rel_err: float, seed: int):
@@ -2988,7 +3031,7 @@ def phase_train():
 # factor 2 as for K4's forward.
 #
 # K4's backward (wkv6_bwd.cu, T = 32 steps a chunk, N the head size, C
-# chunks in the forward's segments of Lc, ``wk.plan_segments``) likewise,
+# chunks in segments of Lc, ``wk.plan_bwd_segments``) likewise,
 # after its decomposition (tests/test_torch_wkv6_bwd_chunked.py).  Factors:
 # a running product of at most T - 1 factors e^{w} (expf ≤ 2 ulp = 4u, each
 # product rounded) is within 5Tu in any order; a sum of n products on the
@@ -3164,7 +3207,7 @@ def wkv_bwd_limits(r, k, v, logw, u, s0, do, ds):
     import torch
     from repro_torch.kernels import wkv6 as wk
     B, S, H, N = r.shape
-    T, unit = wk.CHUNK, UNIT
+    T, unit = wk.BWD_CHUNK, UNIT
     C = -(-S // T)
 
     def chunked(x):  # (B, S, H, N) → (C, B, H, T, N) in float64, zeros past S
@@ -3186,7 +3229,7 @@ def wkv_bwd_limits(r, k, v, logw, u, s0, do, ds):
     D = torch.exp(x)[..., None]
     kd, rd = ka * sd, ra * pd
     grow, g_inc = (x.abs()[..., None] + T + 6) * unit * D, (6 * T + 62) * unit
-    Lc = wk.plan_segments(B, H, S)[1]
+    Lc = wk.plan_bwd_segments(B, H, S)[1]
 
     def seg_step(p):  # (|X| + 5)u·d of segment p, a column of rows d
         X = x[p * Lc:(p + 1) * Lc].sum(dim=0)[..., None]
@@ -3244,8 +3287,8 @@ def wkv6_bwd_faults(args, want):
     from repro_torch.kernels import wkv6 as wk
     r, k, v, logw, u, s0, do, ds = args
     S = r.shape[1]
-    b0 = wk.CHUNK * (-(-S // wk.CHUNK) // 2)
-    b1 = min(b0 + wk.CHUNK, S)
+    b0 = wk.BWD_CHUNK * (-(-S // wk.BWD_CHUNK) // 2)
+    b1 = min(b0 + wk.BWD_CHUNK, S)
     f64 = torch.float64
 
     def part(lo, hi, state, dstate):
@@ -4132,9 +4175,12 @@ def main() -> int:
          f"S={max(PROMPTS)} R=4096"):
             merge([rglru_case("bfloat16")]),
         ("wkv6", "rwkv6-7b", ""): merge([
-            wkv6_case("rwkv6-7b", len(PROMPTS), max(PROMPTS), 64, 64, PROMPTS, 1000)]),
+            wkv6_case("rwkv6-7b", len(PROMPTS), max(PROMPTS), 64, 64, PROMPTS, 1000, 1)]),
+        ("wkv6", "rwkv6-7b", f"one prompt of {max(PROMPTS)}: two segments"): merge([
+            wkv6_case("rwkv6-7b one prompt", 1, max(PROMPTS), 64, 64, (max(PROMPTS),), 1000,
+                      2)]),
         ("wkv6", "calibration", "N=32, timed at B=4 S=256 H=2"): merge([
-            wkv6_case("calibration", 4, 256, 2, 32, (256,) * 4, 100)]),
+            wkv6_case("calibration", 4, 256, 2, 32, (256,) * 4, 100, 8)]),
         ("int8_matmul", "calibration",
          "timed at gemma2-2b's MLP down-projection 4096 x 9216 x 2304"): merge([
             int8_down_projection()]),

@@ -43,13 +43,23 @@ output unchanged.
 
 ``--kernel wkv6`` builds K4 once per variant of its tf32 passes (with no
 arguments: the shipped 3 and the variants ``WKV_UNDONE``: 1 and 2 passes
-on every product, ``WKV_TF32_PASSES``, and 1 pass on the two products that
-give the outputs alone, ``WKV_OUT_TF32_PASSES``) and prints, per variant,
-ptxas's report, the worst limit ratio of any K4 call of an rwkv6-7b prefill
-on its own bf16 activations against the float64 plain version
+on every product of the tf32 kernel, which runs fp32 and N = 32, and
+on the wgmma kernel's level-32 block of A, ``WKV_TF32_PASSES``, and 1 pass
+on the tf32 kernel's two output products alone, ``WKV_OUT_TF32_PASSES``)
+and prints, per variant, ptxas's report and the HGMMA and HMMA counts of
+K4's SASS, the worst limit ratio of any K4 call of an rwkv6-7b prefill on
+its own bf16 activations against the float64 plain version
 (``chip_smoke.py`` phase 8's check), its output's and its final state's
-apart, with the drift ratio, and phase 3's two K4 cases.  The default,
-``attention``:
+apart, with the drift ratio, phase 3's K4 cases, and the times of those
+cases and of an rwkv6-7b prefill taken in turns (the variants in order,
+then in reverse) with each launch's device time, and, for a variant that
+sets ``WKV_PROF=1``, the wgmma kernel's clock64 stamps of one block at
+rwkv6-7b's row, as cycles a chunk in each phase (``STAMP_PHASES``).  A variant
+``NAME:SRC=DIR`` (a parent's sources, whose tf32 kernel ran every head
+size and dtype) runs through the same C entry point, with that kernel's
+plan (chunks of 32, ``wk.plan_bwd_segments``) in place of
+``wk.forward_plan``.  The
+default, ``attention``:
 
 The bf16 tensor-core paths of K1 (flash_attention) and K2 (decode_attention)
 are held to one bf16 ulp of their plain versions computed in float64, and
@@ -129,6 +139,7 @@ LOADERS = {"flash_attention_bwd": ("flash_attention", "_lib_bwd"),
            "rglru_scan_bwd": ("rglru_scan", "_lib_bwd"), "wkv6_bwd": ("wkv6", "_lib_bwd")}
 MODE = "attention"
 KERNELS, ARCHS = MODES[MODE][:2]
+VARIANTS: dict = {}   # name → switches of this run's variants
 
 
 def parse(args):
@@ -191,13 +202,31 @@ def build(variants) -> dict:
             regs["K1′ sass"] = {fn: ops for fn, ops in cs.sass_ops(
                 variant_dir(name) / "libflash_attention_bwd.so").items()
                 if "bf16" in fn or "wgmma" in fn}
+        if KERNELS == ("wkv6",):   # and K4's, every kernel of the library
+            regs["K4 sass"] = cs.sass_ops(variant_dir(name) / "libwkv6.so")
     return report
+
+
+SHIPPED_PLAN = None   # wk.forward_plan as shipped, kept while a parent's plan stands in
+
+
+def parent_plan(B: int, H: int, S: int, N: int, dtype):
+    """The tf32 kernel's plan, which a parent's K4 takes at every head size
+    and dtype: chunks of 32 in ``wk.plan_bwd_segments``' segments."""
+    from repro_torch.kernels import wkv6 as wk
+    return (*wk.plan_bwd_segments(B, H, S), wk.BWD_CHUNK)
 
 
 def use(name: str) -> None:
     """Point the probed kernels' wrappers at variant ``name``'s libraries:
-    their cached loaders are filled from the variant's directory."""
+    their cached loaders are filled from the variant's directory.  K4 of a
+    SRC variant plans its calls as that parent did."""
+    global SHIPPED_PLAN
     from repro_torch.kernels import _build
+    from repro_torch.kernels import wkv6 as wk
+    SHIPPED_PLAN = SHIPPED_PLAN or wk.forward_plan
+    wk.forward_plan = parent_plan if (
+        "wkv6" in KERNELS and "SRC" in VARIANTS.get(name, {})) else SHIPPED_PLAN
     shipped = _build.library
     _build.library = lambda kernel: ctypes.CDLL(str(variant_dir(name) / f"lib{kernel}.so"))
     try:
@@ -250,11 +279,8 @@ def kernel_cases(variants) -> dict:
                 "gemma2-2b", 8, 4, 4736, 0, 50.0, ring=False),
             "K2 recurrentgemma-9b": lambda: cs.decode_case(
                 "recurrentgemma-9b", 16, 1, 2048, 2048, 0.0, ring=True)},
-        "wkv6": {
-            "K4 rwkv6-7b": lambda: cs.wkv6_case("rwkv6-7b", len(cs.PROMPTS), max(cs.PROMPTS),
-                                                64, 64, cs.PROMPTS, 1000),
-            "K4 calibration": lambda: cs.wkv6_case("calibration", 4, 256, 2, 32, (256,) * 4,
-                                                   100)},
+        "wkv6": {label: (lambda args=args: cs.wkv6_case(*args, planned(*args)))
+                 for label, args in WKV_CASES.items()},
     }[MODE]
     keys = ("limit_ratio", "out_ratio", "state_ratio", "fault_ratio", "ms", "library_ms",
             "bound_ms")
@@ -265,6 +291,105 @@ def kernel_cases(variants) -> dict:
         out[name] = {case: {key: res[key] for key in keys if key in res}
                      for case, res in ((case, run()) for case, run in cases.items())}
         out[name]["failed_checks"] = list(failures)
+    return out
+
+
+# phase 3's K4 cases: wkv6_case's arguments but the segments
+WKV_CASES = {
+    "K4 rwkv6-7b": ("rwkv6-7b", len(cs.PROMPTS), max(cs.PROMPTS), 64, 64, cs.PROMPTS, 1000),
+    "K4 rwkv6-7b one prompt": ("rwkv6-7b one prompt", 1, max(cs.PROMPTS), 64, 64,
+                               (max(cs.PROMPTS),), 1000),
+    "K4 calibration": ("calibration", 4, 256, 2, 32, (256,) * 4, 100)}
+
+
+def planned(label, B, S, H, N, *rest) -> int:
+    """The segments the probed variant's K4 plans for a case (bf16)."""
+    import torch
+    from repro_torch.kernels import wkv6 as wk
+    return wk.forward_plan(B, H, S, N, torch.bfloat16)[0]
+
+
+def wkv6_turns(variants) -> dict:
+    """Per variant, K4's time on each of ``WKV_CASES``' inputs and an
+    rwkv6-7b prefill at full width (``cs.PROMPTS``), by CUDA events in turns
+    (the variants in order, then in reverse), each K4 call's device time
+    (``torch.profiler``), and whether its output has the first variant's
+    bits."""
+    import torch
+    from repro_torch.kernels import wkv6 as wk
+    from repro_torch.serving.engine import make_prefill_fn
+    out = {name: {} for name in variants}
+    for label, (_, B, S, H, N, prompts, _) in WKV_CASES.items():
+        args, first = cs.wkv6_inputs(B, S, H, N, prompts), None
+        for name in variants:
+            use(name)
+            got = wk.wkv6(*args)
+            first = got if first is None else first
+            out[name][label] = dict(bitwise_first=all(torch.equal(x, y)
+                                                      for x, y in zip(got, first)))
+        for order in (list(variants), list(variants)[::-1]):
+            for name in order:
+                use(name)
+                out[name][label].setdefault("ms", []).append(
+                    cs.cuda_ms(lambda: wk.wkv6(*args), 20))
+        for name in variants:
+            use(name)
+            out[name][label]["device_ms"] = passes_ms(lambda: wk.wkv6(*args))
+            print(f"[turns] {label} {name} {json.dumps(out[name][label])}", flush=True)
+        del args, first
+        torch.cuda.empty_cache()
+    cfg, model, params, tokens, lengths, max_len, extra = cs.model_setup("rwkv6-7b", {})
+    prefill = make_prefill_fn(model, max_len)
+    for order in (list(variants), list(variants)[::-1]):
+        for name in order:
+            use(name)
+            out[name].setdefault("rwkv6-7b prefill", {}).setdefault("ms", []).append(
+                cs.cuda_ms(lambda: prefill(params, tokens, lengths, **extra), 3))
+    for name in variants:
+        use(name)
+        rec = out[name]["rwkv6-7b prefill"]
+        rec["wkv6_device_ms"] = {key: ms for key, ms in passes_ms(
+            lambda: prefill(params, tokens, lengths, **extra), 1).items() if "wkv6" in key}
+        print(f"[turns] rwkv6-7b prefill {name} {json.dumps(rec)}", flush=True)
+    del model, params
+    torch.cuda.empty_cache()
+    return out
+
+
+# the phases between K4's WKV_PROF stamps (csrc/wkv6.cu): name → (from, to)
+STAMP_PHASES = {"prep e^w": (1, 2), "prep slot wait": (2, 3), "prep column walks": (3, 4),
+                "prep A walk": (4, 5), "mma level-32 and rd·S issue": (6, 7),
+                "mma A·V issue": (7, 8), "mma retire": (8, 9), "mma state and outputs": (9, 10)}
+
+
+def wkv6_stamps(variants) -> dict:
+    """Per variant built with WKV_PROF: K4's clock64 stamps of block (0, 0,
+    0) at rwkv6-7b's row, the mean cycles of each of ``STAMP_PHASES`` and
+    the chunk period over chunks 2-14 of the first 16."""
+    import torch
+    from repro_torch.kernels import wkv6 as wk
+    _, B, S, H, N, prompts, _ = WKV_CASES["K4 rwkv6-7b"]
+    args = cs.wkv6_inputs(B, S, H, N, prompts)
+    out = {}
+    for name, sets in variants.items():
+        if "WKV_PROF" not in sets:
+            continue
+        use(name)
+        lib = wk._lib()
+        lib.wkv6_prof.restype = ctypes.c_int
+        lib.wkv6_prof.argtypes = [ctypes.c_void_p]
+        wk.wkv6(*args)
+        torch.cuda.synchronize()
+        raw = (ctypes.c_longlong * (16 * 11))()
+        if lib.wkv6_prof(raw):
+            raise RuntimeError(f"wkv6_prof of {name} failed")
+        rows = [raw[11 * i:11 * (i + 1)] for i in range(16)]
+        span = range(2, 15)
+        rec = {phase: sum(rows[i][b] - rows[i][a] for i in span) / len(span)
+               for phase, (a, b) in STAMP_PHASES.items()}
+        rec["period"] = sum(rows[i + 1][6] - rows[i][6] for i in span) / len(span)
+        out[name] = rec
+        print(f"[stamps] {name} {json.dumps(rec)}", flush=True)
     return out
 
 
@@ -487,7 +612,7 @@ def legacy_wkv6_bwd(r, k, v, logw, u, s0, do, ds):
     fn = wk._lib_bwd().wkv6_bwd
     fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     B, S, H, N = r.shape
-    C = -(-S // wk.CHUNK)
+    C = -(-S // wk.BWD_CHUNK)
     dr, dk, dv = torch.empty_like(r), torch.empty_like(k), torch.empty_like(v)
     dlogw, du, ds0 = torch.empty_like(logw), torch.empty_like(u), torch.empty_like(s0)
     states = torch.empty((B, H, C, N, N), dtype=torch.float32, device=r.device)
@@ -590,12 +715,12 @@ def main() -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    global MODE, KERNELS, ARCHS
+    global MODE, KERNELS, ARCHS, VARIANTS
     args = sys.argv[1:]
     if args[:1] == ["--kernel"]:
         MODE, args = args[1], args[2:]
     KERNELS, ARCHS, default = MODES[MODE]
-    variants = parse(args) or {"shipped": {}, **default}
+    variants = VARIANTS = parse(args) or {"shipped": {}, **default}
     cs.phase_device()
     result = {name: {"switches": sets} for name, sets in variants.items()}
     for name, regs in build(variants).items():
@@ -610,6 +735,11 @@ def main() -> int:
     if MODE == "attention":
         for name, rec in k1_cases(variants).items():
             result[name]["k1_cases"] = rec
+    if MODE == "wkv6":
+        for name, rec in wkv6_turns(variants).items():
+            result[name]["turns"] = rec
+        for name, rec in wkv6_stamps(variants).items():
+            result[name]["stamps"] = rec
     print(json.dumps(result))
     return 0
 

@@ -191,7 +191,7 @@ def wkv6(r: Tensor, k: Tensor, v: Tensor, logw: Tensor, u: Tensor, state0: Tenso
 
 def _wkv_scratch(r, *rest) -> int:
     B, S, H, N = r.shape
-    P, _ = _wkv.plan_segments(B, H, S)
+    P, _, _ = _wkv.forward_plan(B, H, S, N, r.dtype)
     n = _wkv.kernel_head_size(N)
     return 4 * B * H * (P - 1) * (n * n + n)                           # the segments' states, decays
 
@@ -206,10 +206,10 @@ def wkv6_bwd(r: Tensor, k: Tensor, v: Tensor, logw: Tensor, u: Tensor, state0: T
 
 def _wkv_bwd_scratch(r, *rest) -> int:
     B, S, H, N = r.shape
-    P, _ = _wkv.plan_segments(B, H, S)
+    P, _ = _wkv.plan_bwd_segments(B, H, S)
     n = _wkv.kernel_head_size(N)
     # every chunk's state; the segments' states, gradients, decays and du parts
-    return 4 * B * H * ((-(-S // _wkv.CHUNK) + 2 * (P - 1)) * n * n + 2 * P * n)
+    return 4 * B * H * ((-(-S // _wkv.BWD_CHUNK) + 2 * (P - 1)) * n * n + 2 * P * n)
 
 
 def _wkv_backward(ctx, dout, dstate):

@@ -218,15 +218,15 @@ def wkv6_chunked_reference(r, k, v, logw, u, state0, *, chunk: int = 32,
                            segments: int = 1,
                            acc: torch.dtype = torch.float32
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The chunked, segmented WKV of K4's CUDA kernel (``csrc/wkv6.cu``), in
-    plain PyTorch: the kernel's decomposition, not its summation order.  The
-    tests hold it to the sequential reference; nothing on the main path
+    """The chunked, segmented WKV of K4's CUDA kernels (``csrc/wkv6.cu``),
+    in plain PyTorch: the kernels' decomposition, not their summation order.
+    The tests hold it to the sequential reference; nothing on the main path
     calls it.
 
     The sequence is cut into chunks of ``chunk`` steps (the tail padded with
     r = k = v = 0, logw = 0, which leave the state as it is) and into
-    ``segments`` segments of whole chunks, as ``wkv6.plan_segments`` cuts
-    it (the last segment may hold fewer chunks).  Every segment but the last
+    ``segments`` segments of whole chunks, as ``wkv6``'s planners cut it
+    (the last segment may hold fewer chunks).  Every segment but the last
     is run from a zero state to its contribution U_p, with its decay d_p =
     e^{Σ logw}, the sum taken in float64; the segments' incoming states
     chain as S_{p+1} = d_p ⊙ S_p + U_p; each segment is then run from its
@@ -237,11 +237,21 @@ def wkv6_chunked_reference(r, k, v, logw, u, state0, *, chunk: int = 32,
         S' = e^{Σ_j logw_j} ⊙ S + (k ⊙ Π_{j>s} e_j)ᵀ V
     with the chunk's own decay from a float64 sum rounded once, A[t, s] =
     Σ_d r_td k_sd Π_{s<j<t} e_jd for s < t, A[t, t] = Σ_d r_td u_d k_td and 0
-    above the diagonal: its diagonal blocks of T/4 by running products, each
-    block below them, as the kernel forms it on its tensor cores, as the
-    product of r_t Π_{b<=j<t} e_j and k_s Π_{s<j<b} e_j at a block boundary
-    b between s and t.  Shapes and dtypes as :func:`wkv6_reference`.
+    above the diagonal.
+    - ``chunk`` = 32 (the tf32 kernel, fp32 and N = 32): A's diagonal
+      blocks of T/4 by running products, each block below them, as the
+      kernel forms it on its tensor cores, as the product of r_t Π_{b<=j<t}
+      e_j and k_s Π_{s<j<b} e_j at a block boundary b between s and t.
+    - ``chunk`` = 64 (the wgmma kernel, bf16 at N = 64): the decays by
+      halves of 32 steps, rd = r ⊙ Π from the half's start and kd = k ⊙ Π
+      to the half's end, the second half's rd then times e0 = Π over the
+      first half and the first half's kd times e1 = Π over the second; A
+      within each half by running products (k_s ⊙ Π_{s<j<t} walked over t),
+      and below the halves as rd (second half) · kd (first half)ᵀ.
+    Shapes and dtypes as :func:`wkv6_reference`.
     """
+    if chunk not in (32, 64):
+        raise ValueError(f"wkv6_chunked_reference: chunk {chunk} is not 32 or 64")
     B, S, H, N = r.shape
     T, T2, Q = chunk, chunk // 2, chunk // 4
     C = -(-S // T)
@@ -260,26 +270,53 @@ def wkv6_chunked_reference(r, k, v, logw, u, state0, *, chunk: int = 32,
     def exclusive_cumprod(e):                            # Π_{j<t} e_j along dim 2
         return torch.nn.functional.pad(e.cumprod(dim=2)[:, :, :-1], (0, 0, 1, 0), value=1.0)
 
-    def state_step(c, state):
-        ew = torch.exp(ww[c].to(acc))
-        k_dec = exclusive_cumprod(ew.flip(2)).flip(2)     # Π_{j>s} e_j
-        d_chunk = torch.exp(ww[c].sum(dim=2).to(acc))
-        return (d_chunk[..., None] * state
-                + torch.einsum("bhsd,bhse->bhde", kk[c] * k_dec, vv[c]))
+    def suffix(e):                                       # Π_{j>s} e_j along dim 2
+        return exclusive_cumprod(e.flip(2)).flip(2)
 
-    def out_step(c, state):
+    def walked(rows, ks, ew):
+        """A of steps ``rows`` against themselves by running products: k_s
+        ⊙ Π_{s<j<t} e_j walked over t, the bonus on the diagonal."""
+        L = ks.shape[2]
+        a = torch.zeros((B, H, L, L), dtype=acc, device=r.device)
+        k_run = torch.zeros_like(ks)
+        for t in range(L):
+            a[:, :, t] = torch.einsum("bhd,bhsd->bhs", rows[:, :, t], k_run)
+            a[:, :, t, t] = (rows[:, :, t] * uf * ks[:, :, t]).sum(-1)
+            k_run = k_run * ew[:, :, t, None]
+            k_run[:, :, t] = ks[:, :, t]
+        return a, k_run
+
+    def factors(c):
+        """(rd, kd) of chunk c: r ⊙ Π_{j<t} e_j and k ⊙ Π_{j>s} e_j."""
         ew = torch.exp(ww[c].to(acc))
-        r_dec = rr[c] * exclusive_cumprod(ew)
+        if T == 32:
+            return rr[c] * exclusive_cumprod(ew), kk[c] * suffix(ew)
+        lo, hi = slice(0, T2), slice(T2, T)
+        e0 = ew[:, :, lo].prod(dim=2, keepdim=True)
+        e1 = ew[:, :, hi].prod(dim=2, keepdim=True)
+        rd = torch.cat([rr[c][:, :, lo] * exclusive_cumprod(ew[:, :, lo]),
+                        rr[c][:, :, hi] * exclusive_cumprod(ew[:, :, hi]) * e0], dim=2)
+        kd = torch.cat([kk[c][:, :, lo] * suffix(ew[:, :, lo]) * e1,
+                        kk[c][:, :, hi] * suffix(ew[:, :, hi])], dim=2)
+        return rd, kd
+
+    def amat(c):
+        ew = torch.exp(ww[c].to(acc))
+        if T == 64:
+            a = torch.zeros((B, H, T, T), dtype=acc, device=r.device)
+            lo, hi = slice(0, T2), slice(T2, T)
+            a[:, :, lo, lo] = walked(rr[c][:, :, lo], kk[c][:, :, lo], ew[:, :, lo])[0]
+            a[:, :, hi, hi] = walked(rr[c][:, :, hi], kk[c][:, :, hi], ew[:, :, hi])[0]
+            a[:, :, hi, lo] = torch.einsum(
+                "bhtd,bhsd->bhts", rr[c][:, :, hi] * exclusive_cumprod(ew[:, :, hi]),
+                kk[c][:, :, lo] * suffix(ew[:, :, lo]))
+            return a
         a = torch.zeros((B, H, T, T), dtype=acc, device=r.device)
         k_end = torch.zeros_like(kk[c])                  # k_s Π_{s<j<end of its block}
         for lo in range(0, T, Q):                        # the diagonal blocks
-            k_run = torch.zeros_like(kk[c][:, :, lo:lo + Q])
-            for t in range(lo, lo + Q):
-                a[:, :, t, lo:lo + Q] = torch.einsum("bhd,bhsd->bhs", rr[c][:, :, t], k_run)
-                a[:, :, t, t] = (rr[c][:, :, t] * uf * kk[c][:, :, t]).sum(-1)
-                k_run = k_run * ew[:, :, t, None]
-                k_run[:, :, t - lo] = kk[c][:, :, t]
-            k_end[:, :, lo:lo + Q] = k_run
+            blk = slice(lo, lo + Q)
+            a[:, :, blk, blk], k_end[:, :, blk] = walked(rr[c][:, :, blk], kk[c][:, :, blk],
+                                                         ew[:, :, blk])
 
         def r_from(rows):                                # r_t Π_{rows.start<=j<t} e_j
             return rr[c][:, :, rows] * exclusive_cumprod(ew[:, :, rows])
@@ -295,7 +332,14 @@ def wkv6_chunked_reference(r, k, v, logw, u, state0, *, chunk: int = 32,
         block(high, q1, r_high, k_end[:, :, q1])
         block(q1, s0, r_from(q1), k_end[:, :, s0])
         block(q3, q2, r_from(q3), k_end[:, :, q2])
-        return torch.einsum("bhtd,bhde->bhte", r_dec, state) + a @ vv[c]
+        return a
+
+    def state_step(c, state):
+        d_chunk = torch.exp(ww[c].sum(dim=2).to(acc))
+        return d_chunk[..., None] * state + torch.einsum("bhsd,bhse->bhde", factors(c)[1], vv[c])
+
+    def out_step(c, state):
+        return torch.einsum("bhtd,bhde->bhte", factors(c)[0], state) + amat(c) @ vv[c]
 
     state = state0.to(acc)
     incoming = [state]

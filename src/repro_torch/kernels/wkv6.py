@@ -2,16 +2,19 @@
 
 The kernel (``csrc/wkv6.cu``) replaces the Pallas TPU kernel
 ``repro.kernels.wkv6.wkv6``; its source says what bounds it on the H100 and
-how its design answers that.  It cuts each (batch, head) into segments of
-whole 32-step chunks (``plan_segments``) and runs up to three launches a
-call; ``launches`` counts one per call.
+how its design answers that.  In bf16 at N = 64 it runs on wgmma in chunks
+of ``CHUNK`` = 64 steps, each (batch, head) cut into segments of whole
+chunks by ``plan_segments``; in fp32 and at N = 32 it runs the tf32
+kernel (``mma.sync``) in chunks of ``BWD_CHUNK`` = 32, cut by ``plan_bwd_segments``
+(``forward_plan`` says which).  Up to three launches a call; ``launches``
+counts one per call.
 
 The backward kernel (``csrc/wkv6_bwd.cu``) computes the gradient of the same
-function in the chunked form, in the same segments, and replaces no TPU
-kernel (the reference differentiates its chunked WKV with XLA);
-``launches_bwd`` counts one per call (up to four launches).  :class:`WKV6`
-ties the two together for autograd; :func:`plain_grad` is the backward's
-plain version.
+function in the chunked form of the tf32 kernel (chunks of ``BWD_CHUNK``,
+segments by ``plan_bwd_segments``) and replaces no TPU kernel (the
+reference differentiates its chunked WKV with XLA); ``launches_bwd`` counts
+one per call (up to four launches).  :class:`WKV6` ties the two together for
+autograd; :func:`plain_grad` is the backward's plain version.
 """
 from __future__ import annotations
 
@@ -26,8 +29,10 @@ from repro_torch.kernels.ref import wkv6_backward_reference, wkv6_reference
 
 HEAD_SIZES = (32, 64)   # the kernels' head sizes; a smaller head runs padded (pad_heads)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-CHUNK = 32             # steps of a chunk, the kernel's T
-TARGET_BLOCKS = 2048   # blocks of the output pass the planner aims at (~8 waves)
+CHUNK = 64             # steps of a chunk of the bf16 N = 64 kernel (wgmma)
+SMS = _build.H100_SMS  # its blocks take an SM each: plan_segments fills one wave of them
+BWD_CHUNK = 32         # steps of a chunk of the tf32 kernel and of the backward
+TARGET_BLOCKS = 2048   # blocks plan_bwd_segments aims at (~8 waves)
 
 launches = 0
 launches_bwd = 0
@@ -46,16 +51,38 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def plan_segments(B: int, H: int, S: int) -> Tuple[int, int]:
-    """(P, Lc): each (batch, head) in P segments of Lc chunks of ``CHUNK``
-    steps (the last segment may hold fewer), so that B·H·P comes near
-    ``TARGET_BLOCKS``.  S = 0 gives (1, 0)."""
-    chunks = -(-S // CHUNK)
+def _cut(chunks: int, P: int) -> Tuple[int, int]:
+    """(P, Lc): ``chunks`` in at most P segments of Lc whole chunks (the
+    last may hold fewer); no chunks gives (1, 0)."""
     if chunks == 0:
         return 1, 0
-    P = min(chunks, max(1, -(-TARGET_BLOCKS // max(1, B * H))))
-    Lc = -(-chunks // P)
+    Lc = -(-chunks // min(chunks, P))
     return -(-chunks // Lc), Lc
+
+
+def plan_segments(B: int, H: int, S: int) -> Tuple[int, int]:
+    """(P, Lc) of the bf16 N = 64 kernel: each (batch, head) in P segments
+    of Lc chunks of ``CHUNK`` steps.  A block takes an SM, and a segment
+    past the first costs a second pass over its k, v and logw, so there are
+    as many segments as keep B·H·P within one wave of ``SMS`` blocks: one
+    once B·H fills the card.  S = 0 gives (1, 0)."""
+    return _cut(-(-S // CHUNK), max(1, SMS // max(1, B * H)))
+
+
+def plan_bwd_segments(B: int, H: int, S: int) -> Tuple[int, int]:
+    """(P, Lc) of the backward kernel and of the tf32 forward (fp32,
+    N = 32): each (batch, head) in P segments of Lc chunks of ``BWD_CHUNK``
+    steps, so that B·H·P comes near ``TARGET_BLOCKS``.  S = 0 gives
+    (1, 0)."""
+    return _cut(-(-S // BWD_CHUNK), -(-TARGET_BLOCKS // max(1, B * H)))
+
+
+def forward_plan(B: int, H: int, S: int, N: int, dtype: torch.dtype) -> Tuple[int, int, int]:
+    """(P, Lc, chunk) of the forward kernel that a call with heads of N
+    (padded to ``kernel_head_size``) and r in ``dtype`` launches."""
+    if dtype == torch.bfloat16 and kernel_head_size(N) == 64:
+        return (*plan_segments(B, H, S), CHUNK)
+    return (*plan_bwd_segments(B, H, S), BWD_CHUNK)
 
 
 def kernel_head_size(N: int) -> int:
@@ -117,13 +144,13 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.Tensor,
     if N not in HEAD_SIZES:
         out, state = wkv6(*pad_heads(kernel_head_size(N), r, k, v, logw, u, state0)[:6])
         return out[..., :N].contiguous(), state[..., :N, :N].contiguous()
-    # the kernel loads 16 bytes at a time: a view that starts off that
-    # alignment is copied
+    # the kernels load 16 bytes at a time (TMA's rows at N = 64 in bf16): a
+    # view that starts off that alignment is copied
     r, k, v, logw, state0 = (t if t.is_contiguous() and t.data_ptr() % 16 == 0
                              else t.clone(memory_format=torch.contiguous_format)
                              for t in (r, k, v, logw, state0))
     u = u.contiguous()
-    P, Lc = plan_segments(B, H, S)
+    P, Lc, _ = forward_plan(B, H, S, N, r.dtype)
     out = torch.empty_like(r)
     state = torch.empty_like(state0)
     # each segment's own contribution, then its incoming state; its decay
@@ -156,8 +183,8 @@ def wkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.Tens
     gradient of its output, and ``dstate`` (B, H, N, N) fp32, that of its
     final state (None: zero).  Operands as for the forward; dr, dk and dv
     come back in r's dtype, the others in fp32.  The states at the chunks'
-    starts are recomputed from state0, in the forward's segments
-    (``plan_segments``), into scratch of B·H·ceil(S/32)·N² fp32."""
+    starts are recomputed from state0, in segments of ``plan_bwd_segments``,
+    into scratch of B·H·ceil(S/32)·N² fp32."""
     global launches_bwd
     _check_call("wkv6_bwd", r, k, v, logw, u, state0)
     B, S, H, N = r.shape
@@ -179,8 +206,8 @@ def wkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.Tens
         else t.clone(memory_format=torch.contiguous_format)
         for t in (r, k, v, logw, state0, dout, dstate))
     u = u.contiguous()
-    C = -(-S // CHUNK)
-    P, Lc = plan_segments(B, H, S)
+    C = -(-S // BWD_CHUNK)
+    P, Lc = plan_bwd_segments(B, H, S)
     dr, dk, dv = torch.empty_like(r), torch.empty_like(k), torch.empty_like(v)
     dlogw, du, dstate0 = torch.empty_like(logw), torch.empty_like(u), torch.empty_like(state0)
 
@@ -208,7 +235,7 @@ def plain_grad(r, k, v, logw, u, state0, dout, dstate=None, *,
     (dr, dk, dv, dlogw, du, dstate0) in ``acc``."""
     return wkv6_backward_reference(*(None if t is None else t.to(acc)
                                      for t in (r, k, v, logw, u, state0, dout, dstate)),
-                                   chunk=CHUNK)
+                                   chunk=BWD_CHUNK)
 
 
 class WKV6(torch.autograd.Function):

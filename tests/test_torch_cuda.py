@@ -487,22 +487,45 @@ def wkv6_case(B, S, H, N, dtype, device, seed=10, logw_mean=0.0, logw_scale=0.5)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("B,H,S", [(1, 2, 31), (1, 2, 32), (1, 2, 33), (1, 2, 65),
                                    (16, 64, 63), (16, 64, 64), (16, 64, 65), (16, 64, 97),
-                                   (2, 3, 1), (2, 3, 0)])
+                                   (1, 2, 63), (1, 2, 64), (1, 2, 127), (1, 2, 129),
+                                   (16, 64, 127), (16, 64, 129), (2, 3, 1), (2, 3, 0)])
 def test_wkv6_kernel_matches_float64_across_boundaries(cuda, dtype, B, H, S, N):
-    """S at and on either side of a chunk boundary (32, 64) and of a segment
-    boundary (one segment a chunk at B·H = 2; segments of 2 and 3 chunks at
-    B·H = 1024), one step, none: the chunked kernel against the plain
-    recurrence in float64, within the limits above."""
+    """S at and on either side of a chunk boundary (32 and 64 for the
+    tf32 kernel, 64 and 128 for the wgmma kernel in bf16 at N = 64) and of
+    a segment boundary (one segment a chunk at B·H = 2, one segment in all
+    for the wgmma kernel at B·H = 1024, segments of 2 and 3 chunks for the
+    tf32 kernel there), one step, none: the chunked kernel against the
+    plain recurrence in float64, within the limits above, the same bits on
+    a second call."""
     args = wkv6_case(B, S, H, N, dtype, cuda, seed=S + N)
-    P, Lc = wk.plan_segments(B, H, S)
-    if S > 32:
-        assert P > 1
+    P, Lc, chunk = wk.forward_plan(B, H, S, N, TORCH_DT[dtype])
+    assert (P > 1) == (S > chunk and (B * H < wk.SMS or chunk == wk.BWD_CHUNK))
     out, state = wk.wkv6(*args)
     torch.cuda.synchronize()
     want_out, want_state = wk.plain(*args, acc=torch.float64)
     rtol = 2.0 ** -7 if dtype == "bfloat16" else 1e-3
     torch.testing.assert_close(out.float(), want_out.float(), atol=2e-4, rtol=rtol)
     torch.testing.assert_close(state, want_state, atol=2e-4, rtol=1e-3)
+    again = wk.wkv6(*args)
+    assert torch.equal(out, again[0]) and torch.equal(state, again[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,S,segments", [(4, 64, 1100, 1), (1, 64, 1100, 2),
+                                            (1, 1, 4700, 74), (2, 3, 700, 11)])
+def test_wkv6_wgmma_kernel_in_one_segment_and_in_many(cuda, B, H, S, segments):
+    """The wgmma kernel (bf16, N = 64) at B·H that give one segment a
+    (b, h) (B·H = 256 fills the card, as at rwkv6-7b's prefill) and many
+    (the segment pass and the chain kernel run): within the float64 limits
+    above, the same bits on a second call."""
+    args = wkv6_case(B, S, H, 64, "bfloat16", cuda, seed=S + B)
+    assert wk.plan_segments(B, H, S)[0] == segments
+    out, state = wk.wkv6(*args)
+    want_out, want_state = wk.plain(*args, acc=torch.float64)
+    torch.testing.assert_close(out.float(), want_out.float(), atol=2e-4, rtol=2.0 ** -7)
+    torch.testing.assert_close(state, want_state, atol=2e-4, rtol=1e-3)
+    again = wk.wkv6(*args)
+    assert torch.equal(out, again[0]) and torch.equal(state, again[1])
 
 
 @pytest.mark.gpu
@@ -522,12 +545,12 @@ def test_wkv6_kernel_extreme_decays_and_a_dropped_segment(cuda, N):
     torch.testing.assert_close(out, want_out, atol=2e-4, rtol=1e-3)
     torch.testing.assert_close(state, want_state, atol=2e-4, rtol=1e-3)
     args = wkv6_case(B, S, H, N, "float32", cuda, seed=N)
-    P, Lc = wk.plan_segments(B, H, S)
+    P, Lc, chunk = wk.forward_plan(B, H, S, N, torch.float32)
     assert P > 1
     want_out, _ = wk.plain(*args, acc=torch.float64)
     r, k, v, logw, u, s0 = args
     k, logw = k.clone(), logw.clone()
-    k[0, Lc * 32 - 1], logw[0, Lc * 32 - 1] = 0.0, -200.0
+    k[0, Lc * chunk - 1], logw[0, Lc * chunk - 1] = 0.0, -200.0
     bad, _ = wk.wkv6(r, k, v, logw, u, s0)
     with pytest.raises(AssertionError):
         torch.testing.assert_close(bad, want_out, atol=2e-4, rtol=1e-3)
@@ -1082,11 +1105,11 @@ def test_wkv6_kernels_run_small_heads_padded(cuda, dtype, N):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_wkv6_backward_kernel_gives_the_same_bits_twice(cuda, dtype, N, S):
     """K4′ over two calls, in one segment (S ≤ 32: one chunk) and in several
-    (``wk.plan_segments`` cuts 300 and 2048 steps at B·H = 8): the same
-    bits, as the trainer's bitwise restart needs, and within held_bwd of the
-    float64 plain version."""
+    (``wk.plan_bwd_segments`` cuts 300 and 2048 steps at B·H = 8): the
+    same bits, as the trainer's bitwise restart needs, and within held_bwd
+    of the float64 plain version."""
     args = wkv_grad_inputs(16, 2, S, 4, N, dtype, cuda)
-    assert (wk.plan_segments(2, 4, S)[0] > 1) == (S > 32)
+    assert (wk.plan_bwd_segments(2, 4, S)[0] > 1) == (S > 32)
     got = wk.wkv6_bwd(*args)
     assert all(torch.equal(x, y) for x, y in zip(got, wk.wkv6_bwd(*args)))
     assert held_bwd(got, wk.plain_grad(*args, acc=torch.float64)) <= 1.0
@@ -1100,7 +1123,7 @@ def test_wkv6_backward_kernel_in_one_long_segment(cuda, dtype, N):
     steps: the kernel walks them in one block, the same bits twice, within
     held_bwd of the float64 plain version."""
     args = wkv_grad_inputs(17, 16, 300, 128, N, dtype, cuda)
-    assert wk.plan_segments(16, 128, 300) == (1, 10)
+    assert wk.plan_bwd_segments(16, 128, 300) == (1, 10)
     got = wk.wkv6_bwd(*args)
     assert all(torch.equal(x, y) for x, y in zip(got, wk.wkv6_bwd(*args)))
     assert held_bwd(got, wk.plain_grad(*args, acc=torch.float64)) <= 1.0

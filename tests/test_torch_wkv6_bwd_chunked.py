@@ -2,8 +2,8 @@
 
 ``twin_grad`` below is a plain-PyTorch twin of ``kernels/csrc/wkv6_bwd.cu``,
 with no CUDA: it follows the kernel's decomposition, not the sequential one.
-- The sequence is cut into the forward's segments (``wk.plan_segments``,
-  or a given count) of 32-step chunks.  Each segment's state contribution
+- The sequence is cut into the backward's segments
+  (``wk.plan_bwd_segments``, or a given count) of 32-step chunks.  Each segment's state contribution
   from a zero state and its gradient contribution from a zero gradient at
   its end are chained across segments, then each segment is re-run: its
   chunks' states forward from the state entering it, then its chunks last to
@@ -207,7 +207,7 @@ def twin_grad(r, k, v, logw, u, state0, dout, dstate, *, exact=False, passes=Non
               segments=None):
     """K4′ as the kernel decomposes it (module docstring), on the operands'
     values in float64 (r, k, v, dout holding bf16 values where ``exact``);
-    ``segments`` None: ``wk.plan_segments``'.  Heads below 32 run
+    ``segments`` None: ``wk.plan_bwd_segments``'.  Heads below 32 run
     zero-padded, as the wrapper runs them.  → (dr, dk, dv, dlogw, du,
     dstate0) in float64."""
     B, S, H, N = r.shape
@@ -217,7 +217,7 @@ def twin_grad(r, k, v, logw, u, state0, dout, dstate, *, exact=False, passes=Non
                           exact=exact, passes=passes, segments=segments)
         return (*(g[..., :N] for g in grads[:5]), grads[5][..., :N, :N])
     C = -(-S // T)
-    P, Lc = wk.plan_segments(B, H, S)
+    P, Lc = wk.plan_bwd_segments(B, H, S)
     if segments is not None and C:
         Lc = -(-C // segments)
         P = -(-C // Lc)
@@ -325,7 +325,7 @@ def test_twin_cuts_300_steps_into_several_segments():
     gives the one-segment gradient, and the planner's cut (ten segments at
     B·H = 4) too."""
     args = inputs(7, 2, 300, 2, 32, bf16=False)
-    assert wk.plan_segments(2, 2, 300) == (10, 1)
+    assert wk.plan_bwd_segments(2, 2, 300) == (10, 1)
     one = twin_grad(*args, segments=1)
     for segments in (3, None):
         for x, w in zip(twin_grad(*args, segments=segments), one):

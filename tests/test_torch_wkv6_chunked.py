@@ -1,15 +1,19 @@
 """K4's chunked, segmented decomposition, on the CPU.
 
 ``ref.wkv6_chunked_reference`` is the plain-PyTorch twin of the CUDA
-kernel's algorithm (``kernels/csrc/wkv6.cu``): chunks of 32 steps, a tail
-chunk, segments chained through their decays, decays from float64 sums and
-A's pairwise decays as running products.  Here it is held, on numpy-seeded
-inputs, to the Pallas ``wkv6`` in interpret mode (S % 32 == 0, as that
-kernel asks) and to the sequential ``wkv6_reference`` of the JAX package at
-S ∈ {0, 1, 31, 33, 300}, at both head sizes, within the reference's own
-2e-4 / 1e-3 (``tests/test_kernels.py``); with logw down to −exp(3) its
-outputs stay finite and agree.  ``wkv6.plan_segments`` cuts every sequence
-into whole chunks.
+kernels' algorithm (``kernels/csrc/wkv6.cu``): chunks of 32 steps (the
+tf32 kernel, fp32 and N = 32) or 64 (the wgmma kernel, bf16 at N = 64: its
+decays by halves, A walked within each half and a product below them), a
+tail chunk, segments chained through their decays, decays from float64
+sums and A's pairwise decays as running products.  Here it is held, at both
+chunk lengths, on numpy-seeded inputs, to the Pallas ``wkv6`` in interpret
+mode (S % 32 == 0, as that kernel asks) and to the sequential
+``wkv6_reference`` of the JAX package at S ∈ {0, 1, 31, 33, 63, 65, 300},
+at both head sizes, within the reference's own 2e-4 / 1e-3
+(``tests/test_kernels.py``); with logw down to −exp(3) its outputs stay
+finite and agree.  ``wkv6.plan_segments`` and ``wkv6.plan_bwd_segments``
+cut every sequence into whole chunks, and the backward's plan and scratch
+keep their values.
 """
 import numpy as np
 import pytest
@@ -20,6 +24,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels.wkv6 import wkv6 as jax_wkv6  # noqa: E402
+from repro_torch.kernels import meta  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels import wkv6 as wk  # noqa: E402
 
@@ -39,9 +44,17 @@ def wkv_inputs(B, S, H, N, seed, logw_mean=0.0, logw_scale=0.5):
             normal((H, N), 0.1), normal((B, H, N, N), 0.1))
 
 
-def chunked(xs, segments):
+CHUNKS = (wk.BWD_CHUNK, wk.CHUNK)   # the tf32 kernel's, the wgmma kernel's
+
+
+def plan(chunk):
+    """The planner of the kernel that runs chunks of ``chunk`` steps."""
+    return wk.plan_segments if chunk == wk.CHUNK else wk.plan_bwd_segments
+
+
+def chunked(xs, segments, chunk=wk.BWD_CHUNK):
     out, state = ref.wkv6_chunked_reference(*(torch.from_numpy(x) for x in xs),
-                                            segments=segments)
+                                            segments=segments, chunk=chunk)
     assert out.dtype == state.dtype == torch.float32
     return out.numpy(), state.numpy()
 
@@ -51,57 +64,105 @@ def assert_close(got, want):
         np.testing.assert_allclose(g, np.asarray(w), atol=ATOL, rtol=RTOL)
 
 
+@pytest.mark.parametrize("chunk", CHUNKS)
 @pytest.mark.parametrize("B,S,H,N,segments", [
     (2, 128, 4, 64, 1), (2, 128, 4, 64, 3), (1, 64, 2, 32, 2), (2, 96, 2, 32, 1),
 ])
-def test_chunked_twin_matches_pallas_interpret(B, S, H, N, segments):
+def test_chunked_twin_matches_pallas_interpret(B, S, H, N, segments, chunk):
     xs = wkv_inputs(B, S, H, N, seed=S + N + segments)
     want = jax_wkv6(*(jnp.asarray(x) for x in xs), chunk=32, interpret=True)
-    assert_close(chunked(xs, segments), want)
+    assert_close(chunked(xs, segments, chunk), want)
 
 
+@pytest.mark.parametrize("chunk", CHUNKS)
 @pytest.mark.parametrize("N", wk.HEAD_SIZES)
-@pytest.mark.parametrize("S", [0, 1, 31, 33, 300])
-def test_chunked_twin_matches_sequential_reference(S, N):
-    """Any S: empty, one step, one short of a chunk, one past it, and a
-    300-step sequence with a 12-step tail cut into the kernel's segments."""
+@pytest.mark.parametrize("S", [0, 1, 31, 33, 63, 65, 300])
+def test_chunked_twin_matches_sequential_reference(S, N, chunk):
+    """Any S: empty, one step, one short of a chunk of either length, one
+    past it, and a 300-step sequence with a 12- or 44-step tail cut into
+    the kernel's segments."""
     B, H = 2, 3
     xs = wkv_inputs(B, S, H, N, seed=10 * S + N)
-    segments = wk.plan_segments(B, H, S)[0]
-    got = chunked(xs, segments)
+    segments = plan(chunk)(B, H, S)[0]
+    got = chunked(xs, segments, chunk)
     assert got[0].shape == (B, S, H, N) and got[1].shape == (B, H, N, N)
     assert_close(got, jref.wkv6_reference(*(jnp.asarray(x) for x in xs)))
 
 
+@pytest.mark.parametrize("chunk", CHUNKS)
 @pytest.mark.parametrize("N", wk.HEAD_SIZES)
-def test_chunked_twin_survives_extreme_decays(N):
+def test_chunked_twin_survives_extreme_decays(N, chunk):
     """logw down to −exp(3) ≈ −20 a step (sums past −600 a chunk, far below
     fp32's exp range): no decay factor exceeds 1, so nothing overflows, and
     the result still agrees with the sequential reference."""
     B, S, H = 2, 100, 2
     xs = wkv_inputs(B, S, H, N, seed=N, logw_mean=1.5, logw_scale=1.0)
     assert xs[3].min() < -np.exp(3.0)
-    got = chunked(xs, segments=3)
+    got = chunked(xs, 3, chunk)
     assert all(np.isfinite(x).all() for x in got)
     assert_close(got, jref.wkv6_reference(*(jnp.asarray(x) for x in xs)))
 
 
+@pytest.mark.parametrize("chunk", CHUNKS)
 @pytest.mark.parametrize("segments", [1, 2, 5, 10])
-def test_chunked_twin_is_independent_of_the_segment_cut(segments):
+def test_chunked_twin_is_independent_of_the_segment_cut(segments, chunk):
     """The chained segment states reproduce the one-segment run."""
     xs = wkv_inputs(2, 300, 2, 32, seed=3)
-    base = chunked(xs, 1)
-    assert_close(chunked(xs, segments), base)
+    base = chunked(xs, 1, chunk)
+    assert_close(chunked(xs, segments, chunk), base)
 
 
+def test_chunked_twin_takes_only_the_kernels_chunks():
+    xs = wkv_inputs(1, 8, 1, 32, seed=0)
+    with pytest.raises(ValueError, match="chunk 16"):
+        chunked(xs, 1, 16)
+
+
+@pytest.mark.parametrize("planner", ["forward", "backward"])
 @pytest.mark.parametrize("B,H,S", [(4, 64, 4700), (4, 2, 256), (1, 1, 33), (3, 5, 0),
-                                   (1, 1, 1), (65535, 1, 64)])
-def test_plan_segments_cuts_whole_chunks(B, H, S):
-    P, Lc = wk.plan_segments(B, H, S)
-    chunks = -(-S // wk.CHUNK)
+                                   (1, 1, 1), (65535, 1, 64), (1, 64, 512), (2, 3, 300)])
+def test_plan_segments_cuts_whole_chunks(B, H, S, planner):
+    """Both planners cut whole chunks.  The wgmma kernel's (a block an SM)
+    keeps B·H·P within one wave of ``wk.SMS`` blocks and fills it where the
+    chunks allow: one segment at rwkv6-7b's prefill (B·H = 256); the
+    backward's (and the tf32 forward's) aims at ``TARGET_BLOCKS``."""
+    fn, chunk = ((wk.plan_segments, wk.CHUNK) if planner == "forward"
+                 else (wk.plan_bwd_segments, wk.BWD_CHUNK))
+    P, Lc = fn(B, H, S)
+    chunks = -(-S // chunk)
     if chunks == 0:
         assert (P, Lc) == (1, 0)
         return
     assert 1 <= P <= chunks and (P - 1) * Lc < chunks <= P * Lc
-    # enough blocks to fill the card, or one segment a chunk
-    assert B * H * P >= min(wk.TARGET_BLOCKS, B * H * chunks) // 2
+    if planner == "forward":
+        assert B * H * P <= max(wk.SMS, B * H)
+        assert B * H * P >= min(wk.SMS, B * H * chunks) // 2
+        if B * H >= wk.SMS:
+            assert P == 1
+    else:
+        # enough blocks to fill the card, or one segment a chunk
+        assert B * H * P >= min(wk.TARGET_BLOCKS, B * H * chunks) // 2
+
+
+@pytest.mark.parametrize("N,dtype,want", [
+    (64, torch.bfloat16, (1, 74, 64)), (48, torch.bfloat16, (1, 74, 64)),
+    (64, torch.float32, (8, 19, 32)), (32, torch.bfloat16, (8, 19, 32)),
+    (16, torch.float32, (8, 19, 32))])
+def test_forward_plan_follows_the_kernel_launched(N, dtype, want):
+    """rwkv6-7b's prefill (B 4 × 4700, 64 heads): the wgmma kernel in bf16
+    at N = 64 (and heads padded to 64), the tf32 kernel otherwise."""
+    assert wk.forward_plan(4, 64, 4700, N, dtype) == want
+
+
+@pytest.mark.parametrize("B,H,S,want", [
+    (4, 64, 4700, (8, 19)), (4, 64, 2048, (8, 8)), (2, 2, 300, (10, 1)), (16, 128, 300, (1, 10)),
+    (4, 128, 2048, (4, 16)), (8, 32, 256, (8, 1)), (1, 1, 0, (1, 0))])
+def test_backward_plan_and_scratch_keep_their_values(B, H, S, want):
+    """K4′'s segments (chunks of 32, ~2048 blocks) and its scratch keep
+    their values, whatever the forward's plan: its gradients keep their bits."""
+    assert wk.BWD_CHUNK == 32 and wk.TARGET_BLOCKS == 2048
+    assert wk.plan_bwd_segments(B, H, S) == want
+    P, N = want[0], 64
+    r = torch.empty((B, S, H, N), device="meta")
+    assert meta._wkv_bwd_scratch(r) == 4 * B * H * ((-(-S // 32) + 2 * (P - 1)) * N * N
+                                                    + 2 * P * N)
