@@ -12,8 +12,8 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 instantiation may spill, K3's bf16 and K4's N = 32 ones
                 included), and HGMMA (wgmma) in the SASS of K1's bf16
                 kernel and of K1′'s two at every head size, and of K4's bf16
-                kernel at N = 64 (its output and segment passes), none
-                serialized;
+                kernel at N = 64 (its output and segment passes) and K4′'s,
+                none serialized;
   3. kernels  — each kernel against its plain PyTorch version, element by
                 element, with planted faults that the check must reject, and
                 kernel, plain and library times (CUDA events) beside the
@@ -172,11 +172,14 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 (``rglru_scan_bwd.cu``) at recurrentgemma-9b's training shape
                 (B 4 × 2048, R 4096) in fp32 and bf16, on the ring of bulk
                 copies its plan chooses there and bitwise equal to its
-                register kernel, and K4's (``wkv6_bwd.cu``, tf32 mma.sync
-                in the forward's segments) at rwkv6-7b's (B 4 × 2048, 64
-                heads of 64, bf16), at N 32 and at S 300 (a partial last
-                chunk), with a nonzero state0 and a gradient on the final
-                state, two calls bitwise equal, against
+                register kernel, and K4's (``wkv6_bwd.cu``) at rwkv6-7b's
+                (B 4 × 2048, 64 heads of 64, bf16) and at S 300 (a partial
+                last chunk) on its wgmma kernel (one segment a (b, h),
+                64-step chunks; the plan printed, the tf32 kernel timed
+                beside it on the same inputs), and at N 32 on the tf32
+                kernel (mma.sync in the forward's segments), with a nonzero
+                state0 and a gradient on the final state, two calls
+                bitwise equal, against
                 float64 autograd through the plain forwards (K4's through
                 its float64 formulas, held to autograd on a slice) within
                 limits derived from their arithmetic (see BWD_CASE), the
@@ -362,6 +365,10 @@ ATOL = 1e-5
 # wrong kernel.
 UNIT = 2.0 ** -24   # u, the unit roundoff of fp32, in K4's limits above
 WKV_LIMIT_T = 32    # T in K4's limits above, whatever the kernel's chunk
+# The chunked float64 want (phase 8) against the sequential one on the first
+# call, the outputs in float64: the two orders of the same float64 sums
+# differ by ~1e-15 relative
+WKV_CHUNKED_TOL = 1e-10
 # Full-width model, kernel path against plain path on the same weights.
 # With fp32 activations the two differ only in fp32 summation order inside
 # the kernels (attention; the WKV kernel's chunked tf32 products, within a
@@ -491,17 +498,18 @@ def exact_scan(got, want):
     return equal, err
 
 
-def wkv_atol(r, k, v, logw, u, s0):
+def wkv_atol(r, k, v, logw, u, s0, chunked: bool = False):
     """K4's absolute limits on its output and final state, entry by entry:
     ATOL + 2(γ_o·M + |r ⊙ decay|·E_c) and ATOL + 2·E_C, from the float64
-    plain recurrence on absolute values and the chunk by chunk recurrence of
-    the state's error bound E (see the comment above UNIT)."""
+    recurrence on absolute values (``wkv_want``'s, ``chunked`` as there) and
+    the chunk by chunk recurrence of the state's error bound E (see the
+    comment above UNIT)."""
     import torch
     from repro_torch.kernels import wkv6 as wk
     B, S, H, N = r.shape
     T, unit = WKV_LIMIT_T, UNIT
-    mag, _ = wk.plain(r.double().abs(), k.double().abs(), v.double().abs(), logw, u.abs(),
-                      s0.abs(), acc=torch.float64)
+    mag, _ = wkv_want(r.double().abs(), k.double().abs(), v.double().abs(), logw, u.abs(),
+                      s0.abs(), chunked=chunked)
     _, segment, chunk = wk.forward_plan(B, H, S, N, r.dtype)
     C, Lc = -(-S // T), segment * chunk // T      # the segments in chunks of T
 
@@ -531,10 +539,16 @@ def wkv_atol(r, k, v, logw, u, s0):
     return ATOL + 2.0 * (g_o * mag.float() + carried), ATOL + 2.0 * e.float()
 
 
-def wkv_want(*args):
-    """K4's plain version in float64, the check of the kernel."""
+def wkv_want(*args, chunked: bool = False):
+    """K4's plain version in float64, the check of the kernel; ``chunked``:
+    the chunked form in float64 (``ref.wkv6_chunked_reference``, 64-step
+    chunks), the same function in another order, a Python loop over chunks
+    instead of steps (phase 8's 64 calls a run; ``WKV_CHUNKED_TOL``)."""
     import torch
     from repro_torch.kernels import wkv6 as wk
+    from repro_torch.kernels.ref import wkv6_chunked_reference
+    if chunked:
+        return wkv6_chunked_reference(*args, chunk=wk.CHUNK, acc=torch.float64)
     return wk.plain(*args, acc=torch.float64)
 
 
@@ -675,6 +689,16 @@ def phase_build():
     print(f"[sass] wkv6 {json.dumps(k4)} serialized={len(serialized)}")
     require(len(k4) == 2 and all(ops.get("HGMMA", 0) > 0 for ops in k4.values())
             and not serialized, f"K4's bf16 kernel runs wgmma, none serialized: {k4} "
+            f"{serialized}")
+    # and K4′'s bf16 kernel at N = 64
+    k4b = {fn: ops for fn, ops in sass_ops(_build.BUILD_DIR / "libwkv6_bwd.so").items()
+           if "wgmma" in fn}
+    serialized = [line.strip() for line in
+                  (_build.BUILD_DIR / "libwkv6_bwd.log").read_text().splitlines()
+                  if "wgmma.mma_async instructions are serialized" in line]
+    print(f"[sass] wkv6_bwd {json.dumps(k4b)} serialized={len(serialized)}")
+    require(len(k4b) == 1 and all(ops.get("HGMMA", 0) > 0 for ops in k4b.values())
+            and not serialized, f"K4′'s bf16 kernel runs wgmma, none serialized: {k4b} "
             f"{serialized}")
 
 
@@ -1309,8 +1333,28 @@ def checked_kernels(worst: dict, reported: dict) -> dict:
         return got
 
     def checked_wkv6(*args):
-        got, want = wk.wkv6(*args), wkv_want(*args)
-        _, ratio, parts = held_wkv(got, want, wkv_atol(*args))
+        import torch
+        got = wk.wkv6(*args)
+        t0 = time.perf_counter()
+        want = wkv_want(*args, chunked=True)
+        atols = wkv_atol(*args, chunked=True)
+        torch.cuda.synchronize()
+        reported["wkv6_check_s"] = reported.get("wkv6_check_s", 0.0) + time.perf_counter() - t0
+        if "wkv6_chunked_vs_sequential" not in reported:   # the first call: the two wants
+            # on r, k, v in float64 the outputs stay float64 (the states are
+            # rounded to fp32 by both, so one fp32 rounding apart at most)
+            wide = [x.double() for x in args[:3]] + list(args[3:])
+            o_c, s_c = wkv_want(*wide, chunked=True)
+            t0 = time.perf_counter()
+            o_s, s_s = wkv_want(*wide)
+            torch.cuda.synchronize()
+            reported["wkv6_sequential_want_s"] = time.perf_counter() - t0
+            dev, dev_state = rel(o_c, o_s), rel(s_c, s_s)
+            reported["wkv6_chunked_vs_sequential"] = dev
+            require(dev <= WKV_CHUNKED_TOL and dev_state <= 2.0 ** -23,
+                    f"wkv6's chunked float64 want against the sequential one: output {dev} "
+                    f"(limit {WKV_CHUNKED_TOL}), state {dev_state} (limit 2^-23)")
+        _, ratio, parts = held_wkv(got, want, atols)
         keep("wkv6", ratio)
         for key, value in zip(("wkv6_output", "wkv6_state"), parts):
             reported[key] = max(reported.get(key, 0.0), value)
@@ -1492,6 +1536,7 @@ def report_routing(arch: str, ref: Routing, unpinned: Routing, pinned: Routing,
 def phase_model(arch: str):
     import torch
     from repro_torch.serving.engine import greedy_sample, make_generate_fn
+    t_phase = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     run = MODEL_RUNS.get(arch, {})
     prompts = run.get("prompts", PROMPTS)
@@ -1594,7 +1639,11 @@ def phase_model(arch: str):
     print(f"[model] {arch} per-call limit ratio, bf16 on the model's activations: "
           f"{json.dumps(worst)} (fail above 1)"
           + (f"; wkv6 output {reported['wkv6_output']}, state {reported['wkv6_state']}, "
-             f"output against ATOL + RTOL alone {reported['wkv6_ulp_only']} (not held)"
+             f"output against ATOL + RTOL alone {reported['wkv6_ulp_only']} (not held); "
+             f"its float64 checks, chunked, s={reported['wkv6_check_s']:.1f} (the first call's "
+             f"sequential want s={reported['wkv6_sequential_want_s']:.2f}), chunked "
+             f"against sequential {reported['wkv6_chunked_vs_sequential']:.3g} (limit "
+             f"{WKV_CHUNKED_TOL})"
              if n_rwkv else "")
           + (f"; rglru_scan bitwise on every call, plans "
              f"{json.dumps(reported['rglru_scan_plans'])}" if n_rec else ""))
@@ -1618,6 +1667,7 @@ def phase_model(arch: str):
     if cfg.is_encdec:
         past_the_last_slot(arch, model, model32, params, tokens, lengths, extra,
                            per_step)
+    print(f"[model] {arch} phase s={time.perf_counter() - t_phase:.1f}")
     return launches
 
 
@@ -3032,7 +3082,10 @@ def phase_train():
 #
 # K4's backward (wkv6_bwd.cu, T = 32 steps a chunk, N the head size, C
 # chunks in segments of Lc, ``wk.plan_bwd_segments``) likewise,
-# after its decomposition (tests/test_torch_wkv6_bwd_chunked.py).  Factors:
+# after its decomposition (tests/test_torch_wkv6_bwd_chunked.py); the same
+# limits, T and segments pinned (WKV_BWD_LIMIT_T), hold its wgmma kernel
+# (bf16 parts in place of the tf32 ones, chunks of 64 in one segment;
+# the twin there holds it to them at its parts).  Factors:
 # a running product of at most T - 1 factors e^{w} (expf ≤ 2 ulp = 4u, each
 # product rounded) is within 5Tu in any order; a sum of n products on the
 # CUDA cores within (n + 1)u of the sum of their absolute values.  A
@@ -3078,11 +3131,18 @@ TRAIN19_SLICE = {"recurrentgemma-9b": 6, "rwkv6-7b": 8}   # layers at full width
 TRAIN19_STEPS = 3
 TRAIN19_RESTART = "rwkv6-7b"           # the 100M run killed and restored
 BWD_FAULT_FACTOR = 10.0               # a planted fault fails by this much at least
+# K4′'s limits as they were derived for the tf32 kernel (chunks of 32, PR
+# 25's segments from plan_bwd_segments) hold the wgmma kernel (one segment,
+# chunks of 64) as they stand: T and the segments are pinned, so that no
+# row's limit grows with the kernel's plan (its dlogw takes the chunk's
+# identity per half of 32 steps, wkv6_bwd.cu)
+WKV_BWD_LIMIT_T = 32
 # phase 19 (a)'s K4′ cases: label → (B, S, H, N, dtype of r/k/v/do)
 WKV_BWD_SHAPES = {"rwkv6-7b": (4, 2048, 64, 64, "bfloat16"),
                   "N 32": (4, 2048, 128, 32, "bfloat16"),
                   "partial chunk": (4, 300, 64, 64, "bfloat16"),
                   "100M": (8, 256, 32, 16, "float32")}
+WKV_BWD_WGMMA = ("rwkv6-7b", "partial chunk")   # the cases on the wgmma kernel
 
 
 def rglru_bwd_limits(a, b, s0, g, g_last):
@@ -3207,7 +3267,7 @@ def wkv_bwd_limits(r, k, v, logw, u, s0, do, ds):
     import torch
     from repro_torch.kernels import wkv6 as wk
     B, S, H, N = r.shape
-    T, unit = wk.BWD_CHUNK, UNIT
+    T, unit = WKV_BWD_LIMIT_T, UNIT
     C = -(-S // T)
 
     def chunked(x):  # (B, S, H, N) → (C, B, H, T, N) in float64, zeros past S
@@ -3229,7 +3289,7 @@ def wkv_bwd_limits(r, k, v, logw, u, s0, do, ds):
     D = torch.exp(x)[..., None]
     kd, rd = ka * sd, ra * pd
     grow, g_inc = (x.abs()[..., None] + T + 6) * unit * D, (6 * T + 62) * unit
-    Lc = wk.plan_bwd_segments(B, H, S)[1]
+    Lc = wk.plan_bwd_segments(B, H, S)[1]   # the tf32 kernel's cut, whatever the plan
 
     def seg_step(p):  # (|X| + 5)u·d of segment p, a column of rows d
         X = x[p * Lc:(p + 1) * Lc].sum(dim=0)[..., None]
@@ -3279,16 +3339,18 @@ def wkv_bwd_limits(r, k, v, logw, u, s0, do, ds):
 def wkv6_bwd_faults(args, want):
     """K4′'s planted faults, each the float64 gradient with the fault in
     it, composed of ``wk.plain_grad`` calls: the gradient not carried across
-    the boundary into the middle chunk (the steps before it computed as if
+    the boundary into the middle chunk of the launched kernel's chunks (32
+    or, on the wgmma kernel, 64 steps; the steps before it computed as if
     the sequence ended there); the u term dropped from dk; and in the middle
     chunk dlogw without its state term (that chunk run from a zero state,
     with the true gradient of the state it leaves)."""
     import torch
     from repro_torch.kernels import wkv6 as wk
     r, k, v, logw, u, s0, do, ds = args
-    S = r.shape[1]
-    b0 = wk.BWD_CHUNK * (-(-S // wk.BWD_CHUNK) // 2)
-    b1 = min(b0 + wk.BWD_CHUNK, S)
+    B, S, H, N = r.shape
+    chunk = wk.backward_plan(B, H, S, N, r.dtype)[2]   # the launched kernel's chunk
+    b0 = chunk * (-(-S // chunk) // 2)
+    b1 = min(b0 + chunk, S)
     f64 = torch.float64
 
     def part(lo, hi, state, dstate):
@@ -3335,12 +3397,22 @@ def wkv6_bwd_case(label: str, B: int, S: int, H: int, N: int, dtype: str = "bflo
     on batch 0's first heads) within ``wkv_bwd_limits``; the fp32 plain
     version as a control; the three planted faults.  A head size outside
     ``wk.HEAD_SIZES`` runs padded (``wk.pad_heads``): K4 is then held too,
-    within ``wkv_atol``."""
+    within ``wkv_atol``.  The plan is printed: the rows in
+    ``WKV_BWD_WGMMA`` run the wgmma kernel (one segment, chunks of 64), the
+    others the tf32 kernel, which the wgmma rows also time on their
+    inputs (its planner's segments and one segment a (b, h)) and hold to
+    the same limits: its bf16 build at N = 64 runs every call below the
+    cut."""
     import torch
     from repro_torch.kernels import wkv6 as wk
     dt = getattr(torch, dtype)
     args = wkv6_bwd_inputs(B, S, H, N, dtype)
     r, k, v, logw, u, s0, do, ds = args
+    plan = wk.backward_plan(B, H, S, N, dt)
+    wgmma = label in WKV_BWD_WGMMA
+    require(plan == ((1, -(-S // wk.CHUNK), wk.CHUNK) if wgmma
+                     else (*wk.plan_bwd_segments(B, H, S), wk.BWD_CHUNK)),
+            f"wkv6_bwd {label}'s plan {plan}")
     got = wk.wkv6_bwd(*args)
     torch.cuda.synchronize()
     require([x.dtype for x in got] == [dt] * 3 + [torch.float32] * 3, "wkv6_bwd dtypes")
@@ -3375,12 +3447,25 @@ def wkv6_bwd_case(label: str, B: int, S: int, H: int, N: int, dtype: str = "bflo
     require(all(torch.equal(x, y) for x, y in zip(got, again)), f"wkv6_bwd {label} deterministic")
     cost = costs.wkv6_bwd(B, S, H, N, r.element_size())
     ms_bound, by = bound_of(cost)
-    res = dict(max_abs_err=err, limit_ratio=ratio, ratios=ratios,
+    if wgmma:   # the tf32 kernel on the same inputs, with its plan and in one segment
+        plans = {"tf32_kernel": wk.plan_bwd_segments(B, H, S),
+                 "tf32_kernel_one_segment": (1, -(-S // wk.BWD_CHUNK))}
+        tf32 = {}
+        for key, (P, Lc) in plans.items():
+            def run(P=P, Lc=Lc):
+                return wk._bwd_tf32(*args, P=P, Lc=Lc)
+            tf32[f"{key}_limit_ratio"] = held_bwd(run(), want, limits)[1]
+            tf32[f"{key}_ms"] = cuda_ms(run, 10)
+        require(all(tf32[f"{key}_limit_ratio"] <= 1.0 for key in plans),
+                f"wkv6_bwd {label}'s tf32 kernel on the same inputs: {tf32}")
+    res = dict(plan=dict(segments=plan[0], chunks=plan[1], chunk=plan[2]),
+               max_abs_err=err, limit_ratio=ratio, ratios=ratios,
                control_ratio=control_ratio, fault_ratio=faults, formulas_vs_autograd=formulas,
                **({} if forward_ratio is None else {"padded_to": wk.kernel_head_size(N),
                                                      "forward_limit_ratio": forward_ratio}),
                bytes_ms=cost.bytes / PEAK_BYTES * 1e3,
                ms=cuda_ms(lambda: wk.wkv6_bwd(*args), 10),
+               **(tf32 if wgmma else {}),
                plain_ms=cuda_ms(lambda: wk.plain_grad(*args), 1),
                library_ms=None,   # no single PyTorch call computes the recurrence's gradient
                bound_ms=ms_bound, bound_by=by)

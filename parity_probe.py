@@ -6,18 +6,26 @@
 
 ``--kernel recurrent_bwd`` builds K3's and K4's backward kernels and their
 forward kernels once per variant (with no arguments: the shipped build and
-``WKV_BWD_UNDONE``, K4′ with 1 and 2 tf32 passes, ``WKV_BWD_TF32_PASSES``;
+``WKV_BWD_UNDONE``: K4′'s tf32 kernel with 1 and 2 tf32 passes,
+``WKV_BWD_TF32_PASSES``, its wgmma kernel with one bf16 part,
+``WKV_BWD_PARTS``, and with its clock64 stamps, ``WKV_BWD_PROF``;
 ``NAME:SRC=DIR`` builds DIR's copy of the sources, a parent commit's, and
-calls its backwards through PR 23's C entry points, ``legacy_*``) and
-prints, per variant: ptxas's report; on ``chip_smoke.py`` phase 19 (a)'s
-cases, K3′'s outputs bitwise against the first variant's and, for a
-shipped-API variant, its plan and its ring against its register kernel,
-and K4′'s limit ratio per output (dr, dk, dv, dlogw, du, dstate0) against
-the float64 plain version within ``chip_smoke.wkv_bwd_limits``; for both,
-whether two calls give the same bits, the time (the variants in order, then
-in reverse) and each launch's device time (``torch.profiler``); then K3's
-and K4's forward on phase 3's inputs, their times in turns and whether
-their outputs have the first variant's bits (~2 min for four variants).
+calls its backwards through the current entry points, K4′ as the tf32
+kernel at every shape, in ``plan_bwd_segments``' segments or, with
+``PLAN=one``, in one segment a (b, h)) and prints, per variant: ptxas's
+report; on ``chip_smoke.py`` phase 19 (a)'s cases, K3′'s outputs bitwise
+against the first variant's and, for a shipped-API variant, its plan and
+its ring against its register kernel, and K4′'s plan and limit ratio per
+output (dr, dk, dv, dlogw, du, dstate0) against the float64 plain version
+within ``chip_smoke.wkv_bwd_limits``; for both, whether two calls give the
+same bits, the time (the variants in order, then in reverse) and each
+launch's device time (``torch.profiler``); then K3's and K4's forward on
+phase 3's inputs, their times in turns and whether their outputs have the
+first variant's bits; and, for a variant built with ``WKV_BWD_PROF=1``,
+K4′'s wgmma kernel's cycles a chunk in each phase (``BWD_STAMP_PHASES``)
+at rwkv6-7b's row; and, for the shipped build, K4′'s two kernels on the
+same bf16 N = 64 inputs at rows about ``wk.backward_plan``'s cut
+(``WKV_BWD_CUT_SHAPES``), limit ratios and times in turns.
 
 ``--kernel flash_bwd`` builds K1's backward once per variant of its bf16
 parity switches (with no arguments: the shipped build and ``BWD_VARIANTS``,
@@ -122,9 +130,13 @@ WKV_UNDONE = {"one_pass": {"WKV_TF32_PASSES": 1}, "two_passes": {"WKV_TF32_PASSE
 BWD_VARIANTS = {"parts1": {"PARITY_BWD_PARTS": 1}, "parts3": {"PARITY_BWD_PARTS": 3},
                 "fresh_step": {"PARITY_BWD_FRESH": 1}, "qk_chains_8": {"PARITY_QK_CHAIN": 8},
                 "ieee_exp": {"PARITY_IEEE_EXP": 1}}
-# K4′ with fewer tf32 passes per product than it ships with
+# K4′ with fewer tf32 passes per product than its tf32 kernel ships with
+# (fp32, N = 32 and B·H below the card's SMs), its wgmma kernel with one
+# bf16 part fewer, and the wgmma kernel's clock64 stamps (WKV_BWD_PROF)
 WKV_BWD_UNDONE = {"bwd_one_pass": {"WKV_BWD_TF32_PASSES": 1},
-                  "bwd_two_passes": {"WKV_BWD_TF32_PASSES": 2}}
+                  "bwd_two_passes": {"WKV_BWD_TF32_PASSES": 2},
+                  "bwd_one_part": {"WKV_BWD_PARTS": 1},
+                  "bwd_stamps": {"WKV_BWD_PROF": 1}}
 # per mode: the kernels built, the models whose activations hold them, the
 # default variants besides the shipped build
 MODES = {"attention": (("flash_attention", "decode_attention"),
@@ -167,7 +179,7 @@ def build(variants) -> dict:
         src = Path(sets["SRC"]) if "SRC" in sets else _build.CSRC
         for kernel in KERNELS:
             cmd = [nvcc, *_build.NVCC_FLAGS,
-                   *(f"-D{s}={v}" for s, v in sets.items() if s != "SRC"),
+                   *(f"-D{s}={v}" for s, v in sets.items() if s not in NOT_SWITCHES),
                    "-o", str(out / f"lib{kernel}.so"), str(src / f"{kernel}.cu")]
             log = out / f"lib{kernel}.log"
             with open(log, "w") as f:
@@ -208,6 +220,9 @@ def build(variants) -> dict:
 
 
 SHIPPED_PLAN = None   # wk.forward_plan as shipped, kept while a parent's plan stands in
+SHIPPED_BWD_PLAN = None   # and wk.backward_plan
+SHIPPED_LIB_BWD = None    # and wk._lib_bwd, the loader of K4′'s library
+NOT_SWITCHES = ("SRC", "PLAN")   # variant settings that are no -D for nvcc
 
 
 def parent_plan(B: int, H: int, S: int, N: int, dtype):
@@ -217,20 +232,52 @@ def parent_plan(B: int, H: int, S: int, N: int, dtype):
     return (*wk.plan_bwd_segments(B, H, S), wk.BWD_CHUNK)
 
 
+def parent_bwd_plan(one: bool):
+    """The tf32 backward's plan, which a parent's K4′ takes at every head size
+    and dtype: chunks of 32 in ``wk.plan_bwd_segments``' segments, or
+    (``one``) in one segment a (b, h)."""
+    from repro_torch.kernels import wkv6 as wk
+
+    def plan(B: int, H: int, S: int, N: int, dtype):
+        P, Lc = (1, -(-S // wk.BWD_CHUNK)) if one and S else wk.plan_bwd_segments(B, H, S)
+        return P, Lc, wk.BWD_CHUNK
+    return plan
+
+
+def parent_lib_bwd(directory: Path):
+    """A loader of a parent's K4′ library, which holds only the tf32 kernel's
+    entry ``wkv6_bwd``, bound as the current loader binds it."""
+    lib = ctypes.CDLL(str(directory / "libwkv6_bwd.so"))
+    lib.wkv6_bwd.restype = ctypes.c_int
+    lib.wkv6_bwd.argtypes = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    return lambda: lib
+
+
 def use(name: str) -> None:
     """Point the probed kernels' wrappers at variant ``name``'s libraries:
-    their cached loaders are filled from the variant's directory.  K4 of a
-    SRC variant plans its calls as that parent did."""
-    global SHIPPED_PLAN
+    their cached loaders are filled from the variant's directory (K4′ of a
+    SRC variant through ``parent_lib_bwd``).  K4 and K4′ of a SRC variant
+    plan their calls as that parent did (K4′ in one segment a (b, h) where
+    the variant sets ``PLAN=one``)."""
+    global SHIPPED_PLAN, SHIPPED_BWD_PLAN, SHIPPED_LIB_BWD
     from repro_torch.kernels import _build
     from repro_torch.kernels import wkv6 as wk
     SHIPPED_PLAN = SHIPPED_PLAN or wk.forward_plan
-    wk.forward_plan = parent_plan if (
-        "wkv6" in KERNELS and "SRC" in VARIANTS.get(name, {})) else SHIPPED_PLAN
+    SHIPPED_BWD_PLAN = SHIPPED_BWD_PLAN or wk.backward_plan
+    SHIPPED_LIB_BWD = SHIPPED_LIB_BWD or wk._lib_bwd
+    wk._lib_bwd = SHIPPED_LIB_BWD
+    sets = VARIANTS.get(name, {})
+    # (--kernel wkv6 times a parent's tf32 forward, planned as it was)
+    wk.forward_plan = parent_plan if (MODE == "wkv6" and "SRC" in sets) else SHIPPED_PLAN
+    wk.backward_plan = (parent_bwd_plan(sets.get("PLAN") == "one")
+                        if ("wkv6_bwd" in KERNELS and "SRC" in sets) else SHIPPED_BWD_PLAN)
     shipped = _build.library
     _build.library = lambda kernel: ctypes.CDLL(str(variant_dir(name) / f"lib{kernel}.so"))
     try:
         for kernel in KERNELS:
+            if kernel == "wkv6_bwd" and "SRC" in sets:
+                wk._lib_bwd = parent_lib_bwd(variant_dir(name))
+                continue
             module, loader = LOADERS.get(kernel, (kernel, "_lib"))
             fn = getattr(cs.counters()[module], loader)
             fn.cache_clear()
@@ -390,6 +437,98 @@ def wkv6_stamps(variants) -> dict:
         rec["period"] = sum(rows[i + 1][6] - rows[i][6] for i in span) / len(span)
         out[name] = rec
         print(f"[stamps] {name} {json.dumps(rec)}", flush=True)
+    return out
+
+
+# the phases between K4′'s WKV_BWD_PROF stamps (csrc/wkv6_bwd.cu), a chunk of
+# the reverse walk: name → (from, to)
+BWD_STAMP_PHASES = {
+    "prep e^w and the decays": (0, 1), "prep slot wait": (1, 2),
+    "prep the levels' operands": (2, 3), "prep A's diagonal walks": (3, 4),
+    "prep the exchange (paced by the MMA's levels)": (4, 5), "prep P's blocks wait": (5, 6),
+    "prep dr's and dk's diagonal walks": (6, 7), "prep r ⊙ pd": (7, 8),
+    "prep F region wait": (8, 9), "prep k ⊙ sd": (9, 10), "prep outputs and dlogw": (10, 11),
+    "mma first products, slot wait": (12, 13), "mma the levels' dr and dk": (13, 14),
+    "mma A's products": (14, 15), "mma r ⊙ pd wait": (15, 16), "mma chain and dv": (16, 17),
+    "mma dv out, Go carried": (17, 18)}
+
+
+def wkv6_bwd_stamps(variants) -> dict:
+    """Per variant built with WKV_BWD_PROF: K4′'s clock64 stamps of block
+    (0, 0) at rwkv6-7b's training row, the mean cycles of each of
+    ``BWD_STAMP_PHASES`` and the chunk period over chunks 2-14 of the
+    first 16 of the reverse walk, and the forward walk's period."""
+    import torch
+    from repro_torch.kernels import wkv6 as wk
+    args = cs.wkv6_bwd_inputs(*cs.WKV_BWD_SHAPES["rwkv6-7b"])
+    out = {}
+    for name, sets in variants.items():
+        if "WKV_BWD_PROF" not in sets:
+            continue
+        use(name)
+        lib = wk._lib_bwd()
+        lib.wkv6_bwd_prof.restype = ctypes.c_int
+        lib.wkv6_bwd_prof.argtypes = [ctypes.c_void_p]
+        wk.wkv6_bwd(*args)
+        torch.cuda.synchronize()
+        chunks, stamps = 16, 19
+        raw = (ctypes.c_longlong * (2 * chunks * stamps))()
+        if lib.wkv6_bwd_prof(raw):
+            raise RuntimeError(f"wkv6_bwd_prof of {name} failed")
+        rows = [raw[stamps * i:stamps * (i + 1)] for i in range(2 * chunks)]
+        span = range(2, 15)
+        rec = {phase: sum(rows[i][b] - rows[i][a] for i in span) / len(span)
+               for phase, (a, b) in BWD_STAMP_PHASES.items()}
+        rec["period"] = sum(rows[i + 1][12] - rows[i][12] for i in span) / len(span)
+        fwd = rows[chunks:]
+        rec["forward walk period"] = sum(fwd[i + 1][3] - fwd[i][3] for i in span) / len(span)
+        out[name] = rec
+        print(f"[stamps] wkv6_bwd {name} {json.dumps(rec)}", flush=True)
+    return out
+
+
+# bf16 rows at N = 64 about the wgmma kernel's cut (wk.BWD_WGMMA_HEADS):
+# label → (B, S, H, N, dtype of r/k/v/do)
+WKV_BWD_CUT_SHAPES = {"B 1, 64 heads": (1, 2048, 64, 64, "bfloat16"),
+                      "B 1, 96 heads": (1, 2048, 96, 64, "bfloat16"),
+                      "B 2, 64 heads": (2, 2048, 64, 64, "bfloat16"),
+                      "B 1, 132 heads": (1, 2048, 132, 64, "bfloat16")}
+
+
+def wkv6_bwd_cut(variants) -> dict:
+    """Per variant that sets nothing (the shipped build): K4′'s two kernels
+    on the same inputs at ``WKV_BWD_CUT_SHAPES``, whatever
+    ``wk.backward_plan`` routes there: the wgmma kernel (one segment, chunks
+    of 64) and the tf32 kernel (``plan_bwd_segments``), each one's limit
+    ratio (``chip_smoke.wkv_bwd_limits``), times in turns (wgmma, tf32,
+    tf32, wgmma) and each launch's device time."""
+    import torch
+    from repro_torch.kernels import wkv6 as wk
+    out = {}
+    for name, sets in variants.items():
+        if sets:
+            continue
+        use(name)
+        rec = out[name] = {}
+        for label, (B, S, H, N, dtype) in WKV_BWD_CUT_SHAPES.items():
+            args = cs.wkv6_bwd_inputs(B, S, H, N, dtype)
+            P, Lc = wk.plan_bwd_segments(B, H, S)
+            kernels = {"wgmma": lambda: wk._bwd_wgmma(*args),
+                       "tf32": lambda: wk._bwd_tf32(*args, P=P, Lc=Lc)}
+            want = wk.plain_grad(*args, acc=torch.float64)
+            limits = cs.wkv_bwd_limits(*args)
+            row = rec[label] = {"routed": wk.backward_plan(B, H, S, N, args[0].dtype),
+                                "tf32_plan": [P, Lc]}
+            for kernel, fn in kernels.items():
+                row[f"{kernel}_limit_ratio"] = cs.held_bwd(fn(), want, limits)[1]
+            del want, limits
+            for kernel in ("wgmma", "tf32", "tf32", "wgmma"):
+                row.setdefault(f"{kernel}_ms", []).append(cs.cuda_ms(kernels[kernel], 10))
+            for kernel, fn in kernels.items():
+                row[f"{kernel}_launches_ms"] = passes_ms(fn)
+            print(f"[cut] wkv6_bwd {label} {name} {json.dumps(row)}", flush=True)
+            del args
+            torch.cuda.empty_cache()
     return out
 
 
@@ -579,69 +718,22 @@ def bwd_cases(variants) -> dict:
     return out
 
 
-def legacy_rglru_bwd(a, b, s0, g, g_last):
-    """K3′ through PR 23's C entry point (one thread a channel, a state
-    stored every 16 steps), for a SRC variant built from that source."""
-    import torch
-    from repro_torch.kernels import _build
-    from repro_torch.kernels import rglru_scan as rg
-    fn = rg._lib_bwd().rglru_scan_bwd
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    B, S, R = a.shape
-    da, db, ds0 = torch.empty_like(a), torch.empty_like(b), torch.empty_like(s0)
-    starts = torch.empty((B, -(-S // 16), R), dtype=torch.float32, device=a.device)
-    _build.check(fn(*(t.data_ptr() for t in (a, b, s0, g, g_last, da, db, ds0, starts)),
-                    B, S, R, rg.DTYPES[a.dtype], torch.cuda.current_stream().cuda_stream),
-                 "legacy rglru_scan_bwd")
-    return da, db, ds0
-
-
-def legacy_wkv6_bwd(r, k, v, logw, u, s0, do, ds):
-    """K4′ through PR 23's C entry point (scratch of every chunk's state and
-    gradient, one block a chunk), for a SRC variant built from that source;
-    heads of fewer than 32 padded as the wrapper pads them."""
-    import torch
-    from repro_torch.kernels import _build
-    from repro_torch.kernels import wkv6 as wk
-    N = r.shape[-1]
-    if N not in wk.HEAD_SIZES:
-        grads = legacy_wkv6_bwd(*wk.pad_heads(wk.kernel_head_size(N), r, k, v, logw, u, s0,
-                                              do, ds))
-        return (*(x[..., :N].contiguous() for x in grads[:5]),
-                grads[5][..., :N, :N].contiguous())
-    fn = wk._lib_bwd().wkv6_bwd
-    fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    B, S, H, N = r.shape
-    C = -(-S // wk.BWD_CHUNK)
-    dr, dk, dv = torch.empty_like(r), torch.empty_like(k), torch.empty_like(v)
-    dlogw, du, ds0 = torch.empty_like(logw), torch.empty_like(u), torch.empty_like(s0)
-    states = torch.empty((B, H, C, N, N), dtype=torch.float32, device=r.device)
-    gouts = torch.empty_like(states)
-    du_part = torch.empty((B, H, C, N), dtype=torch.float32, device=r.device)
-    _build.check(fn(*(t.data_ptr() for t in (r, k, v, logw, u, s0, do, ds, dr, dk, dv, dlogw,
-                                             du, ds0, states, gouts, du_part)),
-                    B, S, H, N, wk.DTYPES[r.dtype], torch.cuda.current_stream().cuda_stream),
-                 "legacy wkv6_bwd")
-    return dr, dk, dv, dlogw, du, ds0
-
-
 def recurrent_cases(variants) -> dict:
     """Per variant: K3′ at phase 19 (a)'s two cases, its outputs bitwise
     against the first variant's and, where the variant plans a ring,
     against its own register kernel; K4′ at phase 19 (a)'s four cases, each
-    output's limit ratio (``chip_smoke.wkv_bwd_limits``) and whether two
-    calls give the same bits; the times of both, the variants in order, then
-    in reverse, and each launch's device time; then K3's and K4's forward on
-    phase 3's inputs, their times in turns and whether their outputs have
-    the first variant's bits.  A SRC variant's backwards run through PR
-    23's entry points (``legacy_*``)."""
+    output's limit ratio (``chip_smoke.wkv_bwd_limits``), its plan and
+    whether two calls give the same bits; the times of both, the variants
+    in order, then in reverse, and each launch's device time; then K3's and
+    K4's forward on phase 3's inputs, their times in turns and whether their
+    outputs have the first variant's bits.  A SRC variant runs through the
+    current entry points, ``rglru_scan_bwd`` and the tf32 ``wkv6_bwd`` (the
+    tf32 kernel at every shape, ``parent_bwd_plan``)."""
     import torch
     from repro_torch.kernels import rglru_scan as rg
     from repro_torch.kernels import wkv6 as wk
 
     def runner(name, kernel):
-        if "SRC" in variants[name]:
-            return legacy_rglru_bwd if kernel == "rglru_scan_bwd" else legacy_wkv6_bwd
         return rg.rglru_scan_bwd if kernel == "rglru_scan_bwd" else wk.wkv6_bwd
     cases = [(f"K3′ {dtype}", "rglru_scan_bwd", lambda dtype=dtype: cs.rglru_bwd_inputs(dtype))
              for dtype in ("float32", "bfloat16")]
@@ -666,6 +758,8 @@ def recurrent_cases(variants) -> dict:
                 bitwise_first=all(torch.equal(x, y) for x, y in zip(got, first)))
             if checked:
                 rec["limit_ratio"], rec["ratios"] = cs.held_bwd(got, want, limits)[1:]
+                B, S, H, N = args[0].shape
+                rec["plan"] = wk.backward_plan(B, H, S, N, args[0].dtype)
             elif "SRC" not in variants[name]:
                 regs = rg.rglru_scan_bwd(*args, use=rg.REGISTER)
                 rec["plan"] = plan._asdict()
@@ -740,6 +834,11 @@ def main() -> int:
             result[name]["turns"] = rec
         for name, rec in wkv6_stamps(variants).items():
             result[name]["stamps"] = rec
+    if MODE == "recurrent_bwd":
+        for name, rec in wkv6_bwd_stamps(variants).items():
+            result[name]["stamps"] = rec
+        for name, rec in wkv6_bwd_cut(variants).items():
+            result[name]["cut"] = rec
     print(json.dumps(result))
     return 0
 

@@ -528,6 +528,34 @@ __device__ __forceinline__ uint64_t mn_desc(const void* tile) {
          (uint64_t)(1024 >> 4) << 32 | (uint64_t)1 << 62;
 }
 
+// Byte offset of element (row, col) of a [64][64] bf16 tile in TMA's
+// 128-byte swizzle: 16-byte chunk col / 8 of the row, XORed with row % 8.
+__device__ __forceinline__ int swz128(int row, int col) {
+  return row * 128 + (((col >> 3) ^ (row & 7)) << 4) + ((col & 7) << 1);
+}
+__device__ __forceinline__ float bf16_at(const uint8_t* tile, int row, int col) {
+  return __bfloat162float(*reinterpret_cast<const __nv_bfloat16*>(tile + swz128(row, col)));
+}
+// Columns 8·c8 .. 8·c8 + 7 of a row of a swizzled bf16 tile as floats.
+__device__ __forceinline__ void bf16x8_at(const uint8_t* tile, int row, int c8, float (&x)[8]) {
+  const uint4 raw =
+      *reinterpret_cast<const uint4*>(tile + row * 128 + ((c8 ^ (row & 7)) << 4));
+  const uint32_t word[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    x[2 * i] = __uint_as_float(word[i] << 16);
+    x[2 * i + 1] = __uint_as_float(word[i] & 0xffff0000u);
+  }
+}
+// Generic-proxy writes to shared memory ordered before the asynchronous
+// proxy's accesses (TMA's next write into a stage, wgmma's reads).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// A named barrier over `count` threads.
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
 __device__ __forceinline__ void named_sync(int id) {
   asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
 }

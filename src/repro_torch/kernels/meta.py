@@ -206,10 +206,12 @@ def wkv6_bwd(r: Tensor, k: Tensor, v: Tensor, logw: Tensor, u: Tensor, state0: T
 
 def _wkv_bwd_scratch(r, *rest) -> int:
     B, S, H, N = r.shape
-    P, _ = _wkv.plan_bwd_segments(B, H, S)
+    P, _, chunk = _wkv.backward_plan(B, H, S, N, r.dtype)
     n = _wkv.kernel_head_size(N)
+    if chunk == _wkv.CHUNK:   # the wgmma kernel: every chunk's state; each head's du part
+        return 4 * B * H * (-(-S // chunk) * n * n + n)
     # every chunk's state; the segments' states, gradients, decays and du parts
-    return 4 * B * H * ((-(-S // _wkv.BWD_CHUNK) + 2 * (P - 1)) * n * n + 2 * P * n)
+    return 4 * B * H * ((-(-S // chunk) + 2 * (P - 1)) * n * n + 2 * P * n)
 
 
 def _wkv_backward(ctx, dout, dstate):

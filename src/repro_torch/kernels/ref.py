@@ -248,6 +248,9 @@ def wkv6_chunked_reference(r, k, v, logw, u, state0, *, chunk: int = 32,
       first half and the first half's kd times e1 = Π over the second; A
       within each half by running products (k_s ⊙ Π_{s<j<t} walked over t),
       and below the halves as rd (second half) · kd (first half)ᵀ.
+    With ``acc`` float64 (a check's want) the walks' decays are taken at
+    once from the running sums of logw: the same function, a few launches
+    a chunk instead of several a step.
     Shapes and dtypes as :func:`wkv6_reference`.
     """
     if chunk not in (32, 64):
@@ -273,10 +276,22 @@ def wkv6_chunked_reference(r, k, v, logw, u, state0, *, chunk: int = 32,
     def suffix(e):                                       # Π_{j>s} e_j along dim 2
         return exclusive_cumprod(e.flip(2)).flip(2)
 
-    def walked(rows, ks, ew):
+    def walked(rows, ks, ew, lw):
         """A of steps ``rows`` against themselves by running products: k_s
-        ⊙ Π_{s<j<t} e_j walked over t, the bonus on the diagonal."""
+        ⊙ Π_{s<j<t} e_j walked over t, the bonus on the diagonal.  In
+        float64 (a check's want, whose rounding order does not matter) the
+        decays come at once as e^{Σ_{s<j<t} logw_j} from lw's running sums
+        (each ≤ 0, so nothing overflows): a few launches instead of a walk
+        of several a step."""
         L = ks.shape[2]
+        if acc == torch.float64:
+            c = lw.cumsum(dim=2)                         # Σ_{j<=t} logw_j
+            below = torch.ones(L, L, dtype=torch.bool, device=r.device).tril(-1)
+            expo = torch.where(below[:, :, None], (c - lw)[:, :, :, None] - c[:, :, None],
+                               torch.tensor(-torch.inf, dtype=acc, device=r.device))
+            a = torch.einsum("bhtd,bhsd,bhtsd->bhts", rows, ks, torch.exp(expo))
+            a = a + torch.diag_embed((rows * uf[:, None] * ks).sum(-1))
+            return a, ks * suffix(ew)
         a = torch.zeros((B, H, L, L), dtype=acc, device=r.device)
         k_run = torch.zeros_like(ks)
         for t in range(L):
@@ -305,8 +320,10 @@ def wkv6_chunked_reference(r, k, v, logw, u, state0, *, chunk: int = 32,
         if T == 64:
             a = torch.zeros((B, H, T, T), dtype=acc, device=r.device)
             lo, hi = slice(0, T2), slice(T2, T)
-            a[:, :, lo, lo] = walked(rr[c][:, :, lo], kk[c][:, :, lo], ew[:, :, lo])[0]
-            a[:, :, hi, hi] = walked(rr[c][:, :, hi], kk[c][:, :, hi], ew[:, :, hi])[0]
+            a[:, :, lo, lo] = walked(rr[c][:, :, lo], kk[c][:, :, lo], ew[:, :, lo],
+                                     ww[c][:, :, lo])[0]
+            a[:, :, hi, hi] = walked(rr[c][:, :, hi], kk[c][:, :, hi], ew[:, :, hi],
+                                     ww[c][:, :, hi])[0]
             a[:, :, hi, lo] = torch.einsum(
                 "bhtd,bhsd->bhts", rr[c][:, :, hi] * exclusive_cumprod(ew[:, :, hi]),
                 kk[c][:, :, lo] * suffix(ew[:, :, lo]))
@@ -316,7 +333,7 @@ def wkv6_chunked_reference(r, k, v, logw, u, state0, *, chunk: int = 32,
         for lo in range(0, T, Q):                        # the diagonal blocks
             blk = slice(lo, lo + Q)
             a[:, :, blk, blk], k_end[:, :, blk] = walked(rr[c][:, :, blk], kk[c][:, :, blk],
-                                                         ew[:, :, blk])
+                                                         ew[:, :, blk], ww[c][:, :, blk])
 
         def r_from(rows):                                # r_t Π_{rows.start<=j<t} e_j
             return rr[c][:, :, rows] * exclusive_cumprod(ew[:, :, rows])

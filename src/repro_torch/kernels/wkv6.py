@@ -9,10 +9,12 @@ kernel (``mma.sync``) in chunks of ``BWD_CHUNK`` = 32, cut by ``plan_bwd_segment
 (``forward_plan`` says which).  Up to three launches a call; ``launches``
 counts one per call.
 
-The backward kernel (``csrc/wkv6_bwd.cu``) computes the gradient of the same
-function in the chunked form of the tf32 kernel (chunks of ``BWD_CHUNK``,
-segments by ``plan_bwd_segments``) and replaces no TPU kernel (the
-reference differentiates its chunked WKV with XLA); ``launches_bwd`` counts
+The backward kernels (``csrc/wkv6_bwd.cu``) compute the gradient of the same
+function and replace no TPU kernel (the reference differentiates its chunked
+WKV with XLA).  In bf16 at N = 64 with B·H ≥ ``BWD_WGMMA_HEADS`` the wgmma kernel
+takes one segment a (batch, head) in chunks of ``CHUNK``; every other call
+runs the tf32 kernel in chunks of ``BWD_CHUNK`` cut by ``plan_bwd_segments``
+(``backward_plan`` says which, before the launch).  ``launches_bwd`` counts
 one per call (up to four launches).  :class:`WKV6` ties the two together for
 autograd; :func:`plain_grad` is the backward's plain version.
 """
@@ -33,6 +35,10 @@ CHUNK = 64             # steps of a chunk of the bf16 N = 64 kernel (wgmma)
 SMS = _build.H100_SMS  # its blocks take an SM each: plan_segments fills one wave of them
 BWD_CHUNK = 32         # steps of a chunk of the tf32 kernel and of the backward
 TARGET_BLOCKS = 2048   # blocks plan_bwd_segments aims at (~8 waves)
+# B·H from which the backward's bf16 N = 64 calls take the wgmma kernel: at
+# S 2048 on the H100 it is slower than the tf32 kernel at 64 heads and faster
+# at 96, 128 and 132 (parity_probe.py --kernel recurrent_bwd, its cut rows)
+BWD_WGMMA_HEADS = 96
 
 launches = 0
 launches_bwd = 0
@@ -82,6 +88,18 @@ def forward_plan(B: int, H: int, S: int, N: int, dtype: torch.dtype) -> Tuple[in
     (padded to ``kernel_head_size``) and r in ``dtype`` launches."""
     if dtype == torch.bfloat16 and kernel_head_size(N) == 64:
         return (*plan_segments(B, H, S), CHUNK)
+    return (*plan_bwd_segments(B, H, S), BWD_CHUNK)
+
+
+def backward_plan(B: int, H: int, S: int, N: int, dtype: torch.dtype) -> Tuple[int, int, int]:
+    """(P, Lc, chunk) of the backward kernel that a call with heads of N
+    (padded to ``kernel_head_size``) and r in ``dtype`` launches: the wgmma
+    kernel, one segment of every chunk of ``CHUNK`` steps (a block a (batch,
+    head)), in bf16 at N = 64 with B·H ≥ ``BWD_WGMMA_HEADS``; else the tf32
+    kernel in ``plan_bwd_segments``' segments of chunks of ``BWD_CHUNK``."""
+    if (dtype == torch.bfloat16 and kernel_head_size(N) == 64
+            and B * H >= BWD_WGMMA_HEADS):
+        return (*_cut(-(-S // CHUNK), 1), CHUNK)
     return (*plan_bwd_segments(B, H, S), BWD_CHUNK)
 
 
@@ -172,6 +190,9 @@ def _lib_bwd() -> ctypes.CDLL:
     fn = lib.wkv6_bwd
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn = lib.wkv6_bwd_wgmma
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     return lib
 
 
@@ -183,8 +204,8 @@ def wkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.Tens
     gradient of its output, and ``dstate`` (B, H, N, N) fp32, that of its
     final state (None: zero).  Operands as for the forward; dr, dk and dv
     come back in r's dtype, the others in fp32.  The states at the chunks'
-    starts are recomputed from state0, in segments of ``plan_bwd_segments``,
-    into scratch of B·H·ceil(S/32)·N² fp32."""
+    starts are recomputed from state0 into scratch of B·H·ceil(S/chunk)·N²
+    fp32, in ``backward_plan``'s segments and chunks."""
     global launches_bwd
     _check_call("wkv6_bwd", r, k, v, logw, u, state0)
     B, S, H, N = r.shape
@@ -199,33 +220,59 @@ def wkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.Tens
             or dstate.device != r.device:
         raise ValueError(f"wkv6_bwd: dout {tuple(dout.shape)} {dout.dtype} and dstate "
                          f"{tuple(dstate.shape)} {dstate.dtype} do not match r and state0")
-    # the kernel copies 16 bytes at a time: a view that starts off that
+    # the kernels copy 16 bytes at a time: a view that starts off that
     # alignment is copied
-    r, k, v, logw, state0, dout, dstate = (
-        t if t.is_contiguous() and t.data_ptr() % 16 == 0
-        else t.clone(memory_format=torch.contiguous_format)
-        for t in (r, k, v, logw, state0, dout, dstate))
-    u = u.contiguous()
-    C = -(-S // BWD_CHUNK)
-    P, Lc = plan_bwd_segments(B, H, S)
-    dr, dk, dv = torch.empty_like(r), torch.empty_like(k), torch.empty_like(v)
-    dlogw, du, dstate0 = torch.empty_like(logw), torch.empty_like(u), torch.empty_like(state0)
+    args = tuple(t if t.is_contiguous() and t.data_ptr() % 16 == 0
+                 else t.clone(memory_format=torch.contiguous_format)
+                 for t in (r, k, v, logw, u, state0, dout, dstate))
+    P, Lc, chunk = backward_plan(B, H, S, N, r.dtype)
+    grads = (_bwd_wgmma(*args) if chunk == CHUNK else _bwd_tf32(*args, P=P, Lc=Lc))
+    launches_bwd += 1
+    return grads
+
+
+def _bwd_outputs(r, k, v, logw, u, state0):
+    return (torch.empty_like(r), torch.empty_like(k), torch.empty_like(v),
+            torch.empty_like(logw), torch.empty_like(u), torch.empty_like(state0))
+
+
+def _bwd_wgmma(r, k, v, logw, u, state0, dout, dstate):
+    """The wgmma kernel (``wkv6_bwd_wgmma``): one block a (batch, head),
+    chunks of ``CHUNK``; scratch of every chunk's entering state and each
+    (batch, head)'s part of du."""
+    B, S, H, N = r.shape
+    grads = _bwd_outputs(r, k, v, logw, u, state0)
+    states = torch.empty((B, H, -(-S // CHUNK), N, N), dtype=torch.float32, device=r.device)
+    du_part = torch.empty((B, H, N), dtype=torch.float32, device=r.device)
+    err = _lib_bwd().wkv6_bwd_wgmma(
+        *(t.data_ptr() for t in (r, k, v, logw, u, state0, dout, dstate, *grads, states,
+                                 du_part)),
+        B, S, H, torch.cuda.current_stream(r.device).cuda_stream)
+    _build.check(err, "wkv6_bwd")
+    return grads
+
+
+def _bwd_tf32(r, k, v, logw, u, state0, dout, dstate, *, P: int, Lc: int):
+    """The tf32 kernel (C entry ``wkv6_bwd``) in P
+    segments of Lc chunks of ``BWD_CHUNK`` steps: scratch of every chunk's
+    state, each segment's state and gradient contributions, decay and part
+    of du."""
+    B, S, H, N = r.shape
+    grads = _bwd_outputs(r, k, v, logw, u, state0)
 
     def scratch(*shape):
         return torch.empty((B, H) + shape, dtype=torch.float32, device=r.device)
     # every chunk's state; each segment's state and gradient contributions,
     # then those entering and leaving it; its decay; its part of du
-    states = scratch(C, N, N)
+    states = scratch(-(-S // BWD_CHUNK), N, N)
     seg_state, seg_grad = scratch(P - 1, N, N), scratch(P - 1, N, N)
     seg_decay, du_part = scratch(P, N), scratch(P, N)
     err = _lib_bwd().wkv6_bwd(
-        *(t.data_ptr() for t in (r, k, v, logw, u, state0, dout, dstate, dr, dk, dv, dlogw,
-                                 du, dstate0, states, seg_state, seg_grad, seg_decay,
-                                 du_part)),
+        *(t.data_ptr() for t in (r, k, v, logw, u, state0, dout, dstate, *grads, states,
+                                 seg_state, seg_grad, seg_decay, du_part)),
         B, S, H, N, DTYPES[r.dtype], P, Lc, torch.cuda.current_stream(r.device).cuda_stream)
     _build.check(err, "wkv6_bwd")
-    launches_bwd += 1
-    return dr, dk, dv, dlogw, du, dstate0
+    return grads
 
 
 def plain_grad(r, k, v, logw, u, state0, dout, dstate=None, *,

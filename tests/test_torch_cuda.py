@@ -1031,12 +1031,18 @@ def wkv_grad_inputs(seed, B, S, H, N, dtype, cuda):
                                            ("float32", 2, 300, 4, 32),
                                            ("bfloat16", 2, 300, 3, 64),
                                            ("float32", 1, 5, 2, 64),
-                                           ("bfloat16", 2, 0, 2, 32)])
+                                           ("bfloat16", 2, 0, 2, 32),
+                                           ("bfloat16", 4, 1, 64, 64),
+                                           ("bfloat16", 4, 63, 64, 64),
+                                           ("bfloat16", 4, 65, 64, 64),
+                                           ("bfloat16", 4, 300, 64, 64)])
 def test_wkv6_backward_kernel_matches_float64(cuda, dtype, B, S, H, N):
     """K4's backward against the plain version in float64, with a nonzero
     state0 and a gradient on the final state, at rwkv6-7b's training shape
-    and at partial last chunks; deterministic (a second call bitwise equal);
-    a planted fault of its own must fail: u zeroed."""
+    and at partial last chunks (bf16 at B·H = 256 takes the wgmma kernel:
+    one step, a chunk of 64 less one, one more, and 300 steps); deterministic
+    (a second call bitwise equal); a planted fault of its own must fail: u
+    zeroed."""
     args = wkv_grad_inputs(12, B, S, H, N, dtype, cuda)
     n0 = wk.launches_bwd
     got = wk.wkv6_bwd(*args)
@@ -1073,6 +1079,26 @@ def test_recurrent_autograd_runs_both_kernels(cuda):
     assert (wk.launches, wk.launches_bwd) == (n0[0] + 1, n0[1] + 1)
     want = wk.wkv6_bwd(*(t.detach() for t in xs), do, ds)
     assert all(torch.equal(x, w) for x, w in zip(grads, want))
+
+
+@pytest.mark.gpu
+def test_wkv6_autograd_through_the_wgmma_backward(cuda):
+    """``ops.wkv6`` under autograd at B·H = 256 in bf16: one forward launch,
+    one backward launch on the wgmma kernel's route, the gradients those of
+    ``wk.wkv6_bwd`` bitwise and within ``chip_smoke.py`` phase 19's limits of
+    the float64 plain version."""
+    cs = chip_smoke()
+    r, k, v, logw, u, st, do, ds = wkv_grad_inputs(20, 4, 130, 64, 64, "bfloat16", cuda)
+    assert wk.backward_plan(4, 64, 130, 64, torch.bfloat16) == (1, 3, wk.CHUNK)
+    xs = [t.requires_grad_() for t in (r, k, v, logw, u, st)]
+    n0 = (wk.launches, wk.launches_bwd)
+    out, state = ops.wkv6(*xs)
+    grads = torch.autograd.grad((out, state), xs, (do, ds))
+    assert (wk.launches, wk.launches_bwd) == (n0[0] + 1, n0[1] + 1)
+    args = [t.detach() for t in xs] + [do, ds]
+    assert all(torch.equal(x, w) for x, w in zip(grads, wk.wkv6_bwd(*args)))
+    want = wk.plain_grad(*args, acc=torch.float64)
+    assert cs.held_bwd(grads, want, cs.wkv_bwd_limits(*args))[1] <= 1.0
 
 
 @pytest.mark.gpu

@@ -22,6 +22,18 @@ with no CUDA: it follows the kernel's decomposition, not the sequential one.
   modelled: ``parity_probe.py --kernel recurrent_bwd`` measures the kernel
   at each number of passes on the card.
 
+``twin_grad_wgmma`` is the twin of the wgmma kernel (bf16 at N = 64, B·H
+at least ``wk.BWD_WGMMA_HEADS``, ``wk.backward_plan``): one segment of 64-step
+chunks, the states forward (their increment's k ⊙ sd in ``CPARTS`` bf16
+parts), then each chunk last to first: P and Pᵀ exact, S_c and Go in
+``WKV_BWD_PARTS`` parts against dO and V, the levels 32, 16 and 8 (F_L =
+r ⊙ Π e from the start of a row's L-block where the row has bit L set, k ⊙
+Π e to its end elsewhere; P masked to the level's pairs against F_L, Aᵀ
+from F_L F_Lᵀ, every product on the parts' pairs whose indices sum to
+``WKV_BWD_PARTS`` − 1 or more), the diagonal 8 x 8 blocks by their walks,
+dv, the gradient's chain in ``CPARTS`` parts, and dlogw by the identity
+per half of 32 steps; both part counts read from the source.
+
 The tests hold the twin
 - with exact products (no split), on numpy-seeded inputs, to float64
   autograd through ``ref.wkv6_reference`` within F64_TOL of each gradient's
@@ -37,7 +49,12 @@ The tests hold the twin
 - rounded to the kernel's output types, within ``chip_smoke.py`` phase 19's
   limits (``wkv_bwd_limits``); and show that one tf32 pass, or two where
   both operands are fp32 values, exceeds them, which is why the kernel takes
-  the passes it takes.
+  the passes it takes;
+and the wgmma twin (``"wgmma"`` cases of the same tests) with exact
+products to float64 autograd (S ∈ {0, 1, 31, 33, 63, 65, 300}), in its
+parts to ``jax.vjp`` of the sequential reference within FP32_TOL, with
+logw down to −e³ finite, and within phase 19's limits, which one part fewer
+exceeds (~19x).
 """
 import importlib.util
 import re
@@ -271,6 +288,177 @@ def twin_grad(r, k, v, logw, u, state0, dout, dstate, *, exact=False, passes=Non
     return (*(unchunk(x) for x in out), du, dstate0)
 
 
+# ---- the wgmma kernel (bf16 at N = 64, one segment, chunks of 64) ----
+
+TW = 64   # the wgmma kernel's chunk
+
+
+def shipped_parts():
+    """(``WKV_BWD_PARTS``, ``CPARTS``) as the kernel ships them: the bf16
+    parts of an fp32 operand in its products, and in the two that feed the
+    carried state and gradient."""
+    src = (CSRC / "wkv6_bwd.cu").read_text()
+    return (int(re.search(r"#ifndef WKV_BWD_PARTS\n#define WKV_BWD_PARTS (\d+)", src)[1]),
+            int(re.search(r"constexpr int CPARTS = (\d+);", src)[1]))
+
+
+def bf16_parts(x: torch.Tensor, n: int):
+    """The fp32 value of ``x`` as n bf16 parts (``split_bf16``: the largest
+    its rounding, each next the rounding of what the ones before leave), in
+    float64, smallest first as the kernel indexes them."""
+    x = x.float()
+    parts = []
+    for _ in range(n):
+        h = x.bfloat16().float()
+        parts.append(h.double())
+        x = x - h
+    return parts[::-1]
+
+
+def mm_bf16(a, b, na, nb):
+    """a @ b as the kernel's wgmma takes it: an operand with n parts split
+    into them (None: exact, a bf16 value or the twin's float64), the
+    products of every part against an exact operand, and of the pairs whose
+    indices sum to n - 1 or more of two split ones; summed in float64."""
+    A = [a.double()] if na is None else bf16_parts(a, na)
+    B = [b.double()] if nb is None else bf16_parts(b, nb)
+    if na is None or nb is None:
+        return sum(x @ y for x in A for y in B)
+    return sum(A[i] @ B[j] for i in range(na) for j in range(nb) if i + j >= na - 1)
+
+
+def block_prefix(e, L):
+    """Π e_j from the start of each step's aligned block of L steps to it
+    (excluded), along dim -2."""
+    shape = e.shape
+    x = e.reshape(shape[:-2] + (shape[-2] // L, L, shape[-1]))
+    return excl_cumprod(x).reshape(shape)
+
+
+def block_suffix(e, L):
+    """Π e_j from a step (excluded) to the end of its aligned block of L."""
+    shape = e.shape
+    x = e.reshape(shape[:-2] + (shape[-2] // L, L, shape[-1]))
+    return excl_rev_cumprod(x).reshape(shape)
+
+
+def level_mask(lb, T=TW):
+    """M[t, s] = 1 where s < t and the steps first differ in bit lb."""
+    t = torch.arange(T)[:, None]
+    s = torch.arange(T)[None, :]
+    x = t ^ s
+    hb = torch.where(x > 0, torch.floor(torch.log2(x.double().clamp(min=1))).long(), -1)
+    return ((s < t) & (hb == lb)).double()
+
+
+def diagonal_decays_in(e, T):
+    """between[..., t, s, d] = Π_{s<j<t} e_j for s < t in one 8-step block,
+    0 elsewhere, over chunks of T."""
+    between = torch.zeros(e.shape[:-2] + (T, T, e.shape[-1]), dtype=e.dtype)
+    for b0 in range(0, T, Q):
+        for s in range(b0, b0 + Q):
+            f = torch.ones_like(e[..., 0, :])
+            for t in range(s + 1, b0 + Q):
+                between[..., t, s, :] = f
+                f = f * e[..., t, :]
+    return between
+
+
+def wgmma_chunk(r, k, v, o, w, u, S_c, Go, parts):
+    """One 64-step chunk as wkv6_bwd_wgmma_kernel takes it (module docstring;
+    ``parts`` None: exact float64) → (dr, dk, dv, dlogw, the chunk's du, the
+    gradient of the state entering it)."""
+    npart, cpart = (None, None) if parts is None else parts
+    tr = lambda x: x.transpose(-1, -2)  # noqa: E731
+    e = torch.exp(w)
+    pd, sd = excl_cumprod(e), excl_rev_cumprod(e)
+    D = torch.exp(w.sum(dim=-2))[..., :, None]                   # (B, H, N, 1)
+    P = o @ tr(v)                                                # exact: bf16 values
+    X1 = tr(mm_bf16(S_c, tr(o), npart, None))                    # dO S_cᵀ, as S_c dOᵀ
+    X2 = mm_bf16(v, tr(Go), None, npart)
+    rows = torch.arange(TW)
+    drp = pd * X1
+    dks = sd * X2
+    dki = torch.zeros_like(drp)
+    AT = torch.zeros(P.shape, dtype=P.dtype)
+    for lb in (5, 4, 3):
+        L = 1 << lb
+        bit = ((rows >> lb) & 1).bool()[:, None]
+        RF, KF = block_prefix(e, L), block_suffix(e, L)
+        F = torch.where(bit, r * RF, k * KF)
+        M = level_mask(lb)
+        dr_l = RF * mm_bf16(P * M, F, npart, npart)
+        dk_l = KF * mm_bf16(tr(P * M), F, npart, npart)
+        drp = drp + dr_l
+        if lb == 5:   # the first half's level 32 counts with the state's term
+            dks = dks + dk_l
+        else:
+            dki = dki + dk_l
+        AT = AT + mm_bf16(F, tr(F), npart, npart) * tr(M)
+    between = diagonal_decays_in(e, TW)
+    drp = drp + torch.einsum("...ts,...sd,...tsd->...td", P, k, between)
+    dki = dki + torch.einsum("...ts,...td,...tsd->...sd", P, r, between)
+    A_diag = torch.einsum("...td,...sd,...tsd->...ts", r, k, between) \
+        + torch.diag_embed(((r * u[:, None, :]) * k).sum(-1))
+    AT = AT + tr(A_diag)
+    ptt = torch.diagonal(P, dim1=-2, dim2=-1)[..., None]
+    dr = drp + ptt * u[:, None, :] * k
+    dk = dks + dki + ptt * u[:, None, :] * r
+    du = (ptt * r * k).sum(dim=-2)
+    dv = mm_bf16(k * sd, Go, npart, npart) + mm_bf16(AT, o, npart, None)
+    tot = D[..., 0] * (Go * S_c).sum(-1)                         # (B, H, N)
+    rr, ks, ki = r * drp, k * dks, k * dki
+    rs, ks64 = r * pd * X1, k * sd * X2
+    dlogw = torch.empty_like(drp)
+    for h in range(2):
+        lo, hi = 32 * h, 32 * h + 32
+        other = rs[..., 32:, :].sum(-2) if h == 0 else ks64[..., :32, :].sum(-2)
+        ksh, rrh, kih = ks[..., lo:hi, :], rr[..., lo:hi, :], ki[..., lo:hi, :]
+        dlogw[..., lo:hi, :] = ((tot + other)[..., None, :] + (ksh.cumsum(-2) - ksh)
+                                + (rrh.flip(-2).cumsum(-2).flip(-2) - rrh)
+                                - kih.flip(-2).cumsum(-2).flip(-2))
+    go_before = D * Go + mm_bf16(tr(r * pd), o, cpart, None)
+    return dr, dk, dv, dlogw, du, go_before
+
+
+def twin_grad_wgmma(r, k, v, logw, u, state0, dout, dstate, *, parts=None):
+    """K4′'s wgmma kernel as it decomposes the gradient, on the operands'
+    values in float64: one segment of 64-step chunks (zeros past S), the
+    states forward from state0 (their increment in ``parts[1]`` parts), then
+    the chunks last to first (``wgmma_chunk``); ``parts`` None: every
+    product exact.  → (dr, dk, dv, dlogw, du, dstate0) in float64."""
+    B, S, H, N = r.shape
+    C = -(-S // TW)
+
+    def chunks(x):   # (B, S, H, N) → C x (B, H, TW, N), zeros past S
+        x = torch.nn.functional.pad(x.double(), (0, 0, 0, 0, 0, C * TW - S))
+        return list(x.reshape(B, C, TW, H, N).permute(1, 0, 3, 2, 4))
+    rr, kk, vv, oo, ww = (chunks(x) for x in (r, k, v, dout, logw))
+    u = u.double()
+    cpart = None if parts is None else parts[1]
+    states, M = [], state0.double()
+    for c in range(C):
+        states.append(M)
+        e = torch.exp(ww[c])
+        D = torch.exp(ww[c].sum(dim=-2))[..., :, None]
+        M = D * M + mm_bf16((kk[c] * excl_rev_cumprod(e)).transpose(-1, -2), vv[c], cpart, None)
+    out = [[None] * C for _ in range(4)]
+    du = torch.zeros((H, N), dtype=torch.float64)
+    Go = dstate.double()
+    for c in reversed(range(C)):
+        *grads, du_c, Go = wgmma_chunk(rr[c], kk[c], vv[c], oo[c], ww[c], u, states[c], Go,
+                                       parts)
+        for i, x in enumerate(grads):
+            out[i][c] = x
+        du = du + du_c.sum(dim=0)
+
+    def unchunk(xs):
+        if not xs:
+            return torch.zeros((B, S, H, N), dtype=torch.float64)
+        return torch.stack(xs).permute(1, 0, 3, 2, 4).reshape(B, C * TW, H, N)[:, :S]
+    return (*(unchunk(x) for x in out), du, Go)
+
+
 def inputs(seed, B, S, H, N, *, bf16: bool, logw_mean: float = 0.0, logw_scale: float = 1.0):
     """Numpy-seeded operands as float32 tensors: r, k at 0.5 and v, dout at
     1 normal (rounded to bf16 values where ``bf16``), logw =
@@ -307,15 +495,24 @@ def test_passes_are_read_from_the_source():
     assert shipped_passes() == 3
 
 
-@pytest.mark.parametrize("segments", [None, 1])
+def test_wgmma_parts_are_read_from_the_source():
+    """Two bf16 parts of an fp32 operand, three in the products that feed
+    the carried state and gradient."""
+    assert shipped_parts() == (2, 3)
+
+
+@pytest.mark.parametrize("segments", [None, 1, "wgmma"])
 @pytest.mark.parametrize("N", [16, 32, 64])
-@pytest.mark.parametrize("S", [0, 1, 31, 33, 300])
+@pytest.mark.parametrize("S", [0, 1, 31, 33, 300, 63, 65])
 def test_twin_matches_float64_autograd(S, N, segments):
     """With exact products, the decomposition (segments, the chains, the
-    block-boundary factors, the walks, dlogw's identity) is the gradient."""
+    block-boundary factors, the walks, dlogw's identity) is the gradient;
+    ``"wgmma"``: the wgmma kernel's (64-step chunks in one segment, the
+    levels 32, 16 and 8, dlogw's identity per half)."""
     args = inputs(20 + S + N, 2, S, 2, N, bf16=False)
     want = float64_autograd(*args)
-    got = twin_grad(*args, segments=segments)
+    got = (twin_grad_wgmma(*args) if segments == "wgmma"
+           else twin_grad(*args, segments=segments))
     for x, w in zip(got, want):
         close(x.numpy(), (torch.zeros_like(x) if w is None else w).numpy(), F64_TOL)
 
@@ -332,14 +529,17 @@ def test_twin_cuts_300_steps_into_several_segments():
             close(x.numpy(), w.numpy(), F64_TOL)
 
 
-@pytest.mark.parametrize("bf16", [True, False])
+@pytest.mark.parametrize("bf16", [True, False, "wgmma"])
 @pytest.mark.parametrize("N", [16, 32, 64])
-@pytest.mark.parametrize("S", [1, 33, 300])
+@pytest.mark.parametrize("S", [1, 33, 300, 65])
 def test_twin_in_the_kernels_passes_matches_jax_vjp(S, N, bf16):
-    args = inputs(40 + S + N, 2, S, 2, N, bf16=bf16)
+    """``"wgmma"``: the wgmma kernel's twin in its bf16 parts, on
+    bf16-valued inputs (the kernel's only dtype)."""
+    args = inputs(40 + S + N, 2, S, 2, N, bf16=bool(bf16))
     _, vjp = jax.vjp(jref.wkv6_reference, *(jnp.asarray(x.numpy()) for x in args[:6]))
     want = vjp((jnp.asarray(args[6].numpy()), jnp.asarray(args[7].numpy())))
-    got = twin_grad(*args, exact=bf16, passes=shipped_passes())
+    got = (twin_grad_wgmma(*args, parts=shipped_parts()) if bf16 == "wgmma"
+           else twin_grad(*args, exact=bf16, passes=shipped_passes()))
     for x, w in zip(got, want):
         close(x.numpy(), np.asarray(w), FP32_TOL)
 
@@ -373,9 +573,23 @@ def test_twin_survives_extreme_decays(N):
         close(x.numpy(), w.numpy(), FP32_TOL)
 
 
+def test_wgmma_twin_survives_extreme_decays():
+    """logw down to −e³ a step: the wgmma kernel's factors (the levels' and
+    the chunk's running products) are products of e^w ≤ 1, so nothing
+    overflows, and its twin in its parts agrees with the float64 formulas."""
+    args = inputs(85, 2, 200, 2, 64, bf16=True, logw_mean=2.0)
+    assert float(args[3].min()) < -np.exp(3.0)
+    got = twin_grad_wgmma(*args, parts=shipped_parts())
+    want = ref.wkv6_backward_reference(*(t.double() for t in args))
+    for x, w in zip(got, want):
+        assert torch.isfinite(x).all()
+        close(x.numpy(), w.numpy(), FP32_TOL)
+
+
 @pytest.mark.parametrize("bf16,passes,within", [(True, None, True), (True, 1, False),
                                                (False, None, True), (False, 1, False),
-                                               (False, 2, False)])
+                                               (False, 2, False), ("wgmma", None, True),
+                                               ("wgmma", "one part fewer", False)])
 def test_passes_against_the_chip_limit(bf16, passes, within):
     """Rounded to the kernel's output types, the twin in the kernel's passes
     is within phase 19's limits; in one pass, or in two where both operands
@@ -383,12 +597,17 @@ def test_passes_against_the_chip_limit(bf16, passes, within):
     near the limit without passing it; on the card, whose tensor cores
     truncate their sums, that build fails it, ``parity_probe.py``.)"""
     cs = chip_smoke()
-    args = inputs(90, 2, 300, 3, 64, bf16=bf16)
+    args = inputs(90, 2, 300, 3, 64, bf16=bool(bf16))
     dt = torch.bfloat16 if bf16 else torch.float32
     typed = [x.to(dt) for x in args[:3]] + list(args[3:6]) + [args[6].to(dt), args[7]]
     want = ref.wkv6_backward_reference(*(t.double() for t in args))
     limits = cs.wkv_bwd_limits(*typed)
-    got = twin_grad(*args, exact=bf16, passes=shipped_passes() if passes is None else passes)
+    if bf16 == "wgmma":   # the wgmma kernel's parts, or one part fewer where not chained
+        parts, chain = shipped_parts()
+        got = twin_grad_wgmma(*args, parts=(parts, chain) if passes is None
+                              else (parts - 1, chain))
+    else:
+        got = twin_grad(*args, exact=bf16, passes=shipped_passes() if passes is None else passes)
     got = [x.to(dt) for x in got[:3]] + [x.float() for x in got[3:]]
     ratio = cs.held_bwd(got, want, limits)[1]
     assert (ratio <= 1.0) == within, ratio

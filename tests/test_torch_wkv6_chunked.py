@@ -13,7 +13,10 @@ at both head sizes, within the reference's own 2e-4 / 1e-3
 (``tests/test_kernels.py``); with logw down to −exp(3) its outputs stay
 finite and agree.  ``wkv6.plan_segments`` and ``wkv6.plan_bwd_segments``
 cut every sequence into whole chunks, and the backward's plan and scratch
-keep their values.
+keep their values; ``wkv6.backward_plan`` routes bf16 at N = 64 with B·H ≥
+``BWD_WGMMA_HEADS`` to the wgmma kernel (one segment of 64-step chunks) and everything
+else to the tf32 kernel, and ``meta._wkv_bwd_scratch`` counts what the
+wrapper allocates on either route.
 """
 import numpy as np
 import pytest
@@ -166,3 +169,81 @@ def test_backward_plan_and_scratch_keep_their_values(B, H, S, want):
     r = torch.empty((B, S, H, N), device="meta")
     assert meta._wkv_bwd_scratch(r) == 4 * B * H * ((-(-S // 32) + 2 * (P - 1)) * N * N
                                                     + 2 * P * N)
+
+
+@pytest.mark.parametrize("chunk", CHUNKS)
+@pytest.mark.parametrize("logw_mean", [0.0, 2.0])
+def test_float64_chunked_twin_is_the_sequential_recurrence(chunk, logw_mean):
+    """In float64 (the want of ``chip_smoke.py`` phase 8's checks) the
+    chunked form, its walks' decays from logw's running sums, is the
+    sequential recurrence to ~1e-15 relative, also with logw down to −e³
+    a step; phase 8 holds it to 1e-10 on the card."""
+    xs = [torch.from_numpy(x).double()
+          for x in wkv_inputs(2, 150, 3, 64, seed=7 + chunk, logw_mean=logw_mean)]
+    o_c, s_c = ref.wkv6_chunked_reference(*xs, chunk=chunk, acc=torch.float64)
+    o_s, s_s = wk.plain(*xs, acc=torch.float64)
+    assert o_c.dtype == torch.float64 and torch.isfinite(o_c).all()
+    assert float((o_c - o_s).abs().max() / o_s.abs().max()) <= 1e-13
+    assert float((s_c - s_s).abs().max() / s_s.abs().max()) <= 2.0 ** -23
+
+
+@pytest.mark.parametrize("B,H,S,N,dtype,want", [
+    (4, 64, 2048, 64, torch.bfloat16, (1, 32, 64)),     # rwkv6-7b's training row
+    (4, 64, 300, 64, torch.bfloat16, (1, 5, 64)),       # phase 19 (a)'s partial chunk
+    (2, 66, 100, 48, torch.bfloat16, (1, 2, 64)),       # B·H = SMS, heads padded to 64
+    (4, 64, 0, 64, torch.bfloat16, (1, 0, 64)),
+    (1, 96, 2048, 64, torch.bfloat16, (1, 32, 64)),     # B·H at the cut
+    (1, 95, 2048, 64, torch.bfloat16, (22, 3, 32)),     # B·H below it: the tf32 kernel
+    (1, 64, 1024, 64, torch.bfloat16, (32, 1, 32)),     # rwkv6-7b at batch 1: the tf32 kernel
+    (4, 128, 2048, 32, torch.bfloat16, (4, 16, 32)),    # N 32
+    (4, 64, 2048, 64, torch.float32, (8, 8, 32)),       # fp32
+    (8, 32, 256, 16, torch.float32, (8, 1, 32))])       # the ~100M config's heads of 16
+def test_backward_plan_routes(B, H, S, N, dtype, want):
+    """bf16 at N = 64 with B·H ≥ ``BWD_WGMMA_HEADS`` takes the wgmma kernel,
+    one segment of 64-step chunks; every other call the tf32 kernel in
+    ``plan_bwd_segments``' segments of 32-step chunks, as before."""
+    assert wk.BWD_WGMMA_HEADS == 96 and wk.CHUNK == 64
+    assert wk.backward_plan(B, H, S, N, dtype) == want
+    if want[2] == wk.BWD_CHUNK:
+        assert want[:2] == wk.plan_bwd_segments(B, H, S)
+
+
+@pytest.mark.parametrize("B,H,S,N,dtype", [(4, 64, 300, 64, torch.bfloat16),
+                                           (2, 66, 130, 48, torch.bfloat16),
+                                           (1, 64, 100, 64, torch.bfloat16),
+                                           (2, 4, 300, 32, torch.float32),
+                                           (2, 4, 300, 16, torch.float32)])
+def test_backward_scratch_is_what_the_wrapper_allocates(monkeypatch, B, H, S, N, dtype):
+    """``meta._wkv_bwd_scratch`` against the scratch ``wk.wkv6_bwd``
+    allocates (its torch.empty calls; the outputs are empty_like) on either
+    route, the launch itself stubbed out: the dry-run counts what a call
+    holds."""
+    calls = []
+    real_empty = torch.empty
+
+    def empty(*shape, **kw):
+        t = real_empty(*shape, **kw)
+        calls.append(t.numel() * t.element_size())
+        return t
+
+    class Lib:
+        def wkv6_bwd(self, *args):
+            return 0
+
+        def wkv6_bwd_wgmma(self, *args):
+            return 0
+
+    class Stream:
+        cuda_stream = 0
+    monkeypatch.setattr(wk, "_lib_bwd", lambda: Lib())
+    monkeypatch.setattr(wk, "_check_call", lambda *args: None)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: Stream())
+    monkeypatch.setattr(torch, "empty", empty)
+    args = [real_empty(shape, dtype=dt) for shape, dt in (
+        ((B, S, H, N), dtype), ((B, S, H, N), dtype), ((B, S, H, N), dtype),
+        ((B, S, H, N), torch.float32), ((H, N), torch.float32), ((B, H, N, N), torch.float32),
+        ((B, S, H, N), dtype), ((B, H, N, N), torch.float32))]
+    wk.wkv6_bwd(*args)
+    monkeypatch.undo()
+    r = torch.empty((B, S, H, N), dtype=dtype, device="meta")
+    assert sum(calls) == meta._wkv_bwd_scratch(r)
